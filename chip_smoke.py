@@ -1,0 +1,415 @@
+#!/usr/bin/env python3
+"""Bring-up check of ``simd_dct_tpu_torch`` on one NVIDIA GPU.
+
+Run from the root of the repository on a machine with a CUDA card:
+
+    python3 chip_smoke.py [--seed N]
+
+Phases (any failure raises, and the script exits non-zero without the
+result line):
+  1. the card: nvidia-smi name and power limit, torch's device name;
+  2. build the kernels from csrc/ with nvcc, print build time and ptxas
+     register use, run the capability probe;
+  3. each kernel against its plain PyTorch version on the same CUDA tensors
+     (+-1 on at most 0.2% of bytes) at 4096x3840, 1088x1920, 256x192, a
+     batch of 8 frames of 1088x1920, every rounding mode and a strip range;
+     the 256x192 encode also against an independent float64 NumPy model;
+  4. the fused round trip equals decode(encode(x)) byte for byte, and its
+     PSNR on a smooth 4K view is within 0.1 dB of the plain version's;
+  5. the main path through the public api, with every launch counter set
+     to 0 just before: 4K encode, decode and round trip, and the 64-frame
+     1088x1920 round trip of the BASELINE video ladder; every kernel of the
+     path must have launched;
+  6. timing of kernel, plain version and a same-run device-to-device copy
+     of the same bytes, rotating over inputs larger than the 50 MB L2,
+     median of REPS repetitions: kernel and copy by CUDA events with the
+     rotation queued behind a device-side sleep (no host launch cost in
+     the reading), the plain version by torch.profiler device time, and
+     the CUDA-event wall of back-to-back calls for each.
+The line before the last is a JSON object with one entry per kernel; the
+last line is ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from simd_dct_tpu_torch import api as sd
+from simd_dct_tpu_torch.core.dct import dct_basis_np
+from simd_dct_tpu_torch.core.quantize import VR, default_quant_lut
+from simd_dct_tpu_torch.dispatch import capability
+from simd_dct_tpu_torch.kernels import _build, cuda_dct, torch_path
+from simd_dct_tpu_torch.utils.debug import compare_backends
+from simd_dct_tpu_torch.utils.metrics import psnr
+
+SOURCE = "simd_dct_tpu_torch/csrc/dct32.cu"
+REPLACES = {
+    "enc32": "simd_dct_tpu/kernels/pallas_dct.py:81",
+    "dec32": "simd_dct_tpu/kernels/pallas_dct.py:178",
+    "roundtrip32": "simd_dct_tpu/kernels/pallas_dct.py:392",
+    "probe": "simd_dct_tpu/dispatch/capability.py:55",
+}
+# (H, W, frames) of the dual-view images the comparisons run on
+GEOMETRIES = [(4096, 3840, 1), (1088, 1920, 1), (256, 192, 1), (1088, 1920, 8)]
+DEV = "cuda"
+REPS = 25
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def random_images(gen, h, w, frames):
+    shape = (h, w) if frames == 1 else (frames, h, w)
+    return torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8,
+                         device=DEV)
+
+
+def smooth_image(gen, h, w):
+    """The smooth test image of simd_dct_tpu/bench/harness.py:62-66."""
+    yy = torch.arange(h, device=DEV, dtype=torch.float64)[:, None]
+    xx = torch.arange(w, device=DEV, dtype=torch.float64)[None, :]
+    noise = torch.randn((h, w), generator=gen, device=DEV,
+                        dtype=torch.float64) * 3
+    img = (128 + 45 * torch.sin(xx / 9.0) * torch.cos(yy / 7.0)
+           + 30 * (xx / max(w - 1, 1)) + noise)
+    return img.clamp(0, 255).to(torch.uint8)
+
+
+def agree(name: str, got, want, errs: dict, key: str) -> None:
+    rep = compare_backends({"kernel": got, "plain": want})["kernel-vs-plain"]
+    log(f"  {name}: max_abs_diff={rep['max_abs_diff']} "
+        f"mismatch_rate={rep['mismatch_rate']:.3e} ok={rep['ok']}")
+    errs[key] = max(errs.get(key, 0), rep["max_abs_diff"])
+    require(rep["ok"], f"{name} within +-1 on at most 0.2% of bytes")
+
+
+def numpy_encode32_f64(img: np.ndarray, lut: np.ndarray) -> np.ndarray:
+    """Independent float64 model of the mode32 encode (rne)."""
+    h, w = img.shape
+    s, bw = h // 16, w // 8
+    x = img[: h // 2].reshape(s, 8, bw, 8).transpose(0, 2, 1, 3)
+    d = dct_basis_np("float64")
+    c = np.einsum("uj,sbjk,vk->sbuv", d, x.astype(np.float64), d)
+    q = 255.0 / (lut.astype(np.float64) * float(VR))
+    n = np.clip(np.rint(c.reshape(s, bw, 64) * q) + 127, 0, 255)
+    recs = n.astype(np.uint8).reshape(s, bw // 8, 8, 64).transpose(0, 1, 3, 2)
+    return recs.reshape(-1)
+
+
+def phase_compare(gen, lut, errs):
+    log("phase 3: kernels against the plain version on the card")
+    for h, w, frames in GEOMETRIES:
+        img = random_images(gen, h, w, frames)
+        tag = f"{frames}x{h}x{w}"
+        modes = ("rne", "scalar", "clamp_first") if h == 4096 else ("rne",)
+        for rounding in modes:
+            agree(f"enc32 {tag} {rounding}",
+                  cuda_dct.encode_quantize32(img, lut, rounding=rounding),
+                  torch_path.encode_quantize32(img, lut, rounding=rounding),
+                  errs, "enc32")
+        rec = torch_path.encode_quantize32(img, lut)
+        agree(f"dec32 {tag} (same records)",
+              cuda_dct.decode_quantize32(rec, lut, w, h),
+              torch_path.decode_quantize32(rec, lut, w, h), errs, "dec32")
+        fused = cuda_dct.roundtrip_quantize32(img, lut)
+        composed = cuda_dct.decode_quantize32(
+            cuda_dct.encode_quantize32(img, lut), lut, w, h)
+        require(torch.equal(fused, composed),
+                f"roundtrip32 {tag}: fused == composed byte for byte")
+        plain_rt = torch_path.roundtrip_quantize32(img, lut)
+        diff = (fused.to(torch.int16) - plain_rt.to(torch.int16)).abs()
+        errs["roundtrip32"] = max(errs.get("roundtrip32", 0),
+                                  int(diff.max()))
+        log(f"  roundtrip32 {tag}: fused == composed; against plain "
+            f"max_abs_diff={int(diff.max())} "
+            f"mismatch_rate={float((diff > 0).double().mean()):.3e}")
+    img = random_images(gen, 512, 3840, 1)
+    agree("enc32 512x3840 strip range [64, 191]",
+          cuda_dct.encode_quantize32(img, lut, 64, 191),
+          torch_path.encode_quantize32(img, lut, 64, 191), errs, "enc32")
+    recs = cuda_dct.encode_quantize32(img, lut, 64, 191).view(32, -1)
+    require(not recs[:4].any() and not recs[12:].any() and recs[4:12].any(),
+            "strip range keeps strips 4..11 only")
+    small = random_images(gen, 256, 192, 1)
+    rep = compare_backends({
+        "kernel": cuda_dct.encode_quantize32(small, lut),
+        "numpy_f64": numpy_encode32_f64(small.cpu().numpy(), lut)})
+    log(f"  enc32 256x192 against float64 numpy: {rep}")
+    require(all(v["ok"] for v in rep.values()), "enc32 against float64 model")
+    x = random_images(gen, 8, 128, 1)
+    got = cuda_dct.probe_trial(x)
+    errs["probe"] = int((got.to(torch.int16)
+                         - torch_path.probe_trial(x).to(torch.int16))
+                        .abs().max())
+    require(errs["probe"] == 0, "probe kernel equals its plain version")
+    log("  probe (8,128): equal")
+
+
+def phase_psnr(gen, lut):
+    log("phase 4: round-trip PSNR on a smooth 4K view")
+    img = smooth_image(gen, 4096, 3840)
+    top = img[:2048].cpu().numpy()
+    fused = cuda_dct.roundtrip_quantize32(img, lut).cpu().numpy()
+    plain = torch_path.roundtrip_quantize32(img, lut).cpu().numpy()
+    p_k, p_p = psnr(top, fused), psnr(top, plain)
+    log(f"  psnr kernel={p_k:.4f} dB plain={p_p:.4f} dB "
+        f"delta={p_k - p_p:+.4f} dB")
+    require(abs(p_k - p_p) < 0.1, "round-trip PSNR within 0.1 dB of plain")
+
+
+def phase_main_path(gen, lut):
+    log("phase 5: the main path through the public api")
+    img = smooth_image(gen, 4096, 3840)
+    video = random_images(gen, 1088, 1920, 64)
+    torch.cuda.synchronize()
+    cuda_dct.reset_launch_counts()
+    capability.probe.cache_clear()      # a fresh process probes on first use
+    rec = sd.encode_quantize32(img, lut)
+    pix = sd.decode_quantize32(rec, lut, 3840, 4096)
+    rt = sd.roundtrip_quantize32(img, lut)
+    vid = sd.roundtrip_quantize32(video, lut)
+    torch.cuda.synchronize()
+    counts = dict(cuda_dct.LAUNCHES)
+    log(f"  launches: {counts}")
+    for name in REPLACES:
+        require(counts[name] > 0, f"{name} launched on the main path")
+    require(rec.shape == (2048 * 3840,) and rec.dtype == torch.uint8,
+            "record shape")
+    require(pix.shape == rt.shape == (2048, 3840), "view shape")
+    require(vid.shape == (64, 544, 1920), "video batch shape")
+    require(rec.device.type == pix.device.type == vid.device.type == DEV,
+            "results stay on the card")
+    require(torch.equal(pix, rt), "api round trip == api decode(encode)")
+    p = psnr(img[:2048].cpu().numpy(), rt.cpu().numpy())
+    require(15.0 < p < 99.0, f"main-path PSNR {p:.2f} dB is plausible")
+    log(f"  4K round-trip PSNR {p:.4f} dB; video batch {tuple(vid.shape)}")
+    return counts
+
+
+def copy_pair(p):
+    """Device-to-device copy of p[0] into p[1]: the same-run speed limit."""
+    return p[1].copy_(p[0])
+
+
+def _events():
+    return (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+
+
+def sleep_cycles_per_ms() -> float:
+    """Clock cycles of ``torch.cuda._sleep`` per millisecond on this card."""
+    torch.cuda._sleep(1000)
+    start, end = _events()
+    torch.cuda.synchronize()
+    start.record()
+    torch.cuda._sleep(10_000_000)
+    end.record()
+    end.synchronize()
+    return 1e7 / start.elapsed_time(end)
+
+
+def wall_ms(fn, inputs, reps):
+    """Median ms per call of back-to-back calls between two CUDA events:
+    the pace a caller sees, host launch cost included."""
+    for x in inputs[:2]:
+        fn(x)
+    torch.cuda.synchronize()
+    start, end = _events()
+    per_call = []
+    for _ in range(reps):
+        start.record()
+        for x in inputs:
+            fn(x)
+        end.record()
+        end.synchronize()
+        per_call.append(start.elapsed_time(end) / len(inputs))
+    return statistics.median(per_call)
+
+
+def queued_ms(fn, inputs, reps, cycles_per_ms):
+    """Median device ms per call by CUDA events, with the host's launch cost
+    hidden: each repetition queues the whole rotation behind a device-side
+    sleep, so the kernels run back to back.  A repetition counts only if
+    the host finished queueing before the device reached the first launch;
+    otherwise the sleep doubles.  fn must not synchronise."""
+    for x in inputs[:2]:
+        fn(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for x in inputs:
+        fn(x)
+    sleep_ms = 2e3 * (time.perf_counter() - t0) + 0.5
+    torch.cuda.synchronize()
+    start, end = _events()
+    per_call = []
+    while len(per_call) < reps:
+        require(sleep_ms < 1000, "the host queues a rotation within 1 s")
+        torch.cuda._sleep(int(sleep_ms * cycles_per_ms))
+        start.record()
+        for x in inputs:
+            fn(x)
+        end.record()
+        hidden = not start.query()
+        end.synchronize()
+        if hidden:
+            per_call.append(start.elapsed_time(end) / len(inputs))
+        else:
+            sleep_ms *= 2
+    return statistics.median(per_call)
+
+
+def profiled_us(fn, inputs, tries=3):
+    """Device time per call (us) from torch.profiler: for each GPU activity
+    it records, its mean time times its launches per call (robust to
+    dropped records).  (None, []) when ``tries`` profiles in a row record
+    no device activity.  Also the names of the kernels it ran."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        for x in inputs[:2]:
+            fn(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for x in inputs:
+                fn(x)
+            torch.cuda.synchronize()
+        evts = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.count > 0 and e.self_device_time_total > 0]
+        if evts:
+            us = sum(e.self_device_time_total / e.count
+                     * max(1, round(e.count / len(inputs))) for e in evts)
+            return us, sorted({e.key[:60] for e in evts})
+    return None, []
+
+
+def phase_timing(gen, lut, reps):
+    log("phase 6: timing, median of "
+        f"{reps} repetitions over rotations larger than L2.  kernel and "
+        "copy: CUDA events with the rotation queued behind a device sleep; "
+        "plain: torch.profiler device time (it synchronises on its scale "
+        "uploads, so it cannot be queued); wall: back-to-back calls")
+    cycles_per_ms = sleep_cycles_per_ms()
+    rows, table = {}, []
+    cases = [("2048x3840 view", 4096, 3840, 1, 16),
+             ("8x1088x1920 batch", 1088, 1920, 8, 6)]
+    for label, h, w, frames, n_rot in cases:
+        imgs = [random_images(gen, h, w, frames) for _ in range(n_rot)]
+        recs = [torch_path.encode_quantize32(x, lut) for x in imgs]
+        pairs = [(r, torch.empty_like(r)) for r in recs]
+        c_us = queued_ms(copy_pair, pairs, reps, cycles_per_ms) * 1e3
+        c_prof, _ = profiled_us(copy_pair, pairs)
+        log(f"  copy {label}: {c_us:.3f} us (profiler {c_prof})")
+        n_px = frames * (h // 2) * w
+        jobs = {
+            "enc32": (lambda x: cuda_dct.encode_quantize32(x, lut),
+                      lambda x: torch_path.encode_quantize32(x, lut), imgs),
+            "dec32": (lambda r: cuda_dct.decode_quantize32(r, lut, w, h),
+                      lambda r: torch_path.decode_quantize32(r, lut, w, h),
+                      recs),
+            "roundtrip32": (lambda x: cuda_dct.roundtrip_quantize32(x, lut),
+                            lambda x: torch_path.roundtrip_quantize32(x, lut),
+                            imgs),
+        }
+        for name, (kern, plain, inputs) in jobs.items():
+            k_us = queued_ms(kern, inputs, reps, cycles_per_ms) * 1e3
+            k_prof, k_names = profiled_us(kern, inputs)
+            k_wall = wall_ms(kern, inputs, reps) * 1e3
+            p_prof, p_names = profiled_us(plain, inputs)
+            p_wall = wall_ms(plain, inputs, reps) * 1e3
+            p_us = p_prof if p_prof is not None else p_wall
+            table.append({
+                "kernel": name, "shape": label, "kernel_us": k_us,
+                "kernel_profiler_us": k_prof, "kernel_wall_us": k_wall,
+                "plain_us": p_us, "plain_estimator":
+                    "profiler" if p_prof is not None else "wall",
+                "plain_wall_us": p_wall, "copy_us": c_us,
+                "kernel_gbps": 2 * n_px / (k_us * 1e3),
+                "frac_of_copy": c_us / k_us,
+                "kernel_us_per_frame": k_us / frames,
+                "kernel_names": k_names, "plain_kernels": len(p_names)})
+            if frames == 1:
+                rows[name] = (k_us / 1e3, p_us / 1e3)
+            log(f"  {name:12s} {label:18s} kernel {k_us:8.3f} us "
+                f"(profiler {k_prof if k_prof is None else round(k_prof, 3)}"
+                f", wall {k_wall:7.2f})  plain {p_us:9.2f} us "
+                f"(wall {p_wall:8.2f})  copy {c_us:6.3f} us  "
+                f"{2 * n_px / (k_us * 1e3):7.1f} GB/s  "
+                f"{c_us / k_us:.3f} of copy  {k_us / frames:7.3f} us/frame")
+    xs = [random_images(gen, 8, 128, 1) for _ in range(16)]
+    k_us = queued_ms(cuda_dct.probe_trial, xs, reps, cycles_per_ms) * 1e3
+    p_prof, _ = profiled_us(torch_path.probe_trial, xs)
+    p_us = p_prof if p_prof is not None else \
+        wall_ms(torch_path.probe_trial, xs, reps) * 1e3
+    rows["probe"] = (k_us / 1e3, p_us / 1e3)
+    log(f"  probe (8,128): kernel {k_us:.3f} us  plain {p_us:.3f} us")
+    log("timing_table " + json.dumps(table))
+    return rows
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+
+    log("phase 1: the card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    log(smi.stdout.strip())
+    kind = torch.cuda.get_device_name(0)
+    log(f"torch device: {kind}  count={torch.cuda.device_count()}  "
+        f"torch {torch.__version__} cuda {torch.version.cuda}")
+
+    log("phase 2: build")
+    t0 = time.perf_counter()
+    lib_path = _build.build()
+    log(f"  built {lib_path} in {time.perf_counter() - t0:.2f} s")
+    with open(os.path.join(os.path.dirname(lib_path), "build.log")) as f:
+        for line in f:
+            if "registers" in line or "spill" in line:
+                log("  ptxas: " + line.strip())
+    log("  probe: " + capability.probe().banner)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=DEV).manual_seed(args.seed)
+    lut = default_quant_lut(50) * np.float32(255.0)
+    errs: dict[str, int] = {}
+    phase_compare(gen, lut, errs)
+    # quality 100 is the BASELINE ladder's LUT; at 50 the DC term clips
+    lut100 = default_quant_lut(100) * np.float32(255.0)
+    phase_psnr(gen, lut100)
+    counts = phase_main_path(gen, lut100)
+    times = phase_timing(gen, lut100, REPS)
+
+    kernels = [{"name": name, "route": "cuda", "source": SOURCE,
+                "replaces": REPLACES[name], "launches": counts[name],
+                "max_abs_err": errs[name], "ms": times[name][0],
+                "plain_ms": times[name][1]} for name in REPLACES]
+    log(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,34 @@
+"""simd_dct_tpu_torch -- the mode32 engine of ``simd_dct_tpu`` in PyTorch,
+with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+
+The JAX package ``simd_dct_tpu`` is the reference this package is held
+against; this package never imports jax.  Layer map:
+
+* ``core``     -- DCT basis and quantization math
+* ``layout``   -- blockize and the mode32 group-of-8 record layout
+* ``kernels``  -- plain PyTorch version (``torch_path``), CUDA kernel
+  wrappers (``cuda_dct``) and the nvcc build (``_build``)
+* ``dispatch`` -- tiers ``cuda`` / ``torch`` and the capability probe
+* ``api``      -- validated public entry points
+* ``convert``  -- LUT scales and record streams shared with the JAX package
+"""
+
+__version__ = "0.1.0"
+
+from . import core
+from . import layout
+from . import dispatch
+from . import api
+from .api import (
+    SimdDctResult, SimdDctError, InvalidParameterError, NotSupportedError,
+    encode_quantize32, decode_quantize32, roundtrip_quantize32,
+)
+from .core.quantize import default_quant_lut
+
+__all__ = [
+    "core", "layout", "dispatch", "api", "__version__",
+    "SimdDctResult", "SimdDctError", "InvalidParameterError",
+    "NotSupportedError",
+    "encode_quantize32", "decode_quantize32", "roundtrip_quantize32",
+    "default_quant_lut",
+]

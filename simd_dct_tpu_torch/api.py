@@ -1,0 +1,265 @@
+"""Public mode32 API: validated encode / decode / round-trip entry points.
+
+Counterpart of the mode32 part of ``simd_dct_tpu/api.py``, with the same
+validation contract and the same typed errors (``simdDctResult``,
+src/simd_dct.h:22-27).  Inputs are torch tensors, or anything
+``numpy.asarray`` takes, which is placed on ``device`` (default: the CPU).
+A CUDA tensor runs the hand-written kernels, a CPU tensor the plain
+PyTorch version (``dispatch/capability.py``); the result lies on the
+input's device.  A ``(B, H, W)`` batch is one batch dimension all the way
+down: one kernel launch covers every frame.
+"""
+
+from __future__ import annotations
+
+import enum
+from typing import Any
+
+import numpy as np
+import torch
+
+from .core.quantize import ROUNDING_MODES, lut_array
+from .dispatch.capability import select_backend
+from .kernels import cuda_dct as _cuda
+from .kernels import torch_path as _tp
+
+
+class SimdDctResult(enum.IntEnum):
+    """Mirror of simdDctResult (src/simd_dct.h:22-27)."""
+    SUCCESS = 0
+    INVALID_PARAMETER = 1
+    NOT_SUPPORTED = 2
+
+
+class SimdDctError(Exception):
+    result: SimdDctResult = SimdDctResult.INVALID_PARAMETER
+
+
+class InvalidParameterError(SimdDctError):
+    result = SimdDctResult.INVALID_PARAMETER
+
+
+class NotSupportedError(SimdDctError):
+    result = SimdDctResult.NOT_SUPPORTED
+
+
+_END_Y_SENTINEL = 1 << 30
+
+_COMPAT_TODO = ("compat=True (the strict-IEEE butterfly engine of "
+                "simd_dct_tpu/kernels/compat.py) is not ported yet: "
+                "ROADMAP.md, Queue 1 item 8")
+
+
+def _as_tensor(x: Any, device, name: str) -> torch.Tensor:
+    """A tensor stays where it is (a ``device`` that differs raises: data
+    is never moved quietly); anything else is placed on ``device``."""
+    if isinstance(x, torch.Tensor):
+        if device is not None:
+            want = torch.device(device)
+            if want.type != x.device.type or (
+                    want.index is not None and want.index != x.device.index):
+                raise InvalidParameterError(
+                    f"{name} lies on {x.device}, but device={want} was "
+                    "requested; move it explicitly")
+        return x
+    arr = np.asarray(x)
+    if not arr.flags.writeable:     # torch warns on read-only buffers
+        arr = arr.copy()
+    try:
+        return torch.as_tensor(arr,
+                               device=device if device is not None else "cpu")
+    except TypeError as e:
+        raise InvalidParameterError(f"cannot read {name}: {e}") from None
+
+
+def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous and 16-byte aligned, as the kernels take it."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def _validate(image: Any, lut: Any, *, multiple_of_64: bool = False,
+              allow_spill: bool = False, device=None):
+    if image is None or lut is None:
+        raise InvalidParameterError("image and lut must not be None")
+    img = _as_tensor(image, device, "image")
+    if img.ndim not in (2, 3):
+        raise InvalidParameterError(
+            f"expected a (H, W) image or (B, H, W) batch, got shape "
+            f"{tuple(img.shape)}")
+    h, w = img.shape[-2:]
+    if (w % 8) or (h % 8):
+        raise NotSupportedError(
+            f"image dims must be multiples of 8, got {(w, h)}")
+    if h % 16 and not allow_spill:
+        raise NotSupportedError(
+            f"dual-view geometry requires H % 16 == 0, got H={h} "
+            "(pass spill=True for reference spill semantics)")
+    if multiple_of_64 and (w % 64):
+        raise NotSupportedError(
+            f"enc-quant32 requires W % 64 == 0 (src/simd_dct.cpp:118), got {w}")
+    if img.dtype != torch.uint8:
+        raise InvalidParameterError(f"image must be uint8, got {img.dtype}")
+    lut_arr = _lut_array(lut)
+    if not np.all(np.isfinite(lut_arr)) or np.any(lut_arr <= 0):
+        raise InvalidParameterError("lut entries must be positive and finite")
+    return img, lut_arr, h, w
+
+
+def _lut_array(lut: Any) -> np.ndarray:
+    try:
+        return lut_array(lut)
+    except ValueError as e:
+        raise InvalidParameterError(str(e)) from None
+
+
+def _check_rounding(rounding: str):
+    if rounding not in ROUNDING_MODES:
+        raise InvalidParameterError(
+            f"rounding must be one of {ROUNDING_MODES}, got {rounding!r}")
+
+
+def _reject_compat(compat: bool):
+    if compat:
+        raise NotSupportedError(_COMPAT_TODO)
+
+
+def _resolve_end_y(end_y):
+    """None -> open-ended (the reference compares the raw caller value
+    against y*2 each strip, src/simd_dct.cpp:268)."""
+    return _END_Y_SENTINEL if end_y is None else int(end_y)
+
+
+def _spill_view_image(img: torch.Tensor, w: int) -> torch.Tensor:
+    """(..., H, W) u8 with H % 16 == 8 -> (..., 2*R, W) dual-view image
+    whose TOP view is rows [0, R), R = ceil((H/2)/8)*8: the rows the
+    reference's spill strip reads (4 rows into the second view,
+    src/simd_dct.cpp:268).  The zero bottom view is never read."""
+    h = img.shape[-2]
+    rows = -(-(h // 2) // 8) * 8
+    top = img[..., :rows, :]
+    pad = torch.zeros(img.shape[:-2] + (rows, w), dtype=torch.uint8,
+                      device=img.device)
+    return torch.cat([top, pad], dim=-2)
+
+
+# ---------------------------------------------------------------------------
+# encode / decode / round trip
+# ---------------------------------------------------------------------------
+
+def encode_quantize32(image, lut, start_y: int = 0, end_y: int | None = None,
+                      *, rounding: str = "rne", backend: str | None = None,
+                      compat: bool = False, spill: bool = False,
+                      device=None) -> torch.Tensor:
+    """≙ simdDCT_EncodeQuantize32ReorderBuffer: 8-block coefficient-major
+    encode of the TOP view in the raw 0..255 domain.  Returns H/2*W u8
+    bytes per frame: (H/2*W,) or (B, H/2*W).  Bytes of strips outside
+    [start_y, end_y] are zero.  ``spill=True`` accepts H % 16 == 8 with the
+    reference's spill semantics (the output grows to ceil((H/2)/8)*8*W)."""
+    img, lut_arr, h, w = _validate(image, lut, multiple_of_64=True,
+                                   allow_spill=spill, device=device)
+    _check_rounding(rounding)
+    if spill and h % 16:
+        img = _spill_view_image(img, w)
+    tier = select_backend(backend, device=img.device)
+    _reject_compat(compat)
+    ey = _resolve_end_y(end_y)
+    if tier == "cuda":
+        return _cuda.encode_quantize32(_kernel_ready(img), lut_arr,
+                                       int(start_y), ey, rounding)
+    return _tp.encode_quantize32(img, lut_arr, int(start_y), ey, rounding)
+
+
+def _validate_decode(data, lut, size_x, size_y, expect_bytes, device):
+    if data is None or lut is None:
+        raise InvalidParameterError("data and lut must not be None")
+    if size_x <= 0 or size_y <= 0:
+        raise InvalidParameterError(
+            f"invalid dimensions {(size_x, size_y)}")
+    if (size_x % 8) or (size_y % 8):
+        raise NotSupportedError(
+            f"dims must be multiples of 8, got {(size_x, size_y)}")
+    if size_y % 16:
+        raise NotSupportedError(
+            f"dual-view geometry requires H % 16 == 0, got H={size_y}")
+    d = _as_tensor(data, device, "data")
+    if d.dtype != torch.uint8:
+        raise InvalidParameterError(
+            f"record streams must be uint8, got {d.dtype}")
+    if d.numel() % expect_bytes:
+        raise InvalidParameterError(
+            f"expected a multiple of {expect_bytes} bytes for "
+            f"{(size_x, size_y)}, got {d.numel()}")
+    batch = d.numel() // expect_bytes
+    # a batched input keeps its batch axis even for B == 1
+    batched = batch > 1 or d.ndim >= 2
+    d = d.reshape(batch, expect_bytes) if batched else d.reshape(-1)
+    return d, _lut_array(lut)
+
+
+def decode_quantize32(data, lut, size_x: int, size_y: int, *,
+                      backend: str | None = None, compat: bool = False,
+                      device=None) -> torch.Tensor:
+    """Inverse of ``encode_quantize32``: records -> the TOP view,
+    (size_y/2, size_x) or (B, size_y/2, size_x) u8."""
+    if size_x % 64:
+        raise NotSupportedError("enc-quant32 requires W % 64 == 0")
+    d, lut_arr = _validate_decode(data, lut, size_x, size_y,
+                                  (size_y // 2) * size_x, device)
+    tier = select_backend(backend, device=d.device)
+    _reject_compat(compat)
+    if tier == "cuda":
+        return _cuda.decode_quantize32(_kernel_ready(d), lut_arr, size_x,
+                                       size_y)
+    return _tp.decode_quantize32(d, lut_arr, size_x, size_y)
+
+
+def roundtrip_quantize32(image, lut, *, backend: str | None = None,
+                         device=None) -> torch.Tensor:
+    """Mode32 encode (``rne``) -> decode of the TOP view: (H/2, W) or
+    (B, H/2, W) u8.  The ``cuda`` tier runs one fused kernel whose records
+    never reach device memory; it equals decode(encode(x)) byte for byte."""
+    img, lut_arr, h, w = _validate(image, lut, multiple_of_64=True,
+                                   device=device)
+    tier = select_backend(backend, device=img.device)
+    if tier == "cuda":
+        return _cuda.roundtrip_quantize32(_kernel_ready(img), lut_arr)
+    return _tp.roundtrip_quantize32(img, lut_arr)
+
+
+# ---------------------------------------------------------------------------
+# C-enum-style wrapper
+# ---------------------------------------------------------------------------
+#
+# The raising entry points return a fresh tensor with excluded strips
+# zero-filled.  try_encode_quantize32 restores the reference behaviour: it
+# copies only the included strips' bytes into ``out`` and leaves the rest
+# untouched (src/simd_dct.cpp:1075-1083).
+
+def _strip_byte_mask(h: int, w: int, start_y, end_y,
+                     spill: bool = False) -> np.ndarray | None:
+    """Bool mask over the mode32 output bytes written for the strip range,
+    or None when every strip is included."""
+    n_strips = -(-h // 16) if (spill and h % 16) else h // 16
+    cmp = np.arange(n_strips, dtype=np.int64) * 16
+    ey = _resolve_end_y(end_y)
+    strips = (cmp >= int(start_y)) & (cmp <= ey)
+    if strips.all():
+        return None
+    return np.repeat(strips, 8 * w)
+
+
+def try_encode_quantize32(image, out, lut, size_x, size_y, start_y, end_y,
+                          **kw) -> SimdDctResult:
+    """Reference-shaped call: writes into ``out`` (a u8 numpy array of
+    H/2*W bytes per frame) and returns a SimdDctResult instead of
+    raising."""
+    try:
+        result = encode_quantize32(image, lut, start_y, end_y, **kw)
+    except SimdDctError as e:
+        return e.result
+    mask = _strip_byte_mask(size_y, size_x, start_y, end_y,
+                            spill=kw.get("spill", False))
+    np.copyto(out, result.cpu().numpy(),
+              where=True if mask is None else mask)
+    return SimdDctResult.SUCCESS

@@ -1,0 +1,113 @@
+"""Backend tiers and the capability probe (counterpart of
+``simd_dct_tpu/dispatch/capability.py``).
+
+    tier "cuda"  -- the hand-written kernels (kernels/cuda_dct.py)
+    tier "torch" -- the plain PyTorch version (kernels/torch_path.py)
+
+Device rule: a CUDA tensor goes to the ``cuda`` tier and a CPU tensor to
+the ``torch`` tier.  ``set_max_backend("torch")`` caps a CUDA tensor to the
+plain version on the card (the counterpart of ``--max-simd``).  Unlike the
+JAX package's probe, which degrades quietly when its trial compile fails,
+``probe()`` on a machine with a GPU builds the library, launches the trial
+kernel, and raises if either step fails.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import torch
+
+TIERS = ("cuda", "torch")
+
+_max_backend: str = "cuda"
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceInfo:
+    platform: str          # 'cuda' or 'cpu'
+    device_kind: str       # torch.cuda.get_device_name(0), or 'cpu'
+    num_devices: int
+    supports_cuda: bool
+
+    @property
+    def banner(self) -> str:
+        return (f"{self.device_kind} x{self.num_devices} "
+                f"[{self.platform}] cuda={self.supports_cuda}")
+
+
+def _trial_kernel() -> None:
+    """Build the library and run the trial kernel on the card; raise
+    unless it returns the plain version's bytes."""
+    from ..kernels import _build, cuda_dct, torch_path
+    _build.load()
+    x = (torch.arange(8 * 128, device="cuda") % 256).to(torch.uint8)
+    x = x.reshape(8, 128)
+    got = cuda_dct.probe_trial(x)
+    if not torch.equal(got, torch_path.probe_trial(x)):
+        raise RuntimeError("the CUDA trial kernel returned wrong bytes")
+
+
+@functools.lru_cache(maxsize=1)
+def probe() -> DeviceInfo:
+    """What this machine offers.  Cached after the first success; a
+    failure raises and is not cached."""
+    if not torch.cuda.is_available():
+        return DeviceInfo(platform="cpu", device_kind="cpu", num_devices=0,
+                          supports_cuda=False)
+    _trial_kernel()
+    return DeviceInfo(platform="cuda",
+                      device_kind=torch.cuda.get_device_name(0),
+                      num_devices=torch.cuda.device_count(),
+                      supports_cuda=True)
+
+
+def available_tiers() -> tuple[str, ...]:
+    """Tiers usable on this machine, strongest first."""
+    return TIERS if probe().supports_cuda else ("torch",)
+
+
+def set_max_backend(tier: str, *, strict: bool = False) -> None:
+    """Cap dispatch at a tier (the counterpart of ``--max-simd``).  With
+    ``strict=True`` the tier must be available on this machine."""
+    global _max_backend
+    if tier not in TIERS:
+        raise ValueError(f"unknown backend tier {tier!r}; expected one of {TIERS}")
+    if strict and tier not in available_tiers():
+        from ..api import NotSupportedError
+        raise NotSupportedError(
+            f"requested backend cap {tier!r} is not supported on this "
+            f"machine (available: {available_tiers()})")
+    _max_backend = tier
+
+
+def get_max_backend() -> str:
+    return _max_backend
+
+
+def select_backend(requested: str | None = None, *,
+                   device: torch.device | str | None = None) -> str:
+    """The tier for a call on data that lies on ``device``: an explicit
+    request, else the device rule under the global cap.  ``cuda`` for data
+    that is not on a CUDA device raises ``NotSupportedError``: the data is
+    never moved quietly."""
+    from ..api import NotSupportedError
+    if requested is not None and requested not in TIERS:
+        raise ValueError(f"unknown backend {requested!r}; expected one of {TIERS}")
+    dev = torch.device(device) if device is not None else None
+    on_cuda = dev is not None and dev.type == "cuda"
+    if requested == "cuda":
+        if dev is not None and not on_cuda:
+            raise NotSupportedError(
+                f"backend 'cuda' needs CUDA tensors; the data lies on {dev} "
+                "(move it with .to('cuda') first)")
+        if "cuda" not in available_tiers():
+            raise NotSupportedError(
+                "backend 'cuda' is not available on this machine "
+                f"(available: {available_tiers()})")
+        return "cuda"
+    if requested == "torch" or not on_cuda or _max_backend == "torch":
+        return "torch"
+    available_tiers()   # builds and probes the kernels; raises on failure
+    return "cuda"

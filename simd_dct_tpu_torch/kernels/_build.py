@@ -1,0 +1,121 @@
+"""Build and load the CUDA kernels of ``simd_dct_tpu_torch/csrc``.
+
+``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
+C interface, which ``ctypes`` loads (a few seconds; no PyTorch headers).
+The library goes to ``simd_dct_tpu_torch/_build/<hash>/``, keyed by a hash
+of the sources and flags, at first use.  It is compiled to a temporary
+path and renamed into place, so a concurrent build never sees a partial
+file.  A missing ``nvcc`` or a failed build raises ``RuntimeError``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_ROOT = os.path.join(_PKG, "_build")
+LIB_NAME = "libsimd_dct_cuda.so"
+
+# No --use_fast_math: the 'scalar' rounding mode divides by 255 and needs
+# IEEE division.  -Xptxas -v writes registers and spills to build.log.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+DEFAULT_CUDA_HOME = "/usr/local/cuda"
+
+_lock = threading.Lock()
+_lib = None
+
+
+def sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu"))
+                  + glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
+def find_nvcc() -> str:
+    """``nvcc`` from ``$CUDA_HOME/bin``, then ``PATH``, then the default
+    CUDA install; ``RuntimeError`` when none has it."""
+    home = os.environ.get("CUDA_HOME")
+    candidates = [os.path.join(home, "bin", "nvcc")] if home else []
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(on_path)
+    candidates.append(os.path.join(DEFAULT_CUDA_HOME, "bin", "nvcc"))
+    for c in candidates:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "cannot build the CUDA kernels: nvcc not found (looked in "
+        "$CUDA_HOME/bin, PATH and " + DEFAULT_CUDA_HOME + "/bin)")
+
+
+def _digest(srcs: list[str]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in srcs:
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def build() -> str:
+    """Compile the sources if this exact set has not been built yet;
+    return the library's path."""
+    srcs = sources()
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    out_dir = os.path.join(BUILD_ROOT, _digest(srcs))
+    lib = os.path.join(out_dir, LIB_NAME)
+    if os.path.exists(lib):
+        return lib
+    nvcc = find_nvcc()
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    cu = [s for s in srcs if s.endswith(".cu")]
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *cu]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with open(os.path.join(out_dir, "build.log"), "w") as f:
+        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
+                           f"{proc.stderr[-4000:]}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.sdct_enc32.argtypes = [p, p, p, i, i, i, ll, i, i, i, p]
+    lib.sdct_enc32.restype = i
+    lib.sdct_dec32.argtypes = [p, p, p, i, i, i, p]
+    lib.sdct_dec32.restype = i
+    lib.sdct_roundtrip32.argtypes = [p, p, p, p, i, i, i, ll, p]
+    lib.sdct_roundtrip32.restype = i
+    lib.sdct_probe.argtypes = [p, p, i, p]
+    lib.sdct_probe.restype = i
+    lib.sdct_error_string.argtypes = [i]
+    lib.sdct_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def load() -> ctypes.CDLL:
+    """The bound library, built on first use (thread-safe)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = _bind(ctypes.CDLL(build()))
+        return _lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if rc != 0:
+        msg = lib.sdct_error_string(rc).decode(errors="replace")
+        raise RuntimeError(f"{what} failed: CUDA error {rc} ({msg})")

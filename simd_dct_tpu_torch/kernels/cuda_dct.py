@@ -1,0 +1,209 @@
+"""Wrappers around the hand-written mode32 CUDA kernels (``csrc/dct32.cu``).
+
+Counterpart of the mode32 part of ``simd_dct_tpu/kernels/pallas_dct.py``
+(``encode_quantize32`` / ``decode_quantize32`` / ``roundtrip_quantize32``)
+and of the trial kernel of ``dispatch/capability.py``.
+
+Device rule: a CPU tensor goes to the plain PyTorch version
+(``kernels/torch_path.py``); a CUDA tensor launches the kernel, on
+PyTorch's current stream, or raises.  There is no fallback from a failed
+build or launch to the plain version.  Each wrapper checks device, dtype
+(u8), shape and contiguity first, whatever the device, allocates its output
+with ``torch.empty`` and raises if the launch returns a CUDA error.
+
+``LAUNCHES`` counts the launches of each kernel; a wrapper adds one where
+it launches, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+
+import numpy as np
+import torch
+
+from ..core.quantize import (ROUNDING_MODES, dequant_scales, lut_array,
+                             quant_scales)
+from . import _build
+from . import torch_path as _tp
+
+LAUNCHES = {"enc32": 0, "dec32": 0, "roundtrip32": 0, "probe": 0}
+
+_ROUNDING_CODE = {"rne": 0, "scalar": 1, "clamp_first": 2}
+_I32_MIN, _I32_MAX = -(1 << 31), (1 << 31) - 1
+_MAX_BATCH = 65535   # grid.y of one launch
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def supports_mode(mode: str, h: int, w: int) -> bool:
+    """Geometry the kernels take directly: any H % 16 == 0 and, for the
+    mode32 family, W % 64 == 0 (groups of 8 blocks, src/simd_dct.cpp:118).
+    No padding or slicing pass exists or is needed."""
+    if h <= 0 or w <= 0 or h % 16:
+        return False
+    if mode in ("enc_quant32", "dec_quant32", "roundtrip32"):
+        return w % 64 == 0
+    return False
+
+
+def _check_tensor(t, name: str, ndims: tuple[int, ...]) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} lies on {t.device}; the kernels take CUDA "
+                         "tensors and the plain version CPU tensors")
+    if t.dtype != torch.uint8:
+        raise TypeError(f"{name} must be uint8, got {t.dtype}")
+    if t.ndim not in ndims:
+        raise ValueError(f"{name} must have {' or '.join(map(str, ndims))} "
+                         f"dims, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.device.type == "cuda" and t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
+def _check_geometry(mode: str, h: int, w: int) -> None:
+    if not supports_mode(mode, h, w):
+        raise ValueError(f"{mode} needs H % 16 == 0 and W % 64 == 0, "
+                         f"got H={h}, W={w}")
+
+
+@functools.lru_cache(maxsize=32)
+def _scales_of(lut_bytes: bytes) -> tuple[np.ndarray, np.ndarray]:
+    lut = np.frombuffer(lut_bytes, np.float32)
+    out = (np.ascontiguousarray(quant_scales(lut).numpy()),
+           np.ascontiguousarray(dequant_scales(lut).numpy()))
+    for a in out:
+        a.flags.writeable = False     # shared by every caller of the cache
+    return out
+
+
+def _host_scales(lut) -> tuple[np.ndarray, np.ndarray]:
+    """(quant, dequant) scales, 64 host f32 each, passed to the kernels by
+    value; cached per LUT, since computing them costs more host time than
+    a launch."""
+    return _scales_of(lut_array(lut).tobytes())
+
+
+def _batch_of(t: torch.Tensor, base_ndim: int) -> int:
+    b = t.shape[0] if t.ndim > base_ndim else 1
+    if b > _MAX_BATCH:
+        raise ValueError(f"at most {_MAX_BATCH} frames per launch, got {b}")
+    return b
+
+
+def _on_device_of(t: torch.Tensor):
+    """Make t's card current for the launch (a no-op when it already is)."""
+    if t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def encode_quantize32(img: torch.Tensor, lut, start_y: int = 0,
+                      end_y: int = 1 << 30,
+                      rounding: str = "rne") -> torch.Tensor:
+    """Mode32 encode of the TOP view of a (H, W) or (B, H, W) dual-view
+    image -> (H/2*W,) or (B, H/2*W) u8 records; one launch per batch."""
+    _check_tensor(img, "img", (2, 3))
+    h, w = img.shape[-2:]
+    _check_geometry("enc_quant32", h, w)
+    if rounding not in ROUNDING_MODES:
+        raise ValueError(f"rounding must be one of {ROUNDING_MODES}")
+    if img.device.type == "cpu":
+        return _tp.encode_quantize32(img, lut, start_y, end_y, rounding)
+    batch = _batch_of(img, 2)
+    h2 = h // 2
+    out = torch.empty(img.shape[:-2] + (h2 * w,), dtype=torch.uint8,
+                      device=img.device)
+    if out.numel() == 0:
+        return out
+    q, _ = _host_scales(lut)
+    sy = min(max(int(start_y), _I32_MIN), _I32_MAX)
+    ey = min(max(int(end_y), _I32_MIN), _I32_MAX)
+    lib = _build.load()
+    with _on_device_of(img):
+        rc = lib.sdct_enc32(img.data_ptr(), out.data_ptr(), q.ctypes.data,
+                            batch, h2, w, h * w, sy, ey,
+                            _ROUNDING_CODE[rounding], _stream(img))
+        LAUNCHES["enc32"] += 1
+    _build.check(lib, rc, "enc32")
+    return out
+
+
+def decode_quantize32(data: torch.Tensor, lut, size_x: int,
+                      size_y: int) -> torch.Tensor:
+    """Mode32 records, (size_y/2*size_x,) or (B, size_y/2*size_x) u8 ->
+    (size_y/2, size_x) or (B, size_y/2, size_x) u8 pixels."""
+    _check_tensor(data, "data", (1, 2))
+    _check_geometry("dec_quant32", size_y, size_x)
+    h2 = size_y // 2
+    if data.shape[-1] != h2 * size_x:
+        raise ValueError(f"expected {h2 * size_x} record bytes per frame, "
+                         f"got {data.shape[-1]}")
+    if data.device.type == "cpu":
+        return _tp.decode_quantize32(data, lut, size_x, size_y)
+    batch = _batch_of(data, 1)
+    out = torch.empty(data.shape[:-1] + (h2, size_x), dtype=torch.uint8,
+                      device=data.device)
+    if out.numel() == 0:
+        return out
+    _, qi = _host_scales(lut)
+    lib = _build.load()
+    with _on_device_of(data):
+        rc = lib.sdct_dec32(data.data_ptr(), out.data_ptr(), qi.ctypes.data,
+                            batch, h2, size_x, _stream(data))
+        LAUNCHES["dec32"] += 1
+    _build.check(lib, rc, "dec32")
+    return out
+
+
+def roundtrip_quantize32(img: torch.Tensor, lut) -> torch.Tensor:
+    """Fused mode32 encode (``rne``) -> decode of the TOP view:
+    (H, W) or (B, H, W) u8 -> (H/2, W) or (B, H/2, W) u8."""
+    _check_tensor(img, "img", (2, 3))
+    h, w = img.shape[-2:]
+    _check_geometry("roundtrip32", h, w)
+    if img.device.type == "cpu":
+        return _tp.roundtrip_quantize32(img, lut)
+    batch = _batch_of(img, 2)
+    h2 = h // 2
+    out = torch.empty(img.shape[:-2] + (h2, w), dtype=torch.uint8,
+                      device=img.device)
+    if out.numel() == 0:
+        return out
+    q, qi = _host_scales(lut)
+    lib = _build.load()
+    with _on_device_of(img):
+        rc = lib.sdct_roundtrip32(img.data_ptr(), out.data_ptr(),
+                                  q.ctypes.data, qi.ctypes.data, batch, h2,
+                                  w, h * w, _stream(img))
+        LAUNCHES["roundtrip32"] += 1
+    _build.check(lib, rc, "roundtrip32")
+    return out
+
+
+def probe_trial(x: torch.Tensor) -> torch.Tensor:
+    """The tier probe's trial kernel: u8 + 1, clipped, on a 2-D u8 tensor."""
+    _check_tensor(x, "x", (2,))
+    if x.device.type == "cpu":
+        return _tp.probe_trial(x)
+    if x.numel() > _I32_MAX:
+        raise ValueError("probe input too large")
+    out = torch.empty_like(x)
+    lib = _build.load()
+    with _on_device_of(x):
+        rc = lib.sdct_probe(x.data_ptr(), out.data_ptr(), x.numel(),
+                            _stream(x))
+        LAUNCHES["probe"] += 1
+    _build.check(lib, rc, "probe")
+    return out

@@ -1,0 +1,92 @@
+"""Plain PyTorch version of the mode32 kernels (the ``torch`` tier).
+
+Counterpart of the mode32 part of ``simd_dct_tpu/kernels/xla_path.py``
+(its generic einsum branch: blockize, ``dct8x8``, quantize, group8).  It
+runs on any device PyTorch runs on.  The CPU tests hold it against the
+JAX package, and ``chip_smoke.py`` holds the CUDA kernels
+(``kernels/cuda_dct.py``) against it on the card.
+
+Every function takes optional leading batch axes.  The strip range
+``[start_y, end_y]`` keeps strip ``s`` (rows ``[8s, 8s+8)`` of the top
+view) iff ``start_y <= 16*s <= end_y`` -- the SIMD kernels' ``y*2``
+convention (src/simd_dct.cpp:1686-1696).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.dct import dct8x8, idct8x8
+from ..core.quantize import (dequant_scales, dequantize_from_u8,
+                             quant_scales, quantize_to_u8)
+from ..layout import blocks as L_blocks
+from ..layout import reorder as L_reorder
+
+
+def _strip_mask(num_strips: int, start_y: int, end_y: int) -> np.ndarray:
+    y2 = np.arange(num_strips, dtype=np.int64) * 16
+    return (y2 >= start_y) & (y2 <= end_y)
+
+
+def _apply_mask(flat: torch.Tensor, mask: np.ndarray,
+                bytes_per_strip: int) -> torch.Tensor:
+    """Zero the bytes of excluded strips in (..., S*bytes_per_strip)."""
+    if mask.all():
+        return flat
+    m = torch.as_tensor(np.repeat(mask, bytes_per_strip), device=flat.device)
+    return torch.where(m, flat, torch.zeros((), dtype=flat.dtype,
+                                            device=flat.device))
+
+
+def _coeff_buffers(view_u8: torch.Tensor) -> torch.Tensor:
+    """(..., S*8, W) u8, raw 0..255 -> (..., S, BW, 64) f32 fy-major
+    coefficient buffers."""
+    x = L_blocks.blockize(view_u8).to(torch.float32)
+    return L_reorder.coeffs_to_buffer(dct8x8(x))
+
+
+def _buffers_to_view(bufs: torch.Tensor) -> torch.Tensor:
+    """(..., S, BW, 64) f32 fy-major coefficient buffers -> (..., S*8, W)
+    u8 pixels (round half to even, clip to [0, 255])."""
+    x = idct8x8(L_reorder.buffer_to_coeffs(bufs))
+    px = torch.clamp(torch.round(x), 0.0, 255.0).to(torch.uint8)
+    return L_blocks.unblockize(px)
+
+
+def encode32_view(view: torch.Tensor, lut,
+                  rounding: str = "rne") -> torch.Tensor:
+    """Mode32 encode of a bare (..., H2, W) view -> (..., H2*W) records."""
+    bufs = _coeff_buffers(view)
+    data = quantize_to_u8(bufs, quant_scales(lut, view.device), rounding)
+    return L_reorder.group8(data)
+
+
+def encode_quantize32(img: torch.Tensor, lut, start_y: int = 0,
+                      end_y: int = 1 << 30,
+                      rounding: str = "rne") -> torch.Tensor:
+    """simdDCT_EncodeQuantize32ReorderBuffer semantics on the TOP view of a
+    (..., H, W) dual-view image: raw 0..255 domain, fy-major buffers,
+    coefficient-major 512-byte group records.  -> (..., H/2*W) u8."""
+    h, w = img.shape[-2:]
+    flat = encode32_view(img[..., : h // 2, :], lut, rounding)
+    return _apply_mask(flat, _strip_mask(h // 16, start_y, end_y), 8 * w)
+
+
+def decode_quantize32(data: torch.Tensor, lut, size_x: int,
+                      size_y: int) -> torch.Tensor:
+    """(..., size_y/2*size_x) records -> (..., size_y/2, size_x) u8."""
+    bufs = L_reorder.group8_inverse(data, size_x // 8)
+    coeffs = dequantize_from_u8(bufs, dequant_scales(lut, data.device))
+    return _buffers_to_view(coeffs)
+
+
+def roundtrip_quantize32(img: torch.Tensor, lut) -> torch.Tensor:
+    """Mode32 encode (``rne``) then decode of the TOP view, composed."""
+    h, w = img.shape[-2:]
+    return decode_quantize32(encode_quantize32(img, lut), lut, w, h)
+
+
+def probe_trial(x: torch.Tensor) -> torch.Tensor:
+    """The tier probe's trial operation: u8 + 1 in int32, clipped, u8."""
+    return (x.to(torch.int32) + 1).clamp(0, 255).to(torch.uint8)
