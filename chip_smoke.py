@@ -8,26 +8,43 @@ Run from the root of the repository on a machine with a CUDA card:
 Phases (any failure raises, and the script exits non-zero without the
 result line):
   1. the card: nvidia-smi name and power limit, torch's device name;
-  2. build the kernels from csrc/ with nvcc, print build time and ptxas
-     register use, run the capability probe;
-  3. each kernel against its plain PyTorch version on the same CUDA tensors
-     (+-1 on at most 0.2% of bytes) at 4096x3840, 1088x1920, 256x192, a
-     batch of 8 frames of 1088x1920, every rounding mode and a strip range;
-     the 256x192 encode also against an independent float64 NumPy model;
-  4. the fused round trip equals decode(encode(x)) byte for byte, and its
-     PSNR on a smooth 4K view is within 0.1 dB of the plain version's;
-  5. the main path through the public api, with every launch counter set
-     to 0 just before: 4K encode, decode and round trip, and the 64-frame
-     1088x1920 round trip of the BASELINE video ladder; every kernel of the
-     path must have launched;
-  6. timing of kernel, plain version and a same-run device-to-device copy
+  2. build the kernels from csrc/ with nvcc (one process per source, all
+     started together), print build time and ptxas register use, run the
+     capability probe;
+  3. each mode32 kernel against its plain PyTorch version on the same CUDA
+     tensors (+-1 on at most 0.2% of bytes) at 4096x3840, 1088x1920,
+     256x192, a batch of 8 frames of 1088x1920, every rounding mode and a
+     strip range; the 256x192 encode also against an independent float64
+     NumPy model;
+  4. the fused mode32 round trip equals decode(encode(x)) byte for byte,
+     and its PSNR on a smooth 4K view is within 0.1 dB of the plain
+     version's;
+  5. the mode32 main path through the public api, with every launch counter
+     set to 0 just before: 4K encode, decode and round trip, and the
+     64-frame 1088x1920 round trip of the BASELINE video ladder; every
+     kernel of the path must have launched;
+  6. the enc-quant kernels against their plain versions (+-1 on at most
+     0.2% of bytes) at the same geometries plus 4096x3848 (scalar only,
+     W % 16 == 8): all three layouts, every rounding mode at 4K, strip
+     ranges with and without legacy_range (one where pair_as_written spills
+     into an excluded strip); and three exact identities on the card: pair
+     == scalar permuted by the pair-cell map, pair_as_written == pair with
+     every second half zeroed, decode(scalar) == decode(pair);
+  7. the enc-quant main path through the public api with numpy inputs and
+     no device (they must land on the card), counters set to 0 just
+     before: 4K encode in the scalar and pair layouts, the decode of both,
+     and a 64-frame 1088x1920 batch in one launch each way; round-trip PSNR
+     on the smooth 4K view at quality 50 within 0.1 dB of the plain
+     version's;
+  8. timing of kernel, plain version and a same-run device-to-device copy
      of the same bytes, rotating over inputs larger than the 50 MB L2,
      median of REPS repetitions: kernel and copy by CUDA events with the
      rotation queued behind a device-side sleep (no host launch cost in
      the reading), the plain version by torch.profiler device time, and
      the CUDA-event wall of back-to-back calls for each.
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with one entry per kernel (its
+time, its bound and its share of the copy); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -35,6 +52,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -51,17 +69,36 @@ from simd_dct_tpu_torch.kernels import _build, cuda_dct, torch_path
 from simd_dct_tpu_torch.utils.debug import compare_backends
 from simd_dct_tpu_torch.utils.metrics import psnr
 
-SOURCE = "simd_dct_tpu_torch/csrc/dct32.cu"
-REPLACES = {
-    "enc32": "simd_dct_tpu/kernels/pallas_dct.py:81",
-    "dec32": "simd_dct_tpu/kernels/pallas_dct.py:178",
-    "roundtrip32": "simd_dct_tpu/kernels/pallas_dct.py:392",
-    "probe": "simd_dct_tpu/dispatch/capability.py:55",
+DCT32 = "simd_dct_tpu_torch/csrc/dct32.cu"
+ENCQ = "simd_dct_tpu_torch/csrc/encq.cu"
+PALLAS = "simd_dct_tpu/kernels/pallas_dct.py"
+# kernel -> (source, the TPU kernel it replaces, main path)
+KERNELS = {
+    "enc32": (DCT32, f"{PALLAS}:81", "mode32"),
+    "dec32": (DCT32, f"{PALLAS}:178", "mode32"),
+    "roundtrip32": (DCT32, f"{PALLAS}:392", "mode32"),
+    "probe": (DCT32, "simd_dct_tpu/dispatch/capability.py:55", "mode32"),
+    "encq": (ENCQ, f"{PALLAS}:760", "enc-quant"),
+    "decq": (ENCQ, f"{PALLAS}:882", "enc-quant"),
 }
 # (H, W, frames) of the dual-view images the comparisons run on
 GEOMETRIES = [(4096, 3840, 1), (1088, 1920, 1), (256, 192, 1), (1088, 1920, 8)]
+LAYOUTS = ("scalar", "pair", "pair_as_written")
+ROUNDINGS = ("rne", "scalar", "clamp_first")
 DEV = "cuda"
 REPS = 25
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FMA/s on the CUDA
+# cores (67 TFLOP/s)
+PEAK_BYTES_S = 3.35e12
+PEAK_FMA_S = 33.5e12
+# f32 FMAs per pixel of the cheapest form of one 2-D pass: the reference
+# butterfly's 29 multiplies and 29 adds per 8-point transform
+# (simd_dct_tpu/core/butterfly.py:8) fused into 29 FMAs, 16 transforms per
+# 8x8 block (7.25 a pixel), plus one for the (de)quantizer's scale
+PASS_FMA_PER_PX = 16 * 29 / 64 + 1
+FMA_PER_PX = {"enc32": PASS_FMA_PER_PX, "dec32": PASS_FMA_PER_PX,
+              "roundtrip32": 2 * PASS_FMA_PER_PX, "probe": 0,
+              "encq": PASS_FMA_PER_PX, "decq": PASS_FMA_PER_PX}
 
 
 def log(*args):
@@ -186,8 +223,9 @@ def phase_main_path(gen, lut):
     torch.cuda.synchronize()
     counts = dict(cuda_dct.LAUNCHES)
     log(f"  launches: {counts}")
-    for name in REPLACES:
-        require(counts[name] > 0, f"{name} launched on the main path")
+    for name, (_, _, path) in KERNELS.items():
+        if path == "mode32":
+            require(counts[name] > 0, f"{name} launched on the main path")
     require(rec.shape == (2048 * 3840,) and rec.dtype == torch.uint8,
             "record shape")
     require(pix.shape == rt.shape == (2048, 3840), "view shape")
@@ -198,6 +236,118 @@ def phase_main_path(gen, lut):
     p = psnr(img[:2048].cpu().numpy(), rt.cpu().numpy())
     require(15.0 < p < 99.0, f"main-path PSNR {p:.2f} dB is plausible")
     log(f"  4K round-trip PSNR {p:.4f} dB; video batch {tuple(vid.shape)}")
+    return counts
+
+
+def phase_compare_encq(gen, lut, errs):
+    log("phase 6: enc-quant kernels against the plain version on the card")
+    geoms = GEOMETRIES + [(4096, 3848, 1)]
+    for h, w, frames in geoms:
+        img = random_images(gen, h, w, frames)
+        tag = f"{frames}x{h}x{w}"
+        layouts = LAYOUTS if w % 16 == 0 else ("scalar",)
+        roundings = ROUNDINGS if h == 4096 else ("rne",)
+        for layout in layouts:
+            for rounding in roundings:
+                agree(f"encq {tag} {layout} {rounding}",
+                      cuda_dct.encode_quantize(img, lut, rounding=rounding,
+                                               layout=layout),
+                      torch_path.encode_quantize(img, lut, rounding=rounding,
+                                                 layout=layout),
+                      errs, "encq")
+        for layout in layouts[:2]:
+            rec = torch_path.encode_quantize(img, lut, layout=layout)
+            agree(f"decq {tag} {layout} (same records)",
+                  cuda_dct.decode_quantize(rec, lut, w, h, layout),
+                  torch_path.decode_quantize(rec, lut, w, h, layout),
+                  errs, "decq")
+    img = random_images(gen, 512, 3840, 2)
+    # strips are 16 rows of the dual-view buffer apart (8 with legacy_range)
+    ranges = [(64, 191, False), (0, 100, True), (16, 16, False),
+              (200, 1 << 40, True)]
+    for sy, ey, legacy in ranges:
+        for layout in LAYOUTS:
+            got = cuda_dct.encode_quantize(img, lut, sy, ey, layout=layout,
+                                           legacy_range=legacy)
+            want = torch_path.encode_quantize(img, lut, sy, ey, layout=layout,
+                                              legacy_range=legacy)
+            agree(f"encq 2x512x3840 {layout} range [{sy}, {ey}] "
+                  f"legacy={legacy}", got, want, errs, "encq")
+            # the bytes the strip geometry leaves unwritten, spill included
+            written = sd._strip_byte_mask(
+                512, 3840, sy, ey, legacy_range=legacy,
+                pair_spill=layout == "pair_as_written")
+            if written is not None:
+                skipped = torch.from_numpy(~written).to(DEV)
+                require(not got[:, skipped].any()
+                        and not want[:, skipped].any(),
+                        "bytes outside the strip range and its spill are "
+                        "zero in kernel and plain version")
+    spilled = cuda_dct.encode_quantize(img, lut, 16, 16,
+                                       layout="pair_as_written").view(2, 32, -1)
+    require(spilled[:, 2, :64].any() and not spilled[:, 2, 64:].any()
+            and not spilled[:, 3:].any(),
+            "pair_as_written spills 64 bytes into the excluded strip 2")
+    log("  pair_as_written range [16, 16]: strip 1 spills 64 bytes into "
+        "strip 2")
+    for h, w, frames in [(4096, 3840, 1), (1088, 1920, 8)]:
+        img = random_images(gen, h, w, frames)
+        scal = cuda_dct.encode_quantize(img, lut)
+        pair = cuda_dct.encode_quantize(img, lut, layout="pair")
+        aw = cuda_dct.encode_quantize(img, lut, layout="pair_as_written")
+        bufs = scal.view(*scal.shape[:-1], h // 16, w // 8, 64)
+        require(torch.equal(pair, torch_path.L_reorder.pair_cells(bufs)),
+                "pair == scalar permuted by the pair-cell map")
+        halves = pair.view(-1, 2, 64).clone()
+        halves[:, 1] = 0
+        require(torch.equal(aw, halves.view(aw.shape)),
+                "pair_as_written == pair with second halves zeroed")
+        require(torch.equal(cuda_dct.decode_quantize(scal, lut, w, h),
+                            cuda_dct.decode_quantize(pair, lut, w, h,
+                                                     "pair")),
+                "decode(scalar) == decode(pair)")
+        log(f"  {frames}x{h}x{w}: pair == perm(scalar), pair_as_written == "
+            "pair with zero halves, decq(scalar) == decq(pair): exact")
+
+
+def phase_main_path_encq(gen, lut):
+    log("phase 7: the enc-quant main path through the public api "
+        "(numpy inputs, no device)")
+    img = smooth_image(gen, 4096, 3840).cpu().numpy()
+    video = random_images(gen, 1088, 1920, 64).cpu().numpy()
+    torch.cuda.synchronize()
+    cuda_dct.reset_launch_counts()
+    rec = sd.encode_quantize(img, lut)
+    rec_pair = sd.encode_quantize(img, lut, layout="pair")
+    pix = sd.decode_quantize(rec, lut, 3840, 4096)
+    pix_pair = sd.decode_quantize(rec_pair, lut, 3840, 4096, layout="pair")
+    vid_rec = sd.encode_quantize(video, lut, layout="pair")
+    vid = sd.decode_quantize(vid_rec, lut, 1920, 1088, layout="pair")
+    torch.cuda.synchronize()
+    counts = dict(cuda_dct.LAUNCHES)
+    log(f"  launches: {counts}")
+    for name, (_, _, path) in KERNELS.items():
+        if path == "enc-quant":
+            require(counts[name] > 0, f"{name} launched on the main path")
+    require(counts["encq"] == 3 and counts["decq"] == 3,
+            "one launch per call, the 64-frame batch included")
+    require(all(t.device.type == DEV for t in
+                (rec, rec_pair, pix, pix_pair, vid_rec, vid)),
+            "numpy inputs with no device run on the card")
+    require(rec.shape == rec_pair.shape == (2048 * 3840,), "record shape")
+    require(pix.shape == (2048, 3840) and vid.shape == (64, 544, 1920),
+            "view shapes")
+    require(torch.equal(pix, pix_pair), "decode(scalar) == decode(pair)")
+    top = img[:2048]
+    plain = torch_path.decode_quantize(
+        torch_path.encode_quantize(torch.from_numpy(img).to(DEV), lut),
+        lut, 3840, 4096).cpu().numpy()
+    p_k, p_p = psnr(top, pix.cpu().numpy()), psnr(top, plain)
+    log(f"  4K enc-quant round-trip PSNR at quality 50: kernel {p_k:.4f} dB "
+        f"plain {p_p:.4f} dB delta {p_k - p_p:+.4f} dB; video batch "
+        f"{tuple(vid.shape)}")
+    require(abs(p_k - p_p) < 0.1, "round-trip PSNR within 0.1 dB of plain")
+    require(15.0 < p_k < 99.0, f"enc-quant PSNR {p_k:.2f} dB is plausible")
     return counts
 
 
@@ -297,8 +447,8 @@ def profiled_us(fn, inputs, tries=3):
     return None, []
 
 
-def phase_timing(gen, lut, reps):
-    log("phase 6: timing, median of "
+def phase_timing(gen, lut, lut_q, reps):
+    log("phase 8: timing, median of "
         f"{reps} repetitions over rotations larger than L2.  kernel and "
         "copy: CUDA events with the rotation queued behind a device sleep; "
         "plain: torch.profiler device time (it synchronises on its scale "
@@ -310,6 +460,9 @@ def phase_timing(gen, lut, reps):
     for label, h, w, frames, n_rot in cases:
         imgs = [random_images(gen, h, w, frames) for _ in range(n_rot)]
         recs = [torch_path.encode_quantize32(x, lut) for x in imgs]
+        recs_q = [torch_path.encode_quantize(x, lut_q) for x in imgs]
+        recs_p = [torch_path.encode_quantize(x, lut_q, layout="pair")
+                  for x in imgs]
         pairs = [(r, torch.empty_like(r)) for r in recs]
         c_us = queued_ms(copy_pair, pairs, reps, cycles_per_ms) * 1e3
         c_prof, _ = profiled_us(copy_pair, pairs)
@@ -324,6 +477,24 @@ def phase_timing(gen, lut, reps):
             "roundtrip32": (lambda x: cuda_dct.roundtrip_quantize32(x, lut),
                             lambda x: torch_path.roundtrip_quantize32(x, lut),
                             imgs),
+            "encq": (lambda x: cuda_dct.encode_quantize(x, lut_q),
+                     lambda x: torch_path.encode_quantize(x, lut_q), imgs),
+            "encq_pair": (
+                lambda x: cuda_dct.encode_quantize(x, lut_q, layout="pair"),
+                lambda x: torch_path.encode_quantize(x, lut_q,
+                                                     layout="pair"), imgs),
+            "encq_as_written": (
+                lambda x: cuda_dct.encode_quantize(x, lut_q,
+                                                   layout="pair_as_written"),
+                lambda x: torch_path.encode_quantize(
+                    x, lut_q, layout="pair_as_written"), imgs),
+            "decq": (lambda r: cuda_dct.decode_quantize(r, lut_q, w, h),
+                     lambda r: torch_path.decode_quantize(r, lut_q, w, h),
+                     recs_q),
+            "decq_pair": (
+                lambda r: cuda_dct.decode_quantize(r, lut_q, w, h, "pair"),
+                lambda r: torch_path.decode_quantize(r, lut_q, w, h, "pair"),
+                recs_p),
         }
         for name, (kern, plain, inputs) in jobs.items():
             k_us = queued_ms(kern, inputs, reps, cycles_per_ms) * 1e3
@@ -343,8 +514,8 @@ def phase_timing(gen, lut, reps):
                 "kernel_us_per_frame": k_us / frames,
                 "kernel_names": k_names, "plain_kernels": len(p_names)})
             if frames == 1:
-                rows[name] = (k_us / 1e3, p_us / 1e3)
-            log(f"  {name:12s} {label:18s} kernel {k_us:8.3f} us "
+                rows[name] = (k_us / 1e3, p_us / 1e3, c_us / 1e3, n_px)
+            log(f"  {name:15s} {label:18s} kernel {k_us:8.3f} us "
                 f"(profiler {k_prof if k_prof is None else round(k_prof, 3)}"
                 f", wall {k_wall:7.2f})  plain {p_us:9.2f} us "
                 f"(wall {p_wall:8.2f})  copy {c_us:6.3f} us  "
@@ -355,16 +526,68 @@ def phase_timing(gen, lut, reps):
     p_prof, _ = profiled_us(torch_path.probe_trial, xs)
     p_us = p_prof if p_prof is not None else \
         wall_ms(torch_path.probe_trial, xs, reps) * 1e3
-    rows["probe"] = (k_us / 1e3, p_us / 1e3)
+    rows["probe"] = (k_us / 1e3, p_us / 1e3, None, 8 * 128)
     log(f"  probe (8,128): kernel {k_us:.3f} us  plain {p_us:.3f} us")
     log("timing_table " + json.dumps(table))
     return rows
+
+
+def bound_ms(name: str, n_px: int) -> tuple[float, str]:
+    """Least time for the work of one call: each input byte read once and
+    each output byte written once (1 + 1 per pixel of the view) over HBM's
+    rate, or the transforms' f32 FMAs over the CUDA cores' rate, whichever
+    is larger."""
+    by_bytes = 2 * n_px / PEAK_BYTES_S * 1e3
+    by_ops = FMA_PER_PX[name] * n_px / PEAK_FMA_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def kernel_rows(counts, counts_q, errs, times):
+    """One entry per kernel: the 4K-view times of this run (the scalar
+    layout for encq / decq, the other layouts beside it), the bound, the
+    share of a same-run copy, and the launches of its main path's run."""
+    rows = []
+    for name, (source, replaces, path) in KERNELS.items():
+        ms, plain, copy, n_px = times[name]
+        bound, bound_by = bound_ms(name, n_px)
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces,
+               "launches": (counts if path == "mode32" else counts_q)[name],
+               "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
+               "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+               "us": ms * 1e3, "gbps": 2 * n_px / (ms * 1e6),
+               "frac_of_copy": None if copy is None else copy / ms,
+               "frac_of_bound": bound / ms}
+        for layout in ("pair", "as_written"):
+            if f"{name}_{layout}" in times:
+                row[f"ms_{layout}"] = times[f"{name}_{layout}"][0]
+                row[f"plain_ms_{layout}"] = times[f"{name}_{layout}"][1]
+        rows.append(row)
+    return rows
+
+
+def log_ptxas(lines) -> None:
+    """Registers, stack and spills per kernel instantiation from the
+    ``ptxas -v`` lines of the build log, e.g. ``encq_kernel<1,2>``."""
+    name = "?"
+    for line in lines:
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(enc32|dec32|roundtrip32|probe|encq|decq)_kernel"
+                          r"(?:I((?:Li\d+E)+)E)?", m.group(1))
+            name = f"{k.group(1)}_kernel" if k else m.group(1)
+            if k and k.group(2):
+                name += "<" + ",".join(re.findall(r"\d+", k.group(2))) + ">"
+        elif "registers" in line or "spill" in line:
+            log(f"  ptxas {name}: {line.split(':', 1)[-1].strip()}")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
@@ -383,9 +606,7 @@ def main(argv=None) -> int:
     lib_path = _build.build()
     log(f"  built {lib_path} in {time.perf_counter() - t0:.2f} s")
     with open(os.path.join(os.path.dirname(lib_path), "build.log")) as f:
-        for line in f:
-            if "registers" in line or "spill" in line:
-                log("  ptxas: " + line.strip())
+        log_ptxas(f)
     log("  probe: " + capability.probe().banner)
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -398,13 +619,14 @@ def main(argv=None) -> int:
     lut100 = default_quant_lut(100) * np.float32(255.0)
     phase_psnr(gen, lut100)
     counts = phase_main_path(gen, lut100)
-    times = phase_timing(gen, lut100, REPS)
-
-    kernels = [{"name": name, "route": "cuda", "source": SOURCE,
-                "replaces": REPLACES[name], "launches": counts[name],
-                "max_abs_err": errs[name], "ms": times[name][0],
-                "plain_ms": times[name][1]} for name in REPLACES]
-    log(json.dumps({"kernels": kernels}))
+    # enc-quant works in the 1/255 domain: the LUT is 255x cooler
+    lut_q = default_quant_lut(50)
+    phase_compare_encq(gen, lut_q, errs)
+    counts_q = phase_main_path_encq(gen, lut_q)
+    times = phase_timing(gen, lut100, lut_q, REPS)
+    log(f"chip_smoke: every phase passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"kernels": kernel_rows(counts, counts_q, errs, times)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

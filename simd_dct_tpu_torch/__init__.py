@@ -1,11 +1,12 @@
-"""simd_dct_tpu_torch -- the mode32 engine of ``simd_dct_tpu`` in PyTorch,
-with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+"""simd_dct_tpu_torch -- the enc-quant and mode32 engines of ``simd_dct_tpu``
+in PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 The JAX package ``simd_dct_tpu`` is the reference this package is held
 against; this package never imports jax.  Layer map:
 
 * ``core``     -- DCT basis and quantization math
-* ``layout``   -- blockize and the mode32 group-of-8 record layout
+* ``layout``   -- blockize, the enc-quant scalar / pair-cell layouts and the
+  mode32 group-of-8 record layout
 * ``kernels``  -- plain PyTorch version (``torch_path``), CUDA kernel
   wrappers (``cuda_dct``) and the nvcc build (``_build``)
 * ``dispatch`` -- tiers ``cuda`` / ``torch`` and the capability probe
@@ -21,6 +22,7 @@ from . import dispatch
 from . import api
 from .api import (
     SimdDctResult, SimdDctError, InvalidParameterError, NotSupportedError,
+    encode_quantize, decode_quantize, try_encode_quantize,
     encode_quantize32, decode_quantize32, roundtrip_quantize32,
 )
 from .core.quantize import default_quant_lut
@@ -29,6 +31,7 @@ __all__ = [
     "core", "layout", "dispatch", "api", "__version__",
     "SimdDctResult", "SimdDctError", "InvalidParameterError",
     "NotSupportedError",
+    "encode_quantize", "decode_quantize", "try_encode_quantize",
     "encode_quantize32", "decode_quantize32", "roundtrip_quantize32",
     "default_quant_lut",
 ]

@@ -1,13 +1,18 @@
-"""Public mode32 API: validated encode / decode / round-trip entry points.
+"""Public API: validated enc-quant and mode32 entry points.
 
-Counterpart of the mode32 part of ``simd_dct_tpu/api.py``, with the same
-validation contract and the same typed errors (``simdDctResult``,
-src/simd_dct.h:22-27).  Inputs are torch tensors, or anything
-``numpy.asarray`` takes, which is placed on ``device`` (default: the CPU).
-A CUDA tensor runs the hand-written kernels, a CPU tensor the plain
-PyTorch version (``dispatch/capability.py``); the result lies on the
-input's device.  A ``(B, H, W)`` batch is one batch dimension all the way
-down: one kernel launch covers every frame.
+Counterpart of the enc-quant and mode32 part of ``simd_dct_tpu/api.py``,
+with the same validation contract and the same typed errors
+(``simdDctResult``, src/simd_dct.h:22-27).
+
+Device rule: every entry point runs on the card unless the caller asks for
+the host.  A torch tensor stays where the caller put it: a CUDA tensor runs
+the hand-written kernels, a CPU tensor the plain PyTorch version
+(``dispatch/capability.py``), and data is never moved quietly.  Anything
+else that ``numpy.asarray`` takes is placed on ``device``, which defaults
+to ``cuda``; on a machine without a card that raises
+``NotSupportedError`` -- pass ``device="cpu"`` to run the plain version on
+the host.  The result lies on the input's device.  A ``(B, H, W)`` batch is
+one batch dimension all the way down: one kernel launch covers every frame.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ import numpy as np
 import torch
 
 from .core.quantize import ROUNDING_MODES, lut_array
-from .dispatch.capability import select_backend
+from .dispatch.capability import default_device, select_backend
 from .kernels import cuda_dct as _cuda
 from .kernels import torch_path as _tp
 
@@ -52,7 +57,8 @@ _COMPAT_TODO = ("compat=True (the strict-IEEE butterfly engine of "
 
 def _as_tensor(x: Any, device, name: str) -> torch.Tensor:
     """A tensor stays where it is (a ``device`` that differs raises: data
-    is never moved quietly); anything else is placed on ``device``."""
+    is never moved quietly); anything else is placed on ``device``, by
+    default the card (``default_device``)."""
     if isinstance(x, torch.Tensor):
         if device is not None:
             want = torch.device(device)
@@ -62,12 +68,12 @@ def _as_tensor(x: Any, device, name: str) -> torch.Tensor:
                     f"{name} lies on {x.device}, but device={want} was "
                     "requested; move it explicitly")
         return x
+    dev = default_device(device)
     arr = np.asarray(x)
     if not arr.flags.writeable:     # torch warns on read-only buffers
         arr = arr.copy()
     try:
-        return torch.as_tensor(arr,
-                               device=device if device is not None else "cpu")
+        return torch.as_tensor(arr, device=dev)
     except TypeError as e:
         raise InvalidParameterError(f"cannot read {name}: {e}") from None
 
@@ -144,7 +150,71 @@ def _spill_view_image(img: torch.Tensor, w: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# encode / decode / round trip
+# enc-quant: encode / decode
+# ---------------------------------------------------------------------------
+
+def encode_quantize(image, lut, start_y: int = 0, end_y: int | None = None,
+                    *, rounding: str = "rne", layout: str = "scalar",
+                    backend: str | None = None, legacy_range: bool = False,
+                    compat: bool = False, spill: bool = False,
+                    device=None) -> torch.Tensor:
+    """≙ simdDCT_EncodeQuantizeBuffer: block-contiguous (``scalar``) or
+    SIMD pair-cell (``pair``, ``pair_as_written``) encode of the TOP view
+    in the 1/255 domain.  Returns H/2*W u8 bytes per frame: (H/2*W,) or
+    (B, H/2*W).  Bytes of strips outside [start_y, end_y] are zero (a
+    ``pair_as_written`` strip range also keeps the reference's spill into
+    the next excluded strip); ``legacy_range`` compares ``8*s`` instead of
+    ``16*s`` against the range, as the NoSimd kernel does.  ``spill=True``
+    accepts H % 16 == 8 with the reference's spill semantics (the output
+    grows to ceil((H/2)/8)*8*W)."""
+    img, lut_arr, h, w = _validate(image, lut, allow_spill=spill,
+                                   device=device)
+    _check_rounding(rounding)
+    if spill and h % 16:
+        img = _spill_view_image(img, w)
+    if layout not in _tp.ENCQ_LAYOUTS:
+        raise InvalidParameterError(
+            "layout must be 'scalar', 'pair' or 'pair_as_written', "
+            f"got {layout!r}")
+    if layout != "scalar" and w % 16:
+        # a pair cell holds exactly 2 blocks (src/simd_dct.cpp:1588)
+        raise NotSupportedError(
+            f"layout {layout!r} requires W % 16 == 0, got W={w}")
+    tier = select_backend(backend, device=img.device)
+    _reject_compat(compat)
+    args = (int(start_y), _resolve_end_y(end_y), rounding, layout,
+            bool(legacy_range))
+    if tier == "cuda":
+        return _cuda.encode_quantize(_kernel_ready(img), lut_arr, *args)
+    return _tp.encode_quantize(img, lut_arr, *args)
+
+
+def decode_quantize(data, lut, size_x: int, size_y: int, *,
+                    layout: str = "scalar", backend: str | None = None,
+                    compat: bool = False, device=None) -> torch.Tensor:
+    """Inverse of ``encode_quantize`` for the ``scalar`` and ``pair``
+    layouts: records -> the TOP view, (size_y/2, size_x) or
+    (B, size_y/2, size_x) u8."""
+    if layout not in ("scalar", "pair"):
+        # pair_as_written drops every cell's second half
+        # (src/simd_dct.cpp:1662-1670 overlap): not invertible
+        raise InvalidParameterError(
+            f"decodable layouts are 'scalar' and 'pair', got {layout!r}")
+    if layout == "pair" and size_x % 16:
+        raise NotSupportedError(
+            f"layout 'pair' requires W % 16 == 0, got W={size_x}")
+    d, lut_arr = _validate_decode(data, lut, size_x, size_y,
+                                  (size_y // 2) * size_x, device)
+    tier = select_backend(backend, device=d.device)
+    _reject_compat(compat)
+    if tier == "cuda":
+        return _cuda.decode_quantize(_kernel_ready(d), lut_arr, size_x,
+                                     size_y, layout)
+    return _tp.decode_quantize(d, lut_arr, size_x, size_y, layout)
+
+
+# ---------------------------------------------------------------------------
+# mode32: encode / decode / round trip
 # ---------------------------------------------------------------------------
 
 def encode_quantize32(image, lut, start_y: int = 0, end_y: int | None = None,
@@ -232,34 +302,57 @@ def roundtrip_quantize32(image, lut, *, backend: str | None = None,
 # ---------------------------------------------------------------------------
 #
 # The raising entry points return a fresh tensor with excluded strips
-# zero-filled.  try_encode_quantize32 restores the reference behaviour: it
-# copies only the included strips' bytes into ``out`` and leaves the rest
-# untouched (src/simd_dct.cpp:1075-1083).
+# zero-filled.  The try_* wrappers restore the reference behaviour: they
+# copy only the bytes the reference writes for the strip range into
+# ``out`` and leave the rest untouched (src/simd_dct.cpp:1075-1083).
 
-def _strip_byte_mask(h: int, w: int, start_y, end_y,
-                     spill: bool = False) -> np.ndarray | None:
-    """Bool mask over the mode32 output bytes written for the strip range,
-    or None when every strip is included."""
+def _strip_byte_mask(h: int, w: int, start_y, end_y, *, spill: bool = False,
+                     legacy_range: bool = False,
+                     pair_spill: bool = False) -> np.ndarray | None:
+    """Bool mask over the output bytes written for the strip range, or
+    None when every strip is included.  ``pair_spill``: the as-written
+    pair layout's last cell of an included strip also writes the first 64
+    bytes of an excluded successor (src/simd_dct.cpp:1662-1670)."""
     n_strips = -(-h // 16) if (spill and h % 16) else h // 16
-    cmp = np.arange(n_strips, dtype=np.int64) * 16
+    cmp = np.arange(n_strips, dtype=np.int64) * (8 if legacy_range else 16)
     ey = _resolve_end_y(end_y)
     strips = (cmp >= int(start_y)) & (cmp <= ey)
     if strips.all():
         return None
-    return np.repeat(strips, 8 * w)
+    mask = np.repeat(strips, 8 * w)
+    if pair_spill:
+        for r in np.nonzero(strips[:-1] & ~strips[1:])[0] + 1:
+            mask[r * 8 * w: r * 8 * w + 64] = True
+    return mask
+
+
+def _try_encode(encode, image, out, lut, size_x, size_y, start_y, end_y,
+                kw) -> SimdDctResult:
+    """Run ``encode`` and copy the bytes it writes for the strip range into
+    ``out`` (a u8 numpy array of H/2*W bytes per frame); return a
+    SimdDctResult instead of raising."""
+    try:
+        result = encode(image, lut, start_y, end_y, **kw)
+    except SimdDctError as e:
+        return e.result
+    mask = _strip_byte_mask(
+        size_y, size_x, start_y, end_y, spill=kw.get("spill", False),
+        legacy_range=kw.get("legacy_range", False),
+        pair_spill=kw.get("layout") == "pair_as_written")
+    np.copyto(out, result.cpu().numpy(),
+              where=True if mask is None else mask)
+    return SimdDctResult.SUCCESS
+
+
+def try_encode_quantize(image, out, lut, size_x, size_y, start_y, end_y,
+                        **kw) -> SimdDctResult:
+    """Reference-shaped enc-quant call (see ``_try_encode``)."""
+    return _try_encode(encode_quantize, image, out, lut, size_x, size_y,
+                       start_y, end_y, kw)
 
 
 def try_encode_quantize32(image, out, lut, size_x, size_y, start_y, end_y,
                           **kw) -> SimdDctResult:
-    """Reference-shaped call: writes into ``out`` (a u8 numpy array of
-    H/2*W bytes per frame) and returns a SimdDctResult instead of
-    raising."""
-    try:
-        result = encode_quantize32(image, lut, start_y, end_y, **kw)
-    except SimdDctError as e:
-        return e.result
-    mask = _strip_byte_mask(size_y, size_x, start_y, end_y,
-                            spill=kw.get("spill", False))
-    np.copyto(out, result.cpu().numpy(),
-              where=True if mask is None else mask)
-    return SimdDctResult.SUCCESS
+    """Reference-shaped mode32 call (see ``_try_encode``)."""
+    return _try_encode(encode_quantize32, image, out, lut, size_x, size_y,
+                       start_y, end_y, kw)

@@ -1,9 +1,12 @@
 """State carried across from the JAX package.
 
 The system has no learned weights: its state is the 64-entry quantization
-LUT and the mode32 record streams.  A LUT gives the same f32 scales in both
-packages, and a mode32 stream written by either package decodes in the
-other (the byte layout is the reference's, src/simd_dct.cpp:2021-2025).
+LUT and the record streams.  A LUT gives the same f32 scales in both
+packages, and a mode32 or enc-quant stream written by either package
+decodes in the other (the byte layouts are the reference's,
+src/simd_dct.cpp:361-364,1662-1670,2021-2025).  Like the api, these
+functions put their result on the card unless the caller names another
+``device``.
 """
 
 from __future__ import annotations
@@ -12,32 +15,41 @@ import numpy as np
 import torch
 
 from .core.quantize import dequant_scales, lut_array, quant_scales
+from .dispatch.capability import default_device
 
 
-def lut_from_numpy(lut, device: torch.device | str = "cpu"
+def lut_from_numpy(lut, device: torch.device | str | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """64-entry LUT -> (quant_scales, dequant_scales) f32 tensors on
     ``device``, bit-identical to the JAX package's for the same LUT (they
     are computed on the CPU in the same f32 operation order, then moved)."""
+    dev = default_device(device)
     lut = lut_array(lut)
-    return (quant_scales(lut).to(device), dequant_scales(lut).to(device))
+    return (quant_scales(lut).to(dev), dequant_scales(lut).to(dev))
 
 
 def records_from_numpy(records, size_x: int, size_y: int,
-                       device: torch.device | str = "cpu") -> torch.Tensor:
-    """A mode32 stream, or a batch of them, as written by either package
+                       device: torch.device | str | None = None
+                       ) -> torch.Tensor:
+    """A record stream, or a batch of them, as written by either package
     (flat H/2*W bytes per frame) -> u8 tensor of shape (H/2*W,) or
-    (B, H/2*W) on ``device``."""
+    (B, H/2*W) on ``device``.  The bytes are carried as they are, so this
+    takes every stream of H/2*W bytes a frame: mode32, and enc-quant in
+    the ``scalar`` and ``pair`` layouts (``pair_as_written`` too, which
+    decodes in neither package)."""
+    dev = default_device(device)
     arr = np.asarray(records)
     if arr.dtype != np.uint8:
         raise ValueError(f"records must be uint8, got {arr.dtype}")
     arr = np.ascontiguousarray(arr)
+    if not arr.flags.writeable:     # torch warns on read-only buffers
+        arr = arr.copy()
     per_frame = (size_y // 2) * size_x
     if per_frame <= 0 or arr.size % per_frame:
         raise ValueError(f"expected a multiple of {per_frame} bytes for "
                          f"{(size_x, size_y)}, got {arr.size}")
     shape = (-1,) if arr.ndim <= 1 else (arr.size // per_frame, per_frame)
-    return torch.as_tensor(arr.reshape(shape), device=device)
+    return torch.as_tensor(arr.reshape(shape), device=dev)
 
 
 def records_to_numpy(records: torch.Tensor) -> np.ndarray:

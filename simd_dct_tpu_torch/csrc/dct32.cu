@@ -28,15 +28,11 @@
 //   * grid = (ceil(blocks per frame / kThreads), batch): one launch covers
 //     a whole (B, H, W) batch, and any W % 64 == 0, H2 % 8 == 0 geometry
 //     runs directly (no pad or slice pass).
-// Arithmetic is f32 on the CUDA cores.  Every product and sum of the
-// transforms is an explicit __fmaf_rn / __fmul_rn, so no contraction choice
-// of the compiler can differ between kernels: the fused round trip equals
-// decode(encode(x)) byte for byte.  Build without --use_fast_math: the
-// 'scalar' rounding mode needs an IEEE division by 255.
+// Arithmetic is f32 on the CUDA cores, in the device functions of
+// dct_common.cuh (shared with encq.cu): the fused round trip equals
+// decode(encode(x)) byte for byte.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-#include <string.h>
+#include "dct_common.cuh"
 
 namespace {
 
@@ -48,149 +44,6 @@ constexpr int kRecSmem = (kThreads / 8) * kGroupStride;
 // index into its padded shared-memory copy (32 pieces per record).
 __device__ __forceinline__ int smem_piece(int i) {
   return (i >> 5) * (kGroupStride / 16) + (i & 31);
-}
-
-// D[k][n], the orthonormal DCT-II basis assembled from the reference
-// butterfly's f32 constants (bit-identical to core/dct.py dct_basis_np).
-__constant__ float kD[64] = {
-    0x1.6a09e6p-2f, 0x1.6a09e6p-2f, 0x1.6a09e6p-2f, 0x1.6a09e6p-2f,
-    0x1.6a09e6p-2f, 0x1.6a09e6p-2f, 0x1.6a09e6p-2f, 0x1.6a09e6p-2f,
-    0x1.f6297ep-2f, 0x1.a9b660p-2f, 0x1.1c73b4p-2f, 0x1.8f8b84p-4f,
-    -0x1.8f8b84p-4f, -0x1.1c73b4p-2f, -0x1.a9b660p-2f, -0x1.f6297ep-2f,
-    0x1.d906bep-2f, 0x1.87de2ap-3f, -0x1.87de2ap-3f, -0x1.d906bep-2f,
-    -0x1.d906bep-2f, -0x1.87de2ap-3f, 0x1.87de2ap-3f, 0x1.d906bep-2f,
-    0x1.a9b660p-2f, -0x1.8f8b84p-4f, -0x1.f6297ep-2f, -0x1.1c73b4p-2f,
-    0x1.1c73b4p-2f, 0x1.f6297ep-2f, 0x1.8f8b84p-4f, -0x1.a9b660p-2f,
-    0x1.6a09e6p-2f, -0x1.6a09e6p-2f, -0x1.6a09e6p-2f, 0x1.6a09e6p-2f,
-    0x1.6a09e6p-2f, -0x1.6a09e6p-2f, -0x1.6a09e6p-2f, 0x1.6a09e6p-2f,
-    0x1.1c73b4p-2f, -0x1.f6297ep-2f, 0x1.8f8b84p-4f, 0x1.a9b660p-2f,
-    -0x1.a9b660p-2f, -0x1.8f8b84p-4f, 0x1.f6297ep-2f, -0x1.1c73b4p-2f,
-    0x1.87de2ap-3f, -0x1.d906bep-2f, 0x1.d906bep-2f, -0x1.87de2ap-3f,
-    -0x1.87de2ap-3f, 0x1.d906bep-2f, -0x1.d906bep-2f, 0x1.87de2ap-3f,
-    0x1.8f8b84p-4f, -0x1.1c73b4p-2f, 0x1.a9b660p-2f, -0x1.f6297ep-2f,
-    0x1.f6297ep-2f, -0x1.a9b660p-2f, 0x1.1c73b4p-2f, -0x1.8f8b84p-4f,
-};
-
-// 64 per-coefficient scales, passed by value (kernel parameter space).
-struct Scales {
-  float v[64];
-};
-
-enum Rounding { kRne = 0, kScalar = 1, kClampFirst = 2 };
-
-// X (8x8, row-major, in place) -> D X D^T.  Column pass first, then rows,
-// the association order of the golden model (core/golden.py _dct2d).
-__device__ __forceinline__ void dct2d(float (&x)[64]) {
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {  // t[u][k] = sum_j D[u][j] x[j][k]
-    float t[8];
-#pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      float acc = __fmul_rn(kD[u * 8], x[k]);
-#pragma unroll
-      for (int j = 1; j < 8; ++j) acc = __fmaf_rn(kD[u * 8 + j], x[j * 8 + k], acc);
-      t[u] = acc;
-    }
-#pragma unroll
-    for (int u = 0; u < 8; ++u) x[u * 8 + k] = t[u];
-  }
-#pragma unroll
-  for (int u = 0; u < 8; ++u) {  // c[u][v] = sum_k t[u][k] D[v][k]
-    float c[8];
-#pragma unroll
-    for (int v = 0; v < 8; ++v) {
-      float acc = __fmul_rn(x[u * 8], kD[v * 8]);
-#pragma unroll
-      for (int k = 1; k < 8; ++k) acc = __fmaf_rn(x[u * 8 + k], kD[v * 8 + k], acc);
-      c[v] = acc;
-    }
-#pragma unroll
-    for (int v = 0; v < 8; ++v) x[u * 8 + v] = c[v];
-  }
-}
-
-// C (8x8, in place) -> D^T C D, the inverse (core/golden.py _idct2d order).
-__device__ __forceinline__ void idct2d(float (&c)[64]) {
-#pragma unroll
-  for (int v = 0; v < 8; ++v) {  // t[j][v] = sum_u D[u][j] c[u][v]
-    float t[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float acc = __fmul_rn(kD[j], c[v]);
-#pragma unroll
-      for (int u = 1; u < 8; ++u) acc = __fmaf_rn(kD[u * 8 + j], c[u * 8 + v], acc);
-      t[j] = acc;
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) c[j * 8 + v] = t[j];
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {  // x[j][k] = sum_v t[j][v] D[v][k]
-    float r[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      float acc = __fmul_rn(c[j * 8], kD[k]);
-#pragma unroll
-      for (int v = 1; v < 8; ++v) acc = __fmaf_rn(c[j * 8 + v], kD[v * 8 + k], acc);
-      r[k] = acc;
-    }
-#pragma unroll
-    for (int k = 0; k < 8; ++k) c[j * 8 + k] = r[k];
-  }
-}
-
-// rint(x) clamped to the biased byte grid [-127, 128].  Equal to the
-// reference's int clamp(rint(x) + 127, 0, 255) - 127 for every finite x.
-__device__ __forceinline__ float quant_level(float x) {
-  return fminf(fmaxf(rintf(x), -127.0f), 128.0f);
-}
-
-// One coefficient times its scale -> biased u8, per rounding mode
-// (core/quantize.py quantize_to_u8; src/simd_dct.cpp:245,1020,1245).
-template <int R>
-__device__ __forceinline__ uint8_t quantize(float c, float q) {
-  const float x = __fmul_rn(c, q);
-  if (R == kRne) return (uint8_t)(int)(quant_level(x) + 127.0f);
-  if (R == kClampFirst)
-    return (uint8_t)(int)rintf(fminf(fmaxf(__fadd_rn(x, 127.0f), 0.0f), 255.0f));
-  // kScalar: /255 domain, clamp [0, 1], *255, round half away (v >= 0).
-  const float bias = 127.0f / 255.0f;  // f32(127) / f32(255), rounded once
-  float v = fminf(fmaxf(__fadd_rn(__fdiv_rn(x, 255.0f), bias), 0.0f), 1.0f);
-  return (uint8_t)(int)floorf(__fadd_rn(__fmul_rn(v, 255.0f), 0.5f));
-}
-
-__device__ __forceinline__ void load_block(const uint8_t* __restrict__ p, int w,
-                                           float (&x)[64]) {
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p + (size_t)r * w));
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      x[r * 8 + i] = (float)((v.x >> (8 * i)) & 0xffu);
-      x[r * 8 + 4 + i] = (float)((v.y >> (8 * i)) & 0xffu);
-    }
-  }
-}
-
-__device__ __forceinline__ uint32_t pack4(const float* px) {
-  uint32_t out = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float v = fminf(fmaxf(rintf(px[i]), 0.0f), 255.0f);
-    out |= ((uint32_t)(int)v) << (8 * i);
-  }
-  return out;
-}
-
-__device__ __forceinline__ void store_block(uint8_t* __restrict__ p, int w,
-                                            const float (&x)[64]) {
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    uint2 v;
-    v.x = pack4(&x[r * 8]);
-    v.y = pack4(&x[r * 8 + 4]);
-    *reinterpret_cast<uint2*>(p + (size_t)r * w) = v;
-  }
 }
 
 // Replaces simd_dct_tpu/kernels/pallas_dct.py _enc32_kernel.
@@ -263,11 +116,11 @@ dec32_kernel(const uint8_t* __restrict__ records, uint8_t* __restrict__ out,
 }
 
 // Replaces simd_dct_tpu/kernels/pallas_dct.py _roundtrip_kernel.
-// Bound: 32 f32 FMAs per pixel against 2 bytes of traffic; on an H100 SXM
-// (about 33.5 T FMA/s, 3.35 TB/s) the two bounds are within a factor of
-// two, so the FMA count is the first lever (the even/odd butterfly of the
-// reference, simd_dct_tpu/core/butterfly.py, does the same transform in
-// fewer operations).  Design: the records
+// Bound: memory, 2 bytes a pixel as enc32.  This form does 32 f32 FMAs per
+// pixel, which on an H100 SXM (about 33.5 T FMA/s, 3.35 TB/s) take longer
+// than the bytes; the even/odd butterfly of the reference
+// (simd_dct_tpu/core/butterfly.py) needs about half as many, so the FMA
+// count is the first lever.  Design: the records
 // never leave registers, and the quantize step is the identity
 // clip(rint(z*q), -127, 128) of pallas_dct.py:422, written with the same
 // functions as enc32 and dec32.
@@ -309,11 +162,6 @@ unsigned grid_x(int h2, int w) {
   return (unsigned)((nblk + kThreads - 1) / kThreads);
 }
 
-Scales to_scales(const float* host) {
-  Scales s;
-  memcpy(s.v, host, sizeof(s.v));
-  return s;
-}
 
 }  // namespace
 

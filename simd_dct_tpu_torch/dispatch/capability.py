@@ -5,7 +5,9 @@
     tier "torch" -- the plain PyTorch version (kernels/torch_path.py)
 
 Device rule: a CUDA tensor goes to the ``cuda`` tier and a CPU tensor to
-the ``torch`` tier.  ``set_max_backend("torch")`` caps a CUDA tensor to the
+the ``torch`` tier.  Data that is not a tensor yet is placed on the card
+unless the caller names another device (``default_device``); with no card
+that raises, it never falls back to the host.  ``set_max_backend("torch")`` caps a CUDA tensor to the
 plain version on the card (the counterpart of ``--max-simd``).  Unlike the
 JAX package's probe, which degrades quietly when its trial compile fails,
 ``probe()`` on a machine with a GPU builds the library, launches the trial
@@ -84,6 +86,20 @@ def set_max_backend(tier: str, *, strict: bool = False) -> None:
 
 def get_max_backend() -> str:
     return _max_backend
+
+
+def default_device(device=None) -> torch.device:
+    """Where data that is not a tensor yet goes: ``device``, or the card
+    when it is None.  A CUDA device on a machine without one raises
+    ``NotSupportedError``, which names ``device="cpu"``."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        from ..api import NotSupportedError
+        raise NotSupportedError(
+            "no CUDA device on this machine: the entry points run on the "
+            'card unless the caller asks for the host; pass device="cpu" '
+            "(or a CPU tensor) to run the plain version there")
+    return dev
 
 
 def select_backend(requested: str | None = None, *,

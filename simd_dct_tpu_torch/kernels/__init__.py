@@ -1,2 +1,3 @@
-"""Mode32 kernels: the plain PyTorch version (``torch_path``) and the CUDA
-kernel wrappers (``cuda_dct``).  Neither builds anything on import."""
+"""Enc-quant and mode32 kernels: the plain PyTorch version (``torch_path``)
+and the CUDA kernel wrappers (``cuda_dct``).  Neither builds anything on
+import."""

@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of ``simd_dct_tpu_torch/csrc``.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
-C interface, which ``ctypes`` loads (a few seconds; no PyTorch headers).
+One ``nvcc`` per ``csrc/*.cu``, all started together, compiles each source
+to an object; one more links them into a shared library with a plain C
+interface, which ``ctypes`` loads (a few seconds; no PyTorch headers).
 The library goes to ``simd_dct_tpu_torch/_build/<hash>/``, keyed by a hash
 of the sources and flags, at first use.  It is compiled to a temporary
 path and renamed into place, so a concurrent build never sees a partial
@@ -25,8 +26,9 @@ LIB_NAME = "libsimd_dct_cuda.so"
 
 # No --use_fast_math: the 'scalar' rounding mode divides by 255 and needs
 # IEEE division.  -Xptxas -v writes registers and spills to build.log.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 
@@ -77,15 +79,33 @@ def build() -> str:
         return lib
     nvcc = find_nvcc()
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
+    tag = f"{os.getpid()}.tmp"
     cu = [s for s in srcs if s.endswith(".cu")]
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs = [os.path.join(out_dir, os.path.basename(s)[:-3] + f".{tag}.o")
+            for s in cu]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, s] for s, o in zip(cu, objs)]
+    tmp = f"{lib}.{tag}"
+    link = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    logs = []
+    for c, p in zip(cmds, procs):
+        out, err = p.communicate()
+        logs.append((c, p.returncode, out + err))
+    if all(rc == 0 for _, rc, _ in logs):
+        proc = subprocess.run(link, capture_output=True, text=True)
+        logs.append((link, proc.returncode, proc.stdout + proc.stderr))
     with open(os.path.join(out_dir, "build.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
+        for c, _, text in logs:
+            f.write(" ".join(c) + "\n" + text)
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
+    failed = [(c, rc, text) for c, rc, text in logs if rc != 0]
+    if failed:
+        c, rc, text = failed[0]
+        raise RuntimeError(f"nvcc failed (exit {rc}) on {c[-1]}:\n"
+                           f"{text[-4000:]}")
     os.replace(tmp, lib)
     return lib
 
@@ -98,6 +118,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sdct_dec32.restype = i
     lib.sdct_roundtrip32.argtypes = [p, p, p, p, i, i, i, ll, p]
     lib.sdct_roundtrip32.restype = i
+    lib.sdct_encq.argtypes = [p, p, p, i, i, i, ll, i, i, i, i, i, p]
+    lib.sdct_encq.restype = i
+    lib.sdct_decq.argtypes = [p, p, p, i, i, i, i, p]
+    lib.sdct_decq.restype = i
     lib.sdct_probe.argtypes = [p, p, i, p]
     lib.sdct_probe.restype = i
     lib.sdct_error_string.argtypes = [i]

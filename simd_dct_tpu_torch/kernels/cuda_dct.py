@@ -1,8 +1,10 @@
-"""Wrappers around the hand-written mode32 CUDA kernels (``csrc/dct32.cu``).
+"""Wrappers around the hand-written CUDA kernels: mode32 (``csrc/dct32.cu``)
+and enc-quant (``csrc/encq.cu``).
 
-Counterpart of the mode32 part of ``simd_dct_tpu/kernels/pallas_dct.py``
-(``encode_quantize32`` / ``decode_quantize32`` / ``roundtrip_quantize32``)
-and of the trial kernel of ``dispatch/capability.py``.
+Counterpart of the mode32 and enc-quant part of
+``simd_dct_tpu/kernels/pallas_dct.py`` (``encode_quantize32`` /
+``decode_quantize32`` / ``roundtrip_quantize32``, ``encode_quantize`` /
+``decode_quantize``) and of the trial kernel of ``dispatch/capability.py``.
 
 Device rule: a CPU tensor goes to the plain PyTorch version
 (``kernels/torch_path.py``); a CUDA tensor launches the kernel, on
@@ -28,9 +30,11 @@ from ..core.quantize import (ROUNDING_MODES, dequant_scales, lut_array,
 from . import _build
 from . import torch_path as _tp
 
-LAUNCHES = {"enc32": 0, "dec32": 0, "roundtrip32": 0, "probe": 0}
+LAUNCHES = {"enc32": 0, "dec32": 0, "roundtrip32": 0, "probe": 0,
+            "encq": 0, "decq": 0}
 
 _ROUNDING_CODE = {"rne": 0, "scalar": 1, "clamp_first": 2}
+_LAYOUT_CODE = {"scalar": 0, "pair": 1, "pair_as_written": 2}
 _I32_MIN, _I32_MAX = -(1 << 31), (1 << 31) - 1
 _MAX_BATCH = 65535   # grid.y of one launch
 
@@ -40,14 +44,18 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
-def supports_mode(mode: str, h: int, w: int) -> bool:
+def supports_mode(mode: str, h: int, w: int, layout: str = "scalar") -> bool:
     """Geometry the kernels take directly: any H % 16 == 0 and, for the
-    mode32 family, W % 64 == 0 (groups of 8 blocks, src/simd_dct.cpp:118).
-    No padding or slicing pass exists or is needed."""
+    mode32 family, W % 64 == 0 (groups of 8 blocks, src/simd_dct.cpp:118);
+    for enc-quant, W % 8 == 0 in the ``scalar`` layout and W % 16 == 0 in
+    the pair layouts (whole two-block cells).  No padding or slicing pass
+    exists or is needed."""
     if h <= 0 or w <= 0 or h % 16:
         return False
     if mode in ("enc_quant32", "dec_quant32", "roundtrip32"):
         return w % 64 == 0
+    if mode in ("enc_quant", "dec_quant"):
+        return w % (8 if layout == "scalar" else 16) == 0
     return False
 
 
@@ -68,10 +76,13 @@ def _check_tensor(t, name: str, ndims: tuple[int, ...]) -> None:
         raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
-def _check_geometry(mode: str, h: int, w: int) -> None:
-    if not supports_mode(mode, h, w):
-        raise ValueError(f"{mode} needs H % 16 == 0 and W % 64 == 0, "
-                         f"got H={h}, W={w}")
+def _check_geometry(mode: str, h: int, w: int,
+                    layout: str = "scalar") -> None:
+    if not supports_mode(mode, h, w, layout):
+        need = 64 if mode.endswith("32") else (8 if layout == "scalar"
+                                               else 16)
+        raise ValueError(f"{mode} ({layout}) needs H % 16 == 0 and "
+                         f"W % {need} == 0, got H={h}, W={w}")
 
 
 @functools.lru_cache(maxsize=32)
@@ -96,6 +107,12 @@ def _batch_of(t: torch.Tensor, base_ndim: int) -> int:
     if b > _MAX_BATCH:
         raise ValueError(f"at most {_MAX_BATCH} frames per launch, got {b}")
     return b
+
+
+def _clamp_i32(y: int) -> int:
+    """A strip-range bound as the kernels' int: clamping keeps every
+    comparison with 16*s (or 8*s) as it was."""
+    return min(max(int(y), _I32_MIN), _I32_MAX)
 
 
 def _on_device_of(t: torch.Tensor):
@@ -128,13 +145,12 @@ def encode_quantize32(img: torch.Tensor, lut, start_y: int = 0,
     if out.numel() == 0:
         return out
     q, _ = _host_scales(lut)
-    sy = min(max(int(start_y), _I32_MIN), _I32_MAX)
-    ey = min(max(int(end_y), _I32_MIN), _I32_MAX)
     lib = _build.load()
     with _on_device_of(img):
         rc = lib.sdct_enc32(img.data_ptr(), out.data_ptr(), q.ctypes.data,
-                            batch, h2, w, h * w, sy, ey,
-                            _ROUNDING_CODE[rounding], _stream(img))
+                            batch, h2, w, h * w, _clamp_i32(start_y),
+                            _clamp_i32(end_y), _ROUNDING_CODE[rounding],
+                            _stream(img))
         LAUNCHES["enc32"] += 1
     _build.check(lib, rc, "enc32")
     return out
@@ -189,6 +205,73 @@ def roundtrip_quantize32(img: torch.Tensor, lut) -> torch.Tensor:
                                   w, h * w, _stream(img))
         LAUNCHES["roundtrip32"] += 1
     _build.check(lib, rc, "roundtrip32")
+    return out
+
+
+def encode_quantize(img: torch.Tensor, lut, start_y: int = 0,
+                    end_y: int = 1 << 30, rounding: str = "rne",
+                    layout: str = "scalar",
+                    legacy_range: bool = False) -> torch.Tensor:
+    """Enc-quant encode of the TOP view of a (H, W) or (B, H, W) dual-view
+    image -> (H/2*W,) or (B, H/2*W) u8 records in ``layout``; one launch
+    per batch."""
+    _check_tensor(img, "img", (2, 3))
+    h, w = img.shape[-2:]
+    if layout not in _LAYOUT_CODE:
+        raise ValueError(f"layout must be one of {tuple(_LAYOUT_CODE)}")
+    _check_geometry("enc_quant", h, w, layout)
+    if rounding not in ROUNDING_MODES:
+        raise ValueError(f"rounding must be one of {ROUNDING_MODES}")
+    if img.device.type == "cpu":
+        return _tp.encode_quantize(img, lut, start_y, end_y, rounding,
+                                   layout, legacy_range)
+    batch = _batch_of(img, 2)
+    h2 = h // 2
+    out = torch.empty(img.shape[:-2] + (h2 * w,), dtype=torch.uint8,
+                      device=img.device)
+    if out.numel() == 0:
+        return out
+    q, _ = _host_scales(lut)
+    lib = _build.load()
+    with _on_device_of(img):
+        rc = lib.sdct_encq(img.data_ptr(), out.data_ptr(), q.ctypes.data,
+                           batch, h2, w, h * w, _clamp_i32(start_y),
+                           _clamp_i32(end_y), int(legacy_range),
+                           _ROUNDING_CODE[rounding], _LAYOUT_CODE[layout],
+                           _stream(img))
+        LAUNCHES["encq"] += 1
+    _build.check(lib, rc, "encq")
+    return out
+
+
+def decode_quantize(data: torch.Tensor, lut, size_x: int, size_y: int,
+                    layout: str = "scalar") -> torch.Tensor:
+    """Enc-quant records in the ``scalar`` or ``pair`` layout,
+    (size_y/2*size_x,) or (B, size_y/2*size_x) u8 -> (size_y/2, size_x) or
+    (B, size_y/2, size_x) u8 pixels."""
+    _check_tensor(data, "data", (1, 2))
+    if layout not in ("scalar", "pair"):
+        raise ValueError("decodable layouts are 'scalar' and 'pair'")
+    _check_geometry("dec_quant", size_y, size_x, layout)
+    h2 = size_y // 2
+    if data.shape[-1] != h2 * size_x:
+        raise ValueError(f"expected {h2 * size_x} record bytes per frame, "
+                         f"got {data.shape[-1]}")
+    if data.device.type == "cpu":
+        return _tp.decode_quantize(data, lut, size_x, size_y, layout)
+    batch = _batch_of(data, 1)
+    out = torch.empty(data.shape[:-1] + (h2, size_x), dtype=torch.uint8,
+                      device=data.device)
+    if out.numel() == 0:
+        return out
+    _, qi = _host_scales(lut)
+    lib = _build.load()
+    with _on_device_of(data):
+        rc = lib.sdct_decq(data.data_ptr(), out.data_ptr(), qi.ctypes.data,
+                           batch, h2, size_x, _LAYOUT_CODE[layout],
+                           _stream(data))
+        LAUNCHES["decq"] += 1
+    _build.check(lib, rc, "decq")
     return out
 
 

@@ -1,15 +1,19 @@
-"""Plain PyTorch version of the mode32 kernels (the ``torch`` tier).
+"""Plain PyTorch version of the mode32 and enc-quant kernels (the ``torch``
+tier).
 
-Counterpart of the mode32 part of ``simd_dct_tpu/kernels/xla_path.py``
-(its generic einsum branch: blockize, ``dct8x8``, quantize, group8).  It
-runs on any device PyTorch runs on.  The CPU tests hold it against the
-JAX package, and ``chip_smoke.py`` holds the CUDA kernels
-(``kernels/cuda_dct.py``) against it on the card.
+Counterpart of the mode32 and enc-quant part of
+``simd_dct_tpu/kernels/xla_path.py`` (its generic einsum branch: blockize,
+``dct8x8``, quantize, then the record layout).  It runs on any device
+PyTorch runs on.  The CPU tests hold it against the JAX package, and
+``chip_smoke.py`` holds the CUDA kernels (``kernels/cuda_dct.py``) against
+it on the card.
 
 Every function takes optional leading batch axes.  The strip range
 ``[start_y, end_y]`` keeps strip ``s`` (rows ``[8s, 8s+8)`` of the top
 view) iff ``start_y <= 16*s <= end_y`` -- the SIMD kernels' ``y*2``
-convention (src/simd_dct.cpp:1686-1696).
+convention (src/simd_dct.cpp:1686-1696) -- or, with ``legacy_range``, iff
+``start_y <= 8*s <= end_y``, the NoSimd enc-quant kernel's test
+(src/simd_dct.cpp:377,384).
 """
 
 from __future__ import annotations
@@ -24,9 +28,13 @@ from ..layout import blocks as L_blocks
 from ..layout import reorder as L_reorder
 
 
-def _strip_mask(num_strips: int, start_y: int, end_y: int) -> np.ndarray:
-    y2 = np.arange(num_strips, dtype=np.int64) * 16
-    return (y2 >= start_y) & (y2 <= end_y)
+ENCQ_LAYOUTS = ("scalar", "pair", "pair_as_written")
+
+
+def _strip_mask(num_strips: int, start_y: int, end_y: int,
+                legacy_range: bool = False) -> np.ndarray:
+    y = np.arange(num_strips, dtype=np.int64) * (8 if legacy_range else 16)
+    return (y >= start_y) & (y <= end_y)
 
 
 def _apply_mask(flat: torch.Tensor, mask: np.ndarray,
@@ -39,17 +47,28 @@ def _apply_mask(flat: torch.Tensor, mask: np.ndarray,
                                             device=flat.device))
 
 
-def _coeff_buffers(view_u8: torch.Tensor) -> torch.Tensor:
-    """(..., S*8, W) u8, raw 0..255 -> (..., S, BW, 64) f32 fy-major
-    coefficient buffers."""
+_INV_255 = np.float32(1.0 / 255.0)    # golden.py:184, xla_path.py:43
+
+
+def _coeff_buffers(view_u8: torch.Tensor, normalize: bool = False,
+                   orientation: str = "fy") -> torch.Tensor:
+    """(..., S*8, W) u8 -> (..., S, BW, 64) f32 coefficient buffers.
+    ``normalize`` multiplies the pixels by f32(1/255) before the DCT (the
+    enc-quant domain); mode32 keeps the raw 0..255 domain."""
     x = L_blocks.blockize(view_u8).to(torch.float32)
-    return L_reorder.coeffs_to_buffer(dct8x8(x))
+    if normalize:
+        x = x * torch.tensor(_INV_255, device=x.device)
+    return L_reorder.coeffs_to_buffer(dct8x8(x), orientation)
 
 
-def _buffers_to_view(bufs: torch.Tensor) -> torch.Tensor:
-    """(..., S, BW, 64) f32 fy-major coefficient buffers -> (..., S*8, W)
-    u8 pixels (round half to even, clip to [0, 255])."""
-    x = idct8x8(L_reorder.buffer_to_coeffs(bufs))
+def _buffers_to_view(bufs: torch.Tensor, normalize: bool = False,
+                     orientation: str = "fy") -> torch.Tensor:
+    """(..., S, BW, 64) f32 coefficient buffers -> (..., S*8, W) u8 pixels
+    (``normalize``: times 255 after the IDCT; then round half to even and
+    clip to [0, 255])."""
+    x = idct8x8(L_reorder.buffer_to_coeffs(bufs, orientation))
+    if normalize:
+        x = x * torch.tensor(np.float32(255.0), device=x.device)
     px = torch.clamp(torch.round(x), 0.0, 255.0).to(torch.uint8)
     return L_blocks.unblockize(px)
 
@@ -85,6 +104,43 @@ def roundtrip_quantize32(img: torch.Tensor, lut) -> torch.Tensor:
     """Mode32 encode (``rne``) then decode of the TOP view, composed."""
     h, w = img.shape[-2:]
     return decode_quantize32(encode_quantize32(img, lut), lut, w, h)
+
+
+def encode_quantize(img: torch.Tensor, lut, start_y: int = 0,
+                    end_y: int = 1 << 30, rounding: str = "rne",
+                    layout: str = "scalar",
+                    legacy_range: bool = False) -> torch.Tensor:
+    """simdDCT_EncodeQuantizeBuffer semantics on the TOP view of a
+    (..., H, W) dual-view image: the 1/255 domain, fx-major buffers, then
+    the ``scalar``, ``pair`` or ``pair_as_written`` layout.
+    -> (..., H/2*W) u8."""
+    if layout not in ENCQ_LAYOUTS:
+        raise ValueError(f"layout must be one of {ENCQ_LAYOUTS}, "
+                         f"got {layout!r}")
+    h, w = img.shape[-2:]
+    bufs = _coeff_buffers(img[..., : h // 2, :], normalize=True,
+                          orientation="fx")
+    data = quantize_to_u8(bufs, quant_scales(lut, img.device), rounding)
+    flat = (L_reorder.block_contiguous(data) if layout == "scalar"
+            else L_reorder.pair_cells(data))
+    mask = _strip_mask(h // 16, start_y, end_y, legacy_range)
+    if layout == "pair_as_written":
+        return L_reorder.pair_as_written_masked(flat, mask, 8 * w)
+    return _apply_mask(flat, mask, 8 * w)
+
+
+def decode_quantize(data: torch.Tensor, lut, size_x: int, size_y: int,
+                    layout: str = "scalar") -> torch.Tensor:
+    """Inverse of ``encode_quantize`` for the ``scalar`` and ``pair``
+    layouts: (..., size_y/2*size_x) -> (..., size_y/2, size_x) u8."""
+    if layout not in ("scalar", "pair"):
+        raise ValueError(f"decodable layouts are 'scalar' and 'pair', "
+                         f"got {layout!r}")
+    bw = size_x // 8
+    bufs = (L_reorder.block_contiguous_inverse(data, bw) if layout == "scalar"
+            else L_reorder.pair_cells_inverse(data, bw))
+    coeffs = dequantize_from_u8(bufs, dequant_scales(lut, data.device))
+    return _buffers_to_view(coeffs, normalize=True, orientation="fx")
 
 
 def probe_trial(x: torch.Tensor) -> torch.Tensor:

@@ -20,6 +20,7 @@ from simd_dct_tpu_torch.utils.debug import check_deterministic
 
 REPO = Path(__file__).resolve().parents[1]
 LUT = T.default_quant_lut(50) * np.float32(255.0)
+CPU = {"device": "cpu"}    # numpy inputs run on the card unless asked
 
 
 def _img(h, w, seed=0):
@@ -53,10 +54,10 @@ BAD_ENCODE_INPUTS = {
 @pytest.mark.parametrize("case", sorted(BAD_ENCODE_INPUTS))
 def test_encode_validation_matches_jax(case):
     make, lut, kw = BAD_ENCODE_INPUTS[case]
-    _raises_same(lambda: T.encode_quantize32(make(), lut, **kw),
+    _raises_same(lambda: T.encode_quantize32(make(), lut, device="cpu", **kw),
                  lambda: J.encode_quantize32(make(), lut, **kw))
     if "rounding" not in kw:
-        _raises_same(lambda: T.roundtrip_quantize32(make(), lut),
+        _raises_same(lambda: T.roundtrip_quantize32(make(), lut, device="cpu"),
                      lambda: J.roundtrip_quantize32(make(), lut))
 
 
@@ -73,13 +74,14 @@ BAD_DECODE_INPUTS = {
 @pytest.mark.parametrize("case", sorted(BAD_DECODE_INPUTS))
 def test_decode_validation_matches_jax(case):
     data, sx, sy = BAD_DECODE_INPUTS[case]
-    _raises_same(lambda: T.decode_quantize32(data, LUT, sx, sy),
+    _raises_same(lambda: T.decode_quantize32(data, LUT, sx, sy, device="cpu"),
                  lambda: J.decode_quantize32(data, LUT, sx, sy))
 
 
 def test_decode_lut_size_raises():
     with pytest.raises(T.InvalidParameterError):
-        T.decode_quantize32(np.zeros(64 * 8, np.uint8), LUT[:10], 64, 16)
+        T.decode_quantize32(np.zeros(64 * 8, np.uint8), LUT[:10], 64, 16,
+                            device="cpu")
 
 
 def test_result_codes_mirror_jax():
@@ -92,31 +94,32 @@ def test_result_codes_mirror_jax():
 def test_try_encode_quantize32_codes_and_partial_write():
     img = _img(64, 128)
     out = np.full(32 * 128, 7, np.uint8)
-    assert A.try_encode_quantize32(img, out, LUT[:5], 128, 64, 0, None) \
+    assert A.try_encode_quantize32(img, out, LUT[:5], 128, 64, 0, None, **CPU) \
         == T.SimdDctResult.INVALID_PARAMETER
-    assert A.try_encode_quantize32(_img(64, 96), out, LUT, 96, 64, 0, None) \
+    assert A.try_encode_quantize32(_img(64, 96), out, LUT, 96, 64, 0, None,
+                                   **CPU) \
         == T.SimdDctResult.NOT_SUPPORTED
     assert (out == 7).all()
-    assert A.try_encode_quantize32(img, out, LUT, 128, 64, 16, 16) \
+    assert A.try_encode_quantize32(img, out, LUT, 128, 64, 16, 16, **CPU) \
         == T.SimdDctResult.SUCCESS
-    full = T.encode_quantize32(img, LUT).numpy()
+    full = T.encode_quantize32(img, LUT, **CPU).numpy()
     strips = out.reshape(4, -1)
     assert (strips[[0, 2, 3]] == 7).all()     # untouched, like the reference
     np.testing.assert_array_equal(strips[1], full.reshape(4, -1)[1])
     want = np.zeros_like(out)
     J.api.try_encode_quantize32(img, want, LUT, 128, 64, 16, 16)
     np.testing.assert_array_equal(strips[1], want.reshape(4, -1)[1])
-    assert A.try_encode_quantize32(img, out, LUT, 128, 64, 0, None) \
+    assert A.try_encode_quantize32(img, out, LUT, 128, 64, 0, None, **CPU) \
         == T.SimdDctResult.SUCCESS
     np.testing.assert_array_equal(out, full)
 
 
 def test_compat_raises_not_supported():
     with pytest.raises(T.NotSupportedError, match="ROADMAP"):
-        T.encode_quantize32(_img(32, 128), LUT, compat=True)
+        T.encode_quantize32(_img(32, 128), LUT, compat=True, **CPU)
     with pytest.raises(T.NotSupportedError, match="ROADMAP"):
         T.decode_quantize32(np.zeros(16 * 128, np.uint8), LUT, 128, 32,
-                            compat=True)
+                            compat=True, **CPU)
 
 
 def test_cuda_backend_raises_without_gpu():
@@ -125,7 +128,7 @@ def test_cuda_backend_raises_without_gpu():
     with pytest.raises(T.NotSupportedError):
         C.select_backend("cuda")
     with pytest.raises(T.NotSupportedError):
-        T.encode_quantize32(_img(32, 128), LUT, backend="cuda")
+        T.encode_quantize32(_img(32, 128), LUT, backend="cuda", **CPU)
     with pytest.raises(T.NotSupportedError):
         C.set_max_backend("cuda", strict=True)
     assert C.available_tiers() == ("torch",)
@@ -151,6 +154,38 @@ def test_tier_selection_follows_device_and_cap():
         C.set_max_backend("cuda")
     with pytest.raises(ValueError):
         C.set_max_backend("numpy")
+
+
+def test_numpy_input_defaults_to_the_card(monkeypatch):
+    """A non-tensor input with no ``device`` goes to the card; with no
+    card that raises NotSupportedError naming device="cpu", for every
+    entry point, and never runs on the host quietly."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    img, rec = _img(32, 128), np.zeros(16 * 128, np.uint8)
+    calls = {
+        "encode_quantize": lambda **kw: T.encode_quantize(img, LUT, **kw),
+        "decode_quantize": lambda **kw: T.decode_quantize(rec, LUT, 128, 32,
+                                                          **kw),
+        "encode_quantize32": lambda **kw: T.encode_quantize32(img, LUT, **kw),
+        "decode_quantize32": lambda **kw: T.decode_quantize32(rec, LUT, 128,
+                                                              32, **kw),
+        "roundtrip_quantize32": lambda **kw: T.roundtrip_quantize32(img, LUT,
+                                                                    **kw),
+        "records_from_numpy": lambda **kw: convert.records_from_numpy(
+            rec, 128, 32, **kw),
+        "lut_from_numpy": lambda **kw: convert.lut_from_numpy(LUT, **kw)[0],
+    }
+    for name, call in calls.items():
+        for kw in ({}, {"device": "cuda"}):
+            with pytest.raises(T.NotSupportedError, match='device="cpu"'):
+                call(**kw)
+        assert call(device="cpu").device.type == "cpu", name
+    out = np.full(16 * 128, 7, np.uint8)
+    assert A.try_encode_quantize(img, out, LUT, 128, 32, 0, None) \
+        == T.SimdDctResult.NOT_SUPPORTED
+    assert (out == 7).all()
+    # a CPU tensor stays on the host and takes the plain version
+    assert T.encode_quantize(torch.from_numpy(img), LUT).device.type == "cpu"
 
 
 def test_device_keyword_places_numpy_and_never_moves_tensors():
@@ -233,7 +268,7 @@ def test_wrappers_on_cpu_equal_plain_version():
     img = torch.from_numpy(np.stack([_img(32, 128, s) for s in range(2)]))
     rec = K.encode_quantize32(img, LUT, 0, 1 << 40)   # end_y beyond int32
     np.testing.assert_array_equal(
-        rec.numpy(), T.encode_quantize32(img.numpy(), LUT).numpy())
+        rec.numpy(), T.encode_quantize32(img.numpy(), LUT, **CPU).numpy())
     dec = K.decode_quantize32(rec, LUT, 128, 32)
     np.testing.assert_array_equal(K.roundtrip_quantize32(img, LUT).numpy(),
                                   dec.numpy())
@@ -243,31 +278,34 @@ def test_wrappers_on_cpu_equal_plain_version():
         np.minimum(np.arange(256) + 1, 255).astype(np.uint8))
     assert K.supports_mode("roundtrip32", 32, 128)
     assert not K.supports_mode("roundtrip32", 32, 96)
-    assert not K.supports_mode("enc_quant", 32, 128)
+    assert K.supports_mode("enc_quant", 32, 72)
+    assert not K.supports_mode("enc_quant", 32, 72, "pair")
+    assert K.supports_mode("dec_quant", 32, 80, "pair")
+    assert not K.supports_mode("enc_quant_stereo", 32, 128)
 
 
 def test_convert_matches_jax():
     import jax.numpy as jnp
     from simd_dct_tpu.core import quantize as J_q
-    q, qi = convert.lut_from_numpy(LUT)
+    q, qi = convert.lut_from_numpy(LUT, **CPU)
     assert q.numpy().tobytes() == np.asarray(J_q.quant_scales(LUT)).tobytes()
     assert qi.numpy().tobytes() == \
         np.asarray(J_q.dequant_scales(jnp.asarray(LUT))).tobytes()
     recs = np.stack([np.asarray(J.encode_quantize32(_img(32, 128, s), LUT,
                                                     backend="xla"))
                      for s in range(2)])
-    t = convert.records_from_numpy(recs, 128, 32)
+    t = convert.records_from_numpy(recs, 128, 32, **CPU)
     assert t.shape == (2, 16 * 128) and t.dtype == torch.uint8
     np.testing.assert_array_equal(convert.records_to_numpy(t), recs)
     with pytest.raises(ValueError):
-        convert.records_from_numpy(recs[:, 1:], 128, 32)
+        convert.records_from_numpy(recs[:, 1:], 128, 32, **CPU)
     with pytest.raises(ValueError):
-        convert.records_from_numpy(recs.astype(np.int32), 128, 32)
+        convert.records_from_numpy(recs.astype(np.int32), 128, 32, **CPU)
 
 
 def test_check_deterministic():
     img = _img(32, 128)
-    assert check_deterministic(lambda: T.roundtrip_quantize32(img, LUT))
+    assert check_deterministic(lambda: T.roundtrip_quantize32(img, LUT, **CPU))
     it = iter(range(10))
     assert not check_deterministic(lambda: torch.tensor([next(it)]))
 

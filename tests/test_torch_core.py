@@ -22,7 +22,7 @@ from simd_dct_tpu_torch.layout import blocks as T_blocks
 from simd_dct_tpu_torch.layout import reorder as T_reorder
 
 CU_SOURCE = (Path(__file__).resolve().parents[1]
-             / "simd_dct_tpu_torch" / "csrc" / "dct32.cu")
+             / "simd_dct_tpu_torch" / "csrc" / "dct_common.cuh")
 
 
 def _luts():

@@ -85,3 +85,77 @@ def test_wrappers_reject_misaligned(gen):
         K.encode_quantize32(flat[1:].view(256, 128), LUT)
     rec = sd.encode_quantize32(flat[1:].view(256, 128), LUT)   # api realigns
     _ok(rec, TP.encode_quantize32(flat[1:].view(256, 128), LUT))
+
+
+# -- enc-quant ---------------------------------------------------------------
+
+LUT_Q = default_quant_lut(50)     # enc-quant works in the 1/255 domain
+LAYOUTS = ("scalar", "pair", "pair_as_written")
+
+
+@pytest.mark.parametrize("shape", [(256, 192), (272, 64), (3, 1088, 1920)])
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("rounding", ["rne", "scalar", "clamp_first"])
+def test_encq_against_plain(gen, shape, layout, rounding):
+    img = _img(gen, *shape)
+    _ok(K.encode_quantize(img, LUT_Q, rounding=rounding, layout=layout),
+        TP.encode_quantize(img, LUT_Q, rounding=rounding, layout=layout))
+
+
+def test_encq_scalar_takes_w_mod_16_eq_8(gen):
+    img = _img(gen, 2, 64, 72)
+    _ok(K.encode_quantize(img, LUT_Q), TP.encode_quantize(img, LUT_Q))
+    rec = TP.encode_quantize(img, LUT_Q)
+    _ok(K.decode_quantize(rec, LUT_Q, 72, 64),
+        TP.decode_quantize(rec, LUT_Q, 72, 64))
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("sy,ey,legacy", [(16, 16, False), (32, 95, False),
+                                          (0, 20, True), (-(1 << 40), 40, True),
+                                          (48, 1 << 40, False)])
+def test_encq_strip_ranges(gen, layout, sy, ey, legacy):
+    img = _img(gen, 2, 256, 128)
+    got = K.encode_quantize(img, LUT_Q, sy, ey, layout=layout,
+                            legacy_range=legacy)
+    want = TP.encode_quantize(img, LUT_Q, sy, ey, layout=layout,
+                              legacy_range=legacy)
+    _ok(got, want)
+    assert torch.equal(got == 0, want == 0)
+
+
+def test_encq_layout_identities(gen):
+    img = _img(gen, 2, 512, 256)
+    scal = K.encode_quantize(img, LUT_Q)
+    pair = K.encode_quantize(img, LUT_Q, layout="pair")
+    aw = K.encode_quantize(img, LUT_Q, layout="pair_as_written")
+    bufs = scal.view(2, 32, 32, 64)
+    assert torch.equal(pair, TP.L_reorder.pair_cells(bufs))
+    halves = pair.view(2, -1, 2, 64).clone()
+    halves[:, :, 1] = 0
+    assert torch.equal(aw, halves.view(2, -1))
+    assert torch.equal(K.decode_quantize(scal, LUT_Q, 256, 512),
+                       K.decode_quantize(pair, LUT_Q, 256, 512, "pair"))
+
+
+@pytest.mark.parametrize("shape", [(256, 192), (2, 1088, 1920)])
+@pytest.mark.parametrize("layout", ["scalar", "pair"])
+def test_decq_against_plain(gen, shape, layout):
+    img = _img(gen, *shape)
+    h, w = shape[-2:]
+    rec = TP.encode_quantize(img, LUT_Q, layout=layout)
+    _ok(K.decode_quantize(rec, LUT_Q, w, h, layout),
+        TP.decode_quantize(rec, LUT_Q, w, h, layout))
+
+
+def test_api_numpy_input_runs_on_the_card(gen):
+    img = _img(gen, 2, 256, 128).cpu().numpy()
+    K.reset_launch_counts()
+    rec = sd.encode_quantize(img, LUT_Q, layout="pair")
+    top = sd.decode_quantize(rec.cpu().numpy(), LUT_Q, 128, 256,
+                             layout="pair")
+    torch.cuda.synchronize()
+    assert rec.device.type == top.device.type == "cuda"
+    assert K.LAUNCHES["encq"] == K.LAUNCHES["decq"] == 1
+    assert sd.encode_quantize(img, LUT_Q, device="cpu").device.type == "cpu"
+    assert K.LAUNCHES["encq"] == 1

@@ -109,14 +109,15 @@ def test_decode_same_records_matches_jax(h, w):
 def test_batch_matches_per_frame_and_jax():
     frames = np.stack([_img(256, 128, seed=s) for s in range(3)])
     lut = _lut()
-    port = T.encode_quantize32(frames, lut)
+    port = T.encode_quantize32(frames, lut, device="cpu")
     assert port.shape == (3, 128 * 128)
     jax_rec = np.asarray(J.encode_quantize32(frames, lut, backend="xla"))
     _assert_contract({"port": port, "jax": jax_rec})
     for i in range(3):
         np.testing.assert_array_equal(
-            port[i].numpy(), T.encode_quantize32(frames[i], lut).numpy())
-    dec = T.decode_quantize32(jax_rec, lut, 128, 256)
+            port[i].numpy(),
+            T.encode_quantize32(frames[i], lut, device="cpu").numpy())
+    dec = T.decode_quantize32(jax_rec, lut, 128, 256, device="cpu")
     assert dec.shape == (3, 128, 128)
     _assert_contract({
         "port": dec,
@@ -125,7 +126,7 @@ def test_batch_matches_per_frame_and_jax():
 
 def test_spill_matches_jax():
     img, lut = _img(264, 128, seed=4), _lut()
-    port = T.encode_quantize32(img, lut, spill=True)
+    port = T.encode_quantize32(img, lut, spill=True, device="cpu")
     want = np.asarray(J.encode_quantize32(img, lut, spill=True,
                                           backend="xla"))
     assert port.shape == want.shape == (136 * 128,)
@@ -137,16 +138,18 @@ def test_records_cross_between_packages():
     img, lut = _img(256, 192, seed=5), _lut()
     jax_rec = np.asarray(XP.encode_quantize32(jnp.asarray(img),
                                               jnp.asarray(lut)))
-    port_rec = T.encode_quantize32(img, lut).numpy()
+    port_rec = T.encode_quantize32(img, lut, device="cpu").numpy()
     _assert_contract({
-        "port(jax records)": T.decode_quantize32(jax_rec, lut, 192, 256),
+        "port(jax records)": T.decode_quantize32(jax_rec, lut, 192, 256,
+                                                 device="cpu"),
         "jax(jax records)": XP.decode_quantize32(jnp.asarray(jax_rec),
                                                  jnp.asarray(lut), 192, 256),
     })
     _assert_contract({
         "jax(port records)": XP.decode_quantize32(jnp.asarray(port_rec),
                                                   jnp.asarray(lut), 192, 256),
-        "port(port records)": T.decode_quantize32(port_rec, lut, 192, 256),
+        "port(port records)": T.decode_quantize32(port_rec, lut, 192, 256,
+                                                  device="cpu"),
     })
 
 
@@ -154,15 +157,16 @@ def test_records_cross_between_packages():
 def test_roundtrip_fused_equals_composed_and_psnr(quality):
     rng = np.random.default_rng(6)
     img, lut = _smooth(rng, 256, 192), _lut(quality)
-    fused = T.roundtrip_quantize32(img, lut)
-    composed = T.decode_quantize32(T.encode_quantize32(img, lut), lut,
-                                   192, 256)
+    fused = T.roundtrip_quantize32(img, lut, device="cpu")
+    composed = T.decode_quantize32(
+        T.encode_quantize32(img, lut, device="cpu"), lut, 192, 256)
     np.testing.assert_array_equal(fused.numpy(), composed.numpy())
     top = img[:128]
     jax_rt = np.asarray(J.roundtrip_quantize32(img, lut, backend="xla"))
     pallas_rt = np.asarray(PK.roundtrip_quantize32(
         jnp.asarray(img[:, :128]), lut, interpret=True, precision="f32"))
     assert abs(psnr(top, fused.numpy()) - psnr(top, jax_rt)) < 0.1
-    port_128 = T.roundtrip_quantize32(img[:, :128].copy(), lut).numpy()
+    port_128 = T.roundtrip_quantize32(img[:, :128].copy(), lut,
+                                     device="cpu").numpy()
     assert abs(psnr(top[:, :128], port_128)
                - psnr(top[:, :128], pallas_rt)) < 0.1
