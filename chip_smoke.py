@@ -36,12 +36,29 @@ result line):
      and a 64-frame 1088x1920 batch in one launch each way; round-trip PSNR
      on the smooth 4K view at quality 50 within 0.1 dB of the plain
      version's;
-  8. timing of kernel, plain version and a same-run device-to-device copy
-     of the same bytes, rotating over inputs larger than the 50 MB L2,
-     median of REPS repetitions: kernel and copy by CUDA events with the
-     rotation queued behind a device-side sleep (no host launch cost in
-     the reading), the plain version by torch.profiler device time, and
-     the CUDA-event wall of back-to-back calls for each.
+  8. the stereo kernels against their plain versions (+-1 on at most 0.2%
+     of bytes) at 4096x3840, 1088x1920, 256x200 (W % 128 != 0: the
+     byte-wide plane-row path) and an 8-frame 1088x1920 batch, in the
+     interleaved, planar and native view layouts, every rounding mode at
+     4K; strip ranges ([16, 16], [64, 191] and one that drops the last
+     strip) and the 1096x1920 spill geometry; exact identities on the
+     card: planar == stereo_interleaved_to_views(interleaved), native[...,
+     :BW] == planar, native pad 127 in included strips and 0 in excluded
+     ones, zero bytes outside the strip range (from the strip geometry),
+     decode(interleaved) == decode(planar) == decode(native);
+  9. the stereo main path through the public api with numpy inputs and no
+     device, counters set to 0 just before: the 4K dual view in each view
+     layout and the decode of each, and a 64-frame 1088x1920 native batch
+     in one launch each way (4 enc_stereo and 4 dec_stereo launches);
+     round-trip PSNR on the smooth 4K dual view at quality 50 within 0.1
+     dB of the plain version's;
+  10. timing of kernel, plain version and a same-run device-to-device copy
+      of the same bytes (one view's for mode32 and enc-quant, the whole
+      dual view's for stereo), rotating over inputs larger than the 50 MB
+      L2, median of REPS repetitions: kernel and copy by CUDA events with
+      the rotation queued behind a device-side sleep (no host launch cost
+      in the reading), the plain version by torch.profiler device time,
+      and the CUDA-event wall of back-to-back calls for each.
 The line before the last is a JSON object with one entry per kernel (its
 time, its bound and its share of the copy); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -66,11 +83,13 @@ from simd_dct_tpu_torch.core.dct import dct_basis_np
 from simd_dct_tpu_torch.core.quantize import VR, default_quant_lut
 from simd_dct_tpu_torch.dispatch import capability
 from simd_dct_tpu_torch.kernels import _build, cuda_dct, torch_path
+from simd_dct_tpu_torch.layout.reorder import stereo_interleaved_to_views
 from simd_dct_tpu_torch.utils.debug import compare_backends
 from simd_dct_tpu_torch.utils.metrics import psnr
 
 DCT32 = "simd_dct_tpu_torch/csrc/dct32.cu"
 ENCQ = "simd_dct_tpu_torch/csrc/encq.cu"
+STEREO = "simd_dct_tpu_torch/csrc/stereo.cu"
 PALLAS = "simd_dct_tpu/kernels/pallas_dct.py"
 # kernel -> (source, the TPU kernel it replaces, main path)
 KERNELS = {
@@ -80,10 +99,16 @@ KERNELS = {
     "probe": (DCT32, "simd_dct_tpu/dispatch/capability.py:55", "mode32"),
     "encq": (ENCQ, f"{PALLAS}:760", "enc-quant"),
     "decq": (ENCQ, f"{PALLAS}:882", "enc-quant"),
+    "enc_stereo": (STEREO, f"{PALLAS}:1221 and {PALLAS}:1259", "stereo"),
+    "dec_stereo": (STEREO, f"{PALLAS}:1015", "stereo"),
 }
 # (H, W, frames) of the dual-view images the comparisons run on
 GEOMETRIES = [(4096, 3840, 1), (1088, 1920, 1), (256, 192, 1), (1088, 1920, 8)]
+# stereo: W = 200 (BW = 25) takes the kernels' byte-wide plane-row path
+STEREO_GEOMETRIES = [(4096, 3840, 1), (1088, 1920, 1), (256, 200, 1),
+                     (1088, 1920, 8)]
 LAYOUTS = ("scalar", "pair", "pair_as_written")
+VIEW_LAYOUTS = ("interleaved", "planar", "native")
 ROUNDINGS = ("rne", "scalar", "clamp_first")
 DEV = "cuda"
 REPS = 25
@@ -98,7 +123,8 @@ PEAK_FMA_S = 33.5e12
 PASS_FMA_PER_PX = 16 * 29 / 64 + 1
 FMA_PER_PX = {"enc32": PASS_FMA_PER_PX, "dec32": PASS_FMA_PER_PX,
               "roundtrip32": 2 * PASS_FMA_PER_PX, "probe": 0,
-              "encq": PASS_FMA_PER_PX, "decq": PASS_FMA_PER_PX}
+              "encq": PASS_FMA_PER_PX, "decq": PASS_FMA_PER_PX,
+              "enc_stereo": PASS_FMA_PER_PX, "dec_stereo": PASS_FMA_PER_PX}
 
 
 def log(*args):
@@ -351,6 +377,136 @@ def phase_main_path_encq(gen, lut):
     return counts
 
 
+def check_stereo_identities(img, lut, tag):
+    """Exact identities of one image's three forms, all strips included:
+    planar == views(interleaved), native[..., :BW] == planar, native pad
+    == 127, and the three decodes equal."""
+    h, w = img.shape[-2:]
+    s, bw = h // 16, w // 8
+    ilv, pla, nat = (cuda_dct.encode_quantize_stereo(img, lut, view_layout=vl)
+                     for vl in VIEW_LAYOUTS)
+    require(torch.equal(pla, stereo_interleaved_to_views(ilv, s, bw)),
+            f"{tag}: planar == stereo_interleaved_to_views(interleaved)")
+    require(torch.equal(nat[..., :bw], pla), f"{tag}: native[..., :BW] == planar")
+    require(bool((nat[..., bw:] == 127).all()), f"{tag}: native pad == 127")
+    dec = [cuda_dct.decode_quantize_stereo(r, lut, w, h, vl)
+           for r, vl in zip((ilv, pla, nat), VIEW_LAYOUTS)]
+    require(torch.equal(dec[0], dec[1]) and torch.equal(dec[0], dec[2]),
+            f"{tag}: decode(interleaved) == decode(planar) == decode(native)")
+    log(f"  {tag}: planar == views(interleaved), native[..., :BW] == planar, "
+        "pad == 127, three decodes equal: exact")
+
+
+def phase_compare_stereo(gen, lut, errs):
+    log("phase 8: stereo kernels against the plain version on the card")
+    for h, w, frames in STEREO_GEOMETRIES:
+        img = random_images(gen, h, w, frames)
+        tag = f"{frames}x{h}x{w}"
+        roundings = ROUNDINGS if h == 4096 else ("rne",)
+        for vl in VIEW_LAYOUTS:
+            for rounding in roundings:
+                agree(f"enc_stereo {tag} {vl} {rounding}",
+                      cuda_dct.encode_quantize_stereo(img, lut,
+                                                      rounding=rounding,
+                                                      view_layout=vl),
+                      torch_path.encode_quantize_stereo(img, lut,
+                                                        rounding=rounding,
+                                                        view_layout=vl),
+                      errs, "enc_stereo")
+            rec = torch_path.encode_quantize_stereo(img, lut, view_layout=vl)
+            agree(f"dec_stereo {tag} {vl} (same records)",
+                  cuda_dct.decode_quantize_stereo(rec, lut, w, h, vl),
+                  torch_path.decode_quantize_stereo(rec, lut, w, h, vl),
+                  errs, "dec_stereo")
+        if frames > 1 or h != 1088:
+            check_stereo_identities(img, lut, tag)
+    # [16, 16] keeps strip 1 only; [0, H - 32] drops the last strip
+    for h, w in [(512, 3840), (256, 200)]:
+        img = random_images(gen, h, w, 2)
+        for sy, ey in [(16, 16), (64, 191), (0, h - 32)]:
+            strips = torch_path._strip_mask(h // 16, sy, ey)
+            for vl in VIEW_LAYOUTS:
+                got = cuda_dct.encode_quantize_stereo(img, lut, sy, ey,
+                                                      view_layout=vl)
+                want = torch_path.encode_quantize_stereo(img, lut, sy, ey,
+                                                         view_layout=vl)
+                agree(f"enc_stereo 2x{h}x{w} {vl} range [{sy}, {ey}]", got,
+                      want, errs, "enc_stereo")
+                # the bytes the strip geometry leaves unwritten
+                written = sd._strip_byte_mask(h, w, sy, ey, view_layout=vl)
+                skipped = torch.from_numpy(np.ascontiguousarray(
+                    ~np.broadcast_to(written, got.shape[1:]))).to(DEV)
+                require(not got[:, skipped].any() and not want[:, skipped].any(),
+                        "bytes outside the strip range are zero in kernel and "
+                        "plain version")
+                if vl == "native":
+                    pad = got[..., w // 8:]
+                    inc = torch.from_numpy(strips).to(DEV)
+                    require(bool((pad[:, :, :, inc] == 127).all())
+                            and not pad[:, :, :, ~inc].any(),
+                            "native pad is 127 in included strips, 0 in "
+                            "excluded ones")
+        log(f"  2x{h}x{w}: unwritten bytes zero, native pad 127 / 0 by "
+            "strip: exact")
+    # spill: H % 16 == 8, the kernel sees the (2R, W) spill image
+    img = random_images(gen, 1096, 1920, 1)
+    spilled = sd._spill_stereo_image(img, 1920)
+    require(spilled.shape == (1104, 1920), "spill image is (2R, W)")
+    for vl in VIEW_LAYOUTS:
+        got = cuda_dct.encode_quantize_stereo(spilled, lut, view_layout=vl)
+        agree(f"enc_stereo spill 1096x1920 {vl}", got,
+              torch_path.encode_quantize_stereo(spilled, lut, view_layout=vl),
+              errs, "enc_stereo")
+        require(torch.equal(sd.encode_quantize_stereo(img, lut, spill=True,
+                                                      view_layout=vl), got),
+                "api spill == kernel on the spill image")
+
+
+def phase_main_path_stereo(gen, lut):
+    log("phase 9: the stereo main path through the public api "
+        "(numpy inputs, no device)")
+    img = smooth_image(gen, 4096, 3840).cpu().numpy()
+    video = random_images(gen, 1088, 1920, 64).cpu().numpy()
+    torch.cuda.synchronize()
+    cuda_dct.reset_launch_counts()
+    recs = {vl: sd.encode_quantize_stereo(img, lut, view_layout=vl)
+            for vl in VIEW_LAYOUTS}
+    pixs = {vl: sd.decode_quantize_stereo(recs[vl], lut, 3840, 4096,
+                                          view_layout=vl)
+            for vl in VIEW_LAYOUTS}
+    vid_rec = sd.encode_quantize_stereo(video, lut, view_layout="native")
+    vid = sd.decode_quantize_stereo(vid_rec, lut, 1920, 1088,
+                                    view_layout="native")
+    torch.cuda.synchronize()
+    counts = dict(cuda_dct.LAUNCHES)
+    log(f"  launches: {counts}")
+    require(counts["enc_stereo"] == 4 and counts["dec_stereo"] == 4,
+            "one launch per call, the 64-frame batch included")
+    outs = [*recs.values(), *pixs.values(), vid_rec, vid]
+    require(all(t.device.type == DEV for t in outs),
+            "numpy inputs with no device run on the card")
+    require(recs["interleaved"].shape == (4096 * 3840,)
+            and recs["planar"].shape == (2, 64, 256, 480)
+            and recs["native"].shape == (2, 64, 256, 512)
+            and vid_rec.shape == (64, 2, 64, 68, 256), "record shapes")
+    require(all(p.shape == (4096, 3840) for p in pixs.values())
+            and vid.shape == (64, 1088, 1920), "image shapes")
+    require(torch.equal(pixs["interleaved"], pixs["planar"])
+            and torch.equal(pixs["interleaved"], pixs["native"]),
+            "the three forms decode to the same pixels")
+    plain = torch_path.decode_quantize_stereo(
+        torch_path.encode_quantize_stereo(torch.from_numpy(img).to(DEV), lut),
+        lut, 3840, 4096).cpu().numpy()
+    p_k = psnr(img, pixs["interleaved"].cpu().numpy())
+    p_p = psnr(img, plain)
+    log(f"  4K dual-view stereo round-trip PSNR at quality 50: kernel "
+        f"{p_k:.4f} dB plain {p_p:.4f} dB delta {p_k - p_p:+.4f} dB; video "
+        f"batch {tuple(vid.shape)}")
+    require(abs(p_k - p_p) < 0.1, "round-trip PSNR within 0.1 dB of plain")
+    require(15.0 < p_k < 99.0, f"stereo PSNR {p_k:.2f} dB is plausible")
+    return counts
+
+
 def copy_pair(p):
     """Device-to-device copy of p[0] into p[1]: the same-run speed limit."""
     return p[1].copy_(p[0])
@@ -448,14 +604,15 @@ def profiled_us(fn, inputs, tries=3):
 
 
 def phase_timing(gen, lut, lut_q, reps):
-    log("phase 8: timing, median of "
+    log("phase 10: timing, median of "
         f"{reps} repetitions over rotations larger than L2.  kernel and "
         "copy: CUDA events with the rotation queued behind a device sleep; "
         "plain: torch.profiler device time (it synchronises on its scale "
         "uploads, so it cannot be queued); wall: back-to-back calls")
     cycles_per_ms = sleep_cycles_per_ms()
     rows, table = {}, []
-    cases = [("2048x3840 view", 4096, 3840, 1, 16),
+    # mode32 and enc-quant encode the top 2048x3840 view, stereo both views
+    cases = [("4096x3840 image", 4096, 3840, 1, 16),
              ("8x1088x1920 batch", 1088, 1920, 8, 6)]
     for label, h, w, frames, n_rot in cases:
         imgs = [random_images(gen, h, w, frames) for _ in range(n_rot)]
@@ -463,106 +620,157 @@ def phase_timing(gen, lut, lut_q, reps):
         recs_q = [torch_path.encode_quantize(x, lut_q) for x in imgs]
         recs_p = [torch_path.encode_quantize(x, lut_q, layout="pair")
                   for x in imgs]
-        pairs = [(r, torch.empty_like(r)) for r in recs]
-        c_us = queued_ms(copy_pair, pairs, reps, cycles_per_ms) * 1e3
-        c_prof, _ = profiled_us(copy_pair, pairs)
-        log(f"  copy {label}: {c_us:.3f} us (profiler {c_prof})")
-        n_px = frames * (h // 2) * w
+        recs_s = [torch_path.encode_quantize_stereo(x, lut_q) for x in imgs]
+        recs_n = [torch_path.encode_quantize_stereo(x, lut_q,
+                                                    view_layout="native")
+                  for x in imgs]
+        # one view's bytes (mode32, enc-quant) and the whole dual view's
+        # (stereo encodes both)
+        copies = {}
+        for key, srcs in (("view", recs), ("dual", imgs)):
+            pairs = [(r, torch.empty_like(r)) for r in srcs]
+            c_us = queued_ms(copy_pair, pairs, reps, cycles_per_ms) * 1e3
+            c_prof, _ = profiled_us(copy_pair, pairs)
+            copies[key] = c_us
+            log(f"  copy {label} ({key}, {srcs[0].numel()} bytes): "
+                f"{c_us:.3f} us (profiler {c_prof})")
+        view_px, dual_px = frames * (h // 2) * w, frames * h * w
+        native_bytes = dual_px + recs_n[0].numel()
+        # name -> (kernel, plain version, inputs, bytes moved, pixels, copy)
+        view = (2 * view_px, view_px, copies["view"])
+        dual = (2 * dual_px, dual_px, copies["dual"])
+        native = (native_bytes, dual_px, copies["dual"])
         jobs = {
             "enc32": (lambda x: cuda_dct.encode_quantize32(x, lut),
-                      lambda x: torch_path.encode_quantize32(x, lut), imgs),
+                      lambda x: torch_path.encode_quantize32(x, lut), imgs,
+                      *view),
             "dec32": (lambda r: cuda_dct.decode_quantize32(r, lut, w, h),
                       lambda r: torch_path.decode_quantize32(r, lut, w, h),
-                      recs),
+                      recs, *view),
             "roundtrip32": (lambda x: cuda_dct.roundtrip_quantize32(x, lut),
                             lambda x: torch_path.roundtrip_quantize32(x, lut),
-                            imgs),
+                            imgs, *view),
             "encq": (lambda x: cuda_dct.encode_quantize(x, lut_q),
-                     lambda x: torch_path.encode_quantize(x, lut_q), imgs),
+                     lambda x: torch_path.encode_quantize(x, lut_q), imgs,
+                     *view),
             "encq_pair": (
                 lambda x: cuda_dct.encode_quantize(x, lut_q, layout="pair"),
                 lambda x: torch_path.encode_quantize(x, lut_q,
-                                                     layout="pair"), imgs),
+                                                     layout="pair"), imgs,
+                *view),
             "encq_as_written": (
                 lambda x: cuda_dct.encode_quantize(x, lut_q,
                                                    layout="pair_as_written"),
                 lambda x: torch_path.encode_quantize(
-                    x, lut_q, layout="pair_as_written"), imgs),
+                    x, lut_q, layout="pair_as_written"), imgs, *view),
             "decq": (lambda r: cuda_dct.decode_quantize(r, lut_q, w, h),
                      lambda r: torch_path.decode_quantize(r, lut_q, w, h),
-                     recs_q),
+                     recs_q, *view),
             "decq_pair": (
                 lambda r: cuda_dct.decode_quantize(r, lut_q, w, h, "pair"),
                 lambda r: torch_path.decode_quantize(r, lut_q, w, h, "pair"),
-                recs_p),
+                recs_p, *view),
+            "enc_stereo": (
+                lambda x: cuda_dct.encode_quantize_stereo(x, lut_q),
+                lambda x: torch_path.encode_quantize_stereo(x, lut_q), imgs,
+                *dual),
+            "enc_stereo_planar": (
+                lambda x: cuda_dct.encode_quantize_stereo(
+                    x, lut_q, view_layout="planar"),
+                lambda x: torch_path.encode_quantize_stereo(
+                    x, lut_q, view_layout="planar"), imgs, *dual),
+            "enc_stereo_native": (
+                lambda x: cuda_dct.encode_quantize_stereo(
+                    x, lut_q, view_layout="native"),
+                lambda x: torch_path.encode_quantize_stereo(
+                    x, lut_q, view_layout="native"), imgs, *native),
+            "dec_stereo": (
+                lambda r: cuda_dct.decode_quantize_stereo(r, lut_q, w, h),
+                lambda r: torch_path.decode_quantize_stereo(r, lut_q, w, h),
+                recs_s, *dual),
+            "dec_stereo_native": (
+                lambda r: cuda_dct.decode_quantize_stereo(r, lut_q, w, h,
+                                                          "native"),
+                lambda r: torch_path.decode_quantize_stereo(r, lut_q, w, h,
+                                                            "native"),
+                recs_n, *native),
         }
-        for name, (kern, plain, inputs) in jobs.items():
+        for name, (kern, plain, inputs, n_bytes, n_px, c_us) in jobs.items():
             k_us = queued_ms(kern, inputs, reps, cycles_per_ms) * 1e3
             k_prof, k_names = profiled_us(kern, inputs)
             k_wall = wall_ms(kern, inputs, reps) * 1e3
             p_prof, p_names = profiled_us(plain, inputs)
             p_wall = wall_ms(plain, inputs, reps) * 1e3
             p_us = p_prof if p_prof is not None else p_wall
+            # the kernel a job times: the longest KERNELS name it starts with
+            kernel = max((k for k in KERNELS if name.startswith(k)), key=len)
+            bound, _ = bound_ms(kernel, n_bytes, n_px)
             table.append({
                 "kernel": name, "shape": label, "kernel_us": k_us,
                 "kernel_profiler_us": k_prof, "kernel_wall_us": k_wall,
                 "plain_us": p_us, "plain_estimator":
                     "profiler" if p_prof is not None else "wall",
                 "plain_wall_us": p_wall, "copy_us": c_us,
-                "kernel_gbps": 2 * n_px / (k_us * 1e3),
-                "frac_of_copy": c_us / k_us,
+                "bytes": n_bytes, "bound_us": bound * 1e3,
+                "kernel_gbps": n_bytes / (k_us * 1e3),
+                "frac_of_copy": c_us / k_us, "frac_of_bound": bound * 1e3 / k_us,
                 "kernel_us_per_frame": k_us / frames,
                 "kernel_names": k_names, "plain_kernels": len(p_names)})
             if frames == 1:
-                rows[name] = (k_us / 1e3, p_us / 1e3, c_us / 1e3, n_px)
-            log(f"  {name:15s} {label:18s} kernel {k_us:8.3f} us "
+                rows[name] = (k_us / 1e3, p_us / 1e3, c_us / 1e3, n_bytes,
+                              n_px)
+            log(f"  {name:17s} {label:18s} kernel {k_us:8.3f} us "
                 f"(profiler {k_prof if k_prof is None else round(k_prof, 3)}"
                 f", wall {k_wall:7.2f})  plain {p_us:9.2f} us "
                 f"(wall {p_wall:8.2f})  copy {c_us:6.3f} us  "
-                f"{2 * n_px / (k_us * 1e3):7.1f} GB/s  "
-                f"{c_us / k_us:.3f} of copy  {k_us / frames:7.3f} us/frame")
+                f"{n_bytes / (k_us * 1e3):7.1f} GB/s  "
+                f"{c_us / k_us:.3f} of copy  {bound * 1e3 / k_us:.3f} of bound"
+                f"  {k_us / frames:7.3f} us/frame")
     xs = [random_images(gen, 8, 128, 1) for _ in range(16)]
     k_us = queued_ms(cuda_dct.probe_trial, xs, reps, cycles_per_ms) * 1e3
     p_prof, _ = profiled_us(torch_path.probe_trial, xs)
     p_us = p_prof if p_prof is not None else \
         wall_ms(torch_path.probe_trial, xs, reps) * 1e3
-    rows["probe"] = (k_us / 1e3, p_us / 1e3, None, 8 * 128)
+    rows["probe"] = (k_us / 1e3, p_us / 1e3, None, 2 * 8 * 128, 8 * 128)
     log(f"  probe (8,128): kernel {k_us:.3f} us  plain {p_us:.3f} us")
     log("timing_table " + json.dumps(table))
     return rows
 
 
-def bound_ms(name: str, n_px: int) -> tuple[float, str]:
+def bound_ms(name: str, n_bytes: int, n_px: int) -> tuple[float, str]:
     """Least time for the work of one call: each input byte read once and
-    each output byte written once (1 + 1 per pixel of the view) over HBM's
-    rate, or the transforms' f32 FMAs over the CUDA cores' rate, whichever
-    is larger."""
-    by_bytes = 2 * n_px / PEAK_BYTES_S * 1e3
+    each output byte written once (``n_bytes``) over HBM's rate, or the
+    transforms' f32 FMAs on ``n_px`` pixels over the CUDA cores' rate,
+    whichever is larger."""
+    by_bytes = n_bytes / PEAK_BYTES_S * 1e3
     by_ops = FMA_PER_PX[name] * n_px / PEAK_FMA_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
 
 
-def kernel_rows(counts, counts_q, errs, times):
+def kernel_rows(counts, counts_q, counts_s, errs, times):
     """One entry per kernel: the 4K-view times of this run (the scalar
-    layout for encq / decq, the other layouts beside it), the bound, the
-    share of a same-run copy, and the launches of its main path's run."""
+    layout for encq / decq and the interleaved form for the stereo
+    kernels, the other layouts beside it), the bound, the share of a
+    same-run copy, and the launches of its main path's run."""
+    launches = {"mode32": counts, "enc-quant": counts_q, "stereo": counts_s}
     rows = []
     for name, (source, replaces, path) in KERNELS.items():
-        ms, plain, copy, n_px = times[name]
-        bound, bound_by = bound_ms(name, n_px)
+        ms, plain, copy, n_bytes, n_px = times[name]
+        bound, bound_by = bound_ms(name, n_bytes, n_px)
         row = {"name": name, "route": "cuda", "source": source,
-               "replaces": replaces,
-               "launches": (counts if path == "mode32" else counts_q)[name],
+               "replaces": replaces, "launches": launches[path][name],
                "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
                "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
-               "us": ms * 1e3, "gbps": 2 * n_px / (ms * 1e6),
+               "us": ms * 1e3, "gbps": n_bytes / (ms * 1e6),
                "frac_of_copy": None if copy is None else copy / ms,
                "frac_of_bound": bound / ms}
-        for layout in ("pair", "as_written"):
+        for layout in ("pair", "as_written", "planar", "native"):
             if f"{name}_{layout}" in times:
-                row[f"ms_{layout}"] = times[f"{name}_{layout}"][0]
-                row[f"plain_ms_{layout}"] = times[f"{name}_{layout}"][1]
+                ms_l, plain_l, _, bytes_l, px_l = times[f"{name}_{layout}"]
+                row[f"ms_{layout}"] = ms_l
+                row[f"plain_ms_{layout}"] = plain_l
+                row[f"bound_ms_{layout}"] = bound_ms(name, bytes_l, px_l)[0]
         rows.append(row)
     return rows
 
@@ -574,7 +782,8 @@ def log_ptxas(lines) -> None:
     for line in lines:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(enc32|dec32|roundtrip32|probe|encq|decq)_kernel"
+            k = re.search(r"(enc32|dec32|roundtrip32|probe|encq|decq|enc_stereo"
+                          r"|dec_stereo)_kernel"
                           r"(?:I((?:Li\d+E)+)E)?", m.group(1))
             name = f"{k.group(1)}_kernel" if k else m.group(1)
             if k and k.group(2):
@@ -623,10 +832,13 @@ def main(argv=None) -> int:
     lut_q = default_quant_lut(50)
     phase_compare_encq(gen, lut_q, errs)
     counts_q = phase_main_path_encq(gen, lut_q)
+    phase_compare_stereo(gen, lut_q, errs)
+    counts_s = phase_main_path_stereo(gen, lut_q)
     times = phase_timing(gen, lut100, lut_q, REPS)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"kernels": kernel_rows(counts, counts_q, errs, times)}))
+    log(json.dumps({"kernels": kernel_rows(counts, counts_q, counts_s, errs,
+                                               times)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

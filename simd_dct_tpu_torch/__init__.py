@@ -1,12 +1,14 @@
-"""simd_dct_tpu_torch -- the enc-quant and mode32 engines of ``simd_dct_tpu``
-in PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+"""simd_dct_tpu_torch -- the enc-quant, mode32 and stereo engines of
+``simd_dct_tpu`` in PyTorch, with hand-written CUDA kernels for NVIDIA
+Hopper (sm_90a).
 
 The JAX package ``simd_dct_tpu`` is the reference this package is held
 against; this package never imports jax.  Layer map:
 
 * ``core``     -- DCT basis and quantization math
-* ``layout``   -- blockize, the enc-quant scalar / pair-cell layouts and the
-  mode32 group-of-8 record layout
+* ``layout``   -- blockize, the dual-view geometry, the enc-quant scalar /
+  pair-cell layouts, the mode32 group-of-8 record layout and the stereo
+  interleaved / planar / native plane layouts
 * ``kernels``  -- plain PyTorch version (``torch_path``), CUDA kernel
   wrappers (``cuda_dct``) and the nvcc build (``_build``)
 * ``dispatch`` -- tiers ``cuda`` / ``torch`` and the capability probe
@@ -24,6 +26,8 @@ from .api import (
     SimdDctResult, SimdDctError, InvalidParameterError, NotSupportedError,
     encode_quantize, decode_quantize, try_encode_quantize,
     encode_quantize32, decode_quantize32, roundtrip_quantize32,
+    encode_quantize_stereo, decode_quantize_stereo,
+    try_encode_quantize_stereo,
 )
 from .core.quantize import default_quant_lut
 
@@ -33,5 +37,7 @@ __all__ = [
     "NotSupportedError",
     "encode_quantize", "decode_quantize", "try_encode_quantize",
     "encode_quantize32", "decode_quantize32", "roundtrip_quantize32",
+    "encode_quantize_stereo", "decode_quantize_stereo",
+    "try_encode_quantize_stereo",
     "default_quant_lut",
 ]

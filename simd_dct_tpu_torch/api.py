@@ -1,7 +1,8 @@
-"""Public API: validated enc-quant and mode32 entry points.
+"""Public API: validated enc-quant, mode32 and stereo entry points.
 
-Counterpart of the enc-quant and mode32 part of ``simd_dct_tpu/api.py``,
-with the same validation contract and the same typed errors
+Counterpart of the enc-quant, mode32 and stereo part of
+``simd_dct_tpu/api.py``, with the same validation contract and the same
+typed errors
 (``simdDctResult``, src/simd_dct.h:22-27).
 
 Device rule: every entry point runs on the card unless the caller asks for
@@ -27,6 +28,7 @@ from .core.quantize import ROUNDING_MODES, lut_array
 from .dispatch.capability import default_device, select_backend
 from .kernels import cuda_dct as _cuda
 from .kernels import torch_path as _tp
+from .layout.stereo import VIEW_LAYOUTS, record_shape
 
 
 class SimdDctResult(enum.IntEnum):
@@ -149,6 +151,21 @@ def _spill_view_image(img: torch.Tensor, w: int) -> torch.Tensor:
     return torch.cat([top, pad], dim=-2)
 
 
+def _spill_stereo_image(img: torch.Tensor, w: int) -> torch.Tensor:
+    """(..., H, W) u8 dual view with H % 16 == 8 -> (..., 2*R, W) dual
+    view, R = ceil((H/2)/8)*8.  The reference's spill strip
+    (src/simd_dct.cpp:1073) reads its LEFT-eye rows [H/2-4, H/2+4), 4 rows
+    into the right eye, so the extended left view is img[:R].  Its
+    RIGHT-eye rows [H-4, H+4) run past the caller's buffer (undefined in
+    the reference); those 4 rows are zeros here, a documented divergence
+    kept from the JAX package."""
+    h = img.shape[-2]
+    rows = -(-(h // 2) // 8) * 8
+    pad = torch.zeros(img.shape[:-2] + (rows - h // 2, w), dtype=torch.uint8,
+                      device=img.device)
+    return torch.cat([img[..., :rows, :], img[..., h // 2:, :], pad], dim=-2)
+
+
 # ---------------------------------------------------------------------------
 # enc-quant: encode / decode
 # ---------------------------------------------------------------------------
@@ -240,9 +257,7 @@ def encode_quantize32(image, lut, start_y: int = 0, end_y: int | None = None,
     return _tp.encode_quantize32(img, lut_arr, int(start_y), ey, rounding)
 
 
-def _validate_decode(data, lut, size_x, size_y, expect_bytes, device):
-    if data is None or lut is None:
-        raise InvalidParameterError("data and lut must not be None")
+def _check_decode_dims(size_x, size_y):
     if size_x <= 0 or size_y <= 0:
         raise InvalidParameterError(
             f"invalid dimensions {(size_x, size_y)}")
@@ -252,10 +267,20 @@ def _validate_decode(data, lut, size_x, size_y, expect_bytes, device):
     if size_y % 16:
         raise NotSupportedError(
             f"dual-view geometry requires H % 16 == 0, got H={size_y}")
-    d = _as_tensor(data, device, "data")
+
+
+def _check_u8_records(d: torch.Tensor):
     if d.dtype != torch.uint8:
         raise InvalidParameterError(
             f"record streams must be uint8, got {d.dtype}")
+
+
+def _validate_decode(data, lut, size_x, size_y, expect_bytes, device):
+    if data is None or lut is None:
+        raise InvalidParameterError("data and lut must not be None")
+    _check_decode_dims(size_x, size_y)
+    d = _as_tensor(data, device, "data")
+    _check_u8_records(d)
     if d.numel() % expect_bytes:
         raise InvalidParameterError(
             f"expected a multiple of {expect_bytes} bytes for "
@@ -298,6 +323,88 @@ def roundtrip_quantize32(image, lut, *, backend: str | None = None,
 
 
 # ---------------------------------------------------------------------------
+# stereo: encode / decode of both views
+# ---------------------------------------------------------------------------
+
+def _check_view_layout(view_layout: str):
+    if view_layout not in VIEW_LAYOUTS:
+        raise InvalidParameterError(
+            "view_layout must be 'interleaved', 'planar' or 'native', "
+            f"got {view_layout!r}")
+
+
+def encode_quantize_stereo(image, lut, start_y: int = 0,
+                           end_y: int | None = None, *, rounding: str = "rne",
+                           backend: str | None = None, compat: bool = False,
+                           spill: bool = False,
+                           view_layout: str = "interleaved",
+                           device=None) -> torch.Tensor:
+    """≙ simdDCT_EncodeQuantizeReorderStereoBuffer: coefficient-planar
+    encode of BOTH views in the 1/255 domain.  ``view_layout``:
+
+    * ``interleaved`` (the reference's stream): (H*W,) or (B, H*W), 64
+      planes, each strip's BW left-view bytes then BW right-view bytes;
+    * ``planar``: (2, 64, S, W/8) or (B, 2, 64, S, W/8), the views apart;
+    * ``native``: (..., 2, 64, S, BWP), planar with each plane row padded
+      to ``layout.stereo.native_stereo_bwp(W)`` columns of 127.
+
+    Bytes of strips outside [start_y, end_y] are zero, in native form the
+    pad too.  ``spill=True`` accepts H % 16 == 8 with the reference's spill
+    semantics (``_spill_stereo_image``; the output grows to 2*R*W bytes)."""
+    _check_view_layout(view_layout)
+    img, lut_arr, h, w = _validate(image, lut, allow_spill=spill,
+                                   device=device)
+    if spill and h % 16:
+        img = _spill_stereo_image(img, w)
+    _check_rounding(rounding)
+    tier = select_backend(backend, device=img.device)
+    _reject_compat(compat)
+    args = (int(start_y), _resolve_end_y(end_y), rounding, view_layout)
+    if tier == "cuda":
+        return _cuda.encode_quantize_stereo(_kernel_ready(img), lut_arr,
+                                            *args)
+    return _tp.encode_quantize_stereo(img, lut_arr, *args)
+
+
+def _validate_stereo_planes(data, lut, size_x, size_y, view_layout, device):
+    """Planar or native stereo records: (2, 64, S, BW[P]) or a batch of
+    them, exactly."""
+    if data is None or lut is None:
+        raise InvalidParameterError("data and lut must not be None")
+    d = _as_tensor(data, device, "data")
+    expect = record_shape(view_layout, size_y, size_x)
+    if d.ndim not in (4, 5) or tuple(d.shape[-4:]) != expect:
+        raise InvalidParameterError(
+            f"{view_layout} stereo data must have shape (..., 2, 64, "
+            f"{expect[2]}, {expect[3]}), got {tuple(d.shape)}")
+    _check_decode_dims(size_x, size_y)
+    _check_u8_records(d)
+    return d, _lut_array(lut)
+
+
+def decode_quantize_stereo(data, lut, size_x: int, size_y: int, *,
+                           backend: str | None = None, compat: bool = False,
+                           view_layout: str = "interleaved",
+                           device=None) -> torch.Tensor:
+    """Inverse of ``encode_quantize_stereo`` for each ``view_layout``:
+    records -> both views, (size_y, size_x) or (B, size_y, size_x) u8.  The
+    native form's pad columns are never read."""
+    _check_view_layout(view_layout)
+    if view_layout == "interleaved":
+        d, lut_arr = _validate_decode(data, lut, size_x, size_y,
+                                      size_y * size_x, device)
+    else:
+        d, lut_arr = _validate_stereo_planes(data, lut, size_x, size_y,
+                                             view_layout, device)
+    tier = select_backend(backend, device=d.device)
+    _reject_compat(compat)
+    if tier == "cuda":
+        return _cuda.decode_quantize_stereo(_kernel_ready(d), lut_arr, size_x,
+                                            size_y, view_layout)
+    return _tp.decode_quantize_stereo(d, lut_arr, size_x, size_y, view_layout)
+
+
+# ---------------------------------------------------------------------------
 # C-enum-style wrapper
 # ---------------------------------------------------------------------------
 #
@@ -307,18 +414,26 @@ def roundtrip_quantize32(image, lut, *, backend: str | None = None,
 # ``out`` and leave the rest untouched (src/simd_dct.cpp:1075-1083).
 
 def _strip_byte_mask(h: int, w: int, start_y, end_y, *, spill: bool = False,
-                     legacy_range: bool = False,
-                     pair_spill: bool = False) -> np.ndarray | None:
+                     legacy_range: bool = False, pair_spill: bool = False,
+                     view_layout: str | None = None) -> np.ndarray | None:
     """Bool mask over the output bytes written for the strip range, or
     None when every strip is included.  ``pair_spill``: the as-written
     pair layout's last cell of an included strip also writes the first 64
-    bytes of an excluded successor (src/simd_dct.cpp:1662-1670)."""
+    bytes of an excluded successor (src/simd_dct.cpp:1662-1670).
+    ``view_layout`` names a stereo output: the interleaved stream's mask
+    (each strip owns W/4 bytes of each of the 64 planes,
+    src/simd_dct.cpp:275), or for ``planar`` / ``native`` a (2, 64, S, 1)
+    mask that broadcasts over the plane rows."""
     n_strips = -(-h // 16) if (spill and h % 16) else h // 16
     cmp = np.arange(n_strips, dtype=np.int64) * (8 if legacy_range else 16)
     ey = _resolve_end_y(end_y)
     strips = (cmp >= int(start_y)) & (cmp <= ey)
     if strips.all():
         return None
+    if view_layout == "interleaved":
+        return np.tile(np.repeat(strips, w // 4), 64)
+    if view_layout is not None:
+        return np.broadcast_to(strips[:, None], (2, 64, n_strips, 1))
     mask = np.repeat(strips, 8 * w)
     if pair_spill:
         for r in np.nonzero(strips[:-1] & ~strips[1:])[0] + 1:
@@ -327,10 +442,11 @@ def _strip_byte_mask(h: int, w: int, start_y, end_y, *, spill: bool = False,
 
 
 def _try_encode(encode, image, out, lut, size_x, size_y, start_y, end_y,
-                kw) -> SimdDctResult:
+                kw, view_layout: str | None = None) -> SimdDctResult:
     """Run ``encode`` and copy the bytes it writes for the strip range into
-    ``out`` (a u8 numpy array of H/2*W bytes per frame); return a
-    SimdDctResult instead of raising."""
+    ``out`` (a u8 numpy array of the result's shape); return a
+    SimdDctResult instead of raising.  ``view_layout``: the stereo output
+    form, None for the one-view modes."""
     try:
         result = encode(image, lut, start_y, end_y, **kw)
     except SimdDctError as e:
@@ -338,7 +454,8 @@ def _try_encode(encode, image, out, lut, size_x, size_y, start_y, end_y,
     mask = _strip_byte_mask(
         size_y, size_x, start_y, end_y, spill=kw.get("spill", False),
         legacy_range=kw.get("legacy_range", False),
-        pair_spill=kw.get("layout") == "pair_as_written")
+        pair_spill=kw.get("layout") == "pair_as_written",
+        view_layout=view_layout)
     np.copyto(out, result.cpu().numpy(),
               where=True if mask is None else mask)
     return SimdDctResult.SUCCESS
@@ -356,3 +473,13 @@ def try_encode_quantize32(image, out, lut, size_x, size_y, start_y, end_y,
     """Reference-shaped mode32 call (see ``_try_encode``)."""
     return _try_encode(encode_quantize32, image, out, lut, size_x, size_y,
                        start_y, end_y, kw)
+
+
+def try_encode_quantize_stereo(image, out, lut, size_x, size_y, start_y,
+                               end_y, **kw) -> SimdDctResult:
+    """Reference-shaped stereo call (see ``_try_encode``).  Unlike the JAX
+    package's, its mask follows ``spill``: with H % 16 == 8 it covers the
+    2*R*W bytes the spilled encode returns."""
+    return _try_encode(encode_quantize_stereo, image, out, lut, size_x,
+                       size_y, start_y, end_y, kw,
+                       view_layout=kw.get("view_layout", "interleaved"))

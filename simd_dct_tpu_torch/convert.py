@@ -2,11 +2,11 @@
 
 The system has no learned weights: its state is the 64-entry quantization
 LUT and the record streams.  A LUT gives the same f32 scales in both
-packages, and a mode32 or enc-quant stream written by either package
-decodes in the other (the byte layouts are the reference's,
-src/simd_dct.cpp:361-364,1662-1670,2021-2025).  Like the api, these
-functions put their result on the card unless the caller names another
-``device``.
+packages, and a mode32, enc-quant or stereo stream written by either
+package decodes in the other (the byte layouts are the reference's,
+src/simd_dct.cpp:258-264,361-364,1662-1670,2021-2025, and the JAX
+package's planar and native stereo forms).  Like the api, these functions
+put their result on the card unless the caller names another ``device``.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import torch
 
 from .core.quantize import dequant_scales, lut_array, quant_scales
 from .dispatch.capability import default_device
+from .layout.stereo import record_shape
 
 
 def lut_from_numpy(lut, device: torch.device | str | None = None
@@ -38,18 +39,48 @@ def records_from_numpy(records, size_x: int, size_y: int,
     the ``scalar`` and ``pair`` layouts (``pair_as_written`` too, which
     decodes in neither package)."""
     dev = default_device(device)
+    return _flat_frames(_u8_array(records), (size_y // 2) * size_x, size_x,
+                        size_y, dev)
+
+
+def _u8_array(records) -> np.ndarray:
     arr = np.asarray(records)
     if arr.dtype != np.uint8:
         raise ValueError(f"records must be uint8, got {arr.dtype}")
     arr = np.ascontiguousarray(arr)
     if not arr.flags.writeable:     # torch warns on read-only buffers
         arr = arr.copy()
-    per_frame = (size_y // 2) * size_x
+    return arr
+
+
+def _flat_frames(arr: np.ndarray, per_frame: int, size_x: int, size_y: int,
+                 dev: torch.device) -> torch.Tensor:
+    """Flat streams of ``per_frame`` bytes a frame -> (n,) or (B, n)."""
     if per_frame <= 0 or arr.size % per_frame:
         raise ValueError(f"expected a multiple of {per_frame} bytes for "
                          f"{(size_x, size_y)}, got {arr.size}")
     shape = (-1,) if arr.ndim <= 1 else (arr.size // per_frame, per_frame)
     return torch.as_tensor(arr.reshape(shape), device=dev)
+
+
+def stereo_records_from_numpy(records, size_x: int, size_y: int,
+                              view_layout: str = "interleaved",
+                              device: torch.device | str | None = None
+                              ) -> torch.Tensor:
+    """Stereo records, or a batch of them, as written by either package ->
+    u8 tensor on ``device``: the interleaved stream (H*W bytes per frame)
+    as (H*W,) or (B, H*W); the ``planar`` (..., 2, 64, H/16, W/8) and
+    ``native`` (..., 2, 64, H/16, BWP) forms in their exact shape."""
+    expect = record_shape(view_layout, size_y, size_x)
+    dev = default_device(device)
+    arr = _u8_array(records)
+    if view_layout == "interleaved":
+        return _flat_frames(arr, expect[0], size_x, size_y, dev)
+    if arr.ndim not in (4, 5) or arr.shape[-4:] != expect:
+        raise ValueError(f"{view_layout} stereo records must have shape "
+                         f"(..., {', '.join(map(str, expect))}), got "
+                         f"{arr.shape}")
+    return torch.as_tensor(arr, device=dev)
 
 
 def records_to_numpy(records: torch.Tensor) -> np.ndarray:

@@ -1,8 +1,8 @@
 // Device functions shared by every kernel of simd_dct_tpu_torch/csrc: the
 // f32 DCT basis, the 8x8 forward and inverse transforms, the quantizer in
 // its three rounding modes, and 8x8 pixel-block loads and stores.  mode32
-// (dct32.cu) and enc-quant (encq.cu) both include this file, so the two
-// modes cannot differ in their arithmetic.
+// (dct32.cu), enc-quant (encq.cu) and stereo (stereo.cu) all include this
+// file, so the modes cannot differ in their arithmetic.
 //
 // Every product and sum of the transforms is an explicit __fmaf_rn /
 // __fmul_rn, so no contraction choice of the compiler can differ between
@@ -44,6 +44,10 @@ struct Scales {
 };
 
 enum Rounding { kRne = 0, kScalar = 1, kClampFirst = 2 };
+
+// f32(1/255), the pixel scale of the 1/255 domain (enc-quant and stereo),
+// as core/golden.py:184
+constexpr float kInv255 = 0x1.010102p-8f;
 
 // X (8x8, row-major, in place) -> D X D^T.  Column pass first, then rows,
 // the association order of the golden model (core/golden.py _dct2d).

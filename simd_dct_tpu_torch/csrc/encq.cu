@@ -50,8 +50,6 @@ constexpr int kPieces = kUnitStride / 16;
 
 enum Layout { kScalarLayout = 0, kPair = 1, kPairAsWritten = 2 };
 
-constexpr float kInv255 = 0x1.010102p-8f;  // f32(1/255), as golden.py:184
-
 __device__ __forceinline__ bool strip_included(long long s, int start_y, int end_y,
                                                int legacy_range) {
   const long long y = legacy_range ? 8 * s : 16 * s;  // legacy: the NoSimd y test

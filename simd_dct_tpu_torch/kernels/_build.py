@@ -122,6 +122,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sdct_encq.restype = i
     lib.sdct_decq.argtypes = [p, p, p, i, i, i, i, p]
     lib.sdct_decq.restype = i
+    lib.sdct_enc_stereo.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.sdct_enc_stereo.restype = i
+    lib.sdct_dec_stereo.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.sdct_dec_stereo.restype = i
     lib.sdct_probe.argtypes = [p, p, i, p]
     lib.sdct_probe.restype = i
     lib.sdct_error_string.argtypes = [i]

@@ -1,10 +1,10 @@
-"""Wrappers around the hand-written CUDA kernels: mode32 (``csrc/dct32.cu``)
-and enc-quant (``csrc/encq.cu``).
+"""Wrappers around the hand-written CUDA kernels: mode32 (``csrc/dct32.cu``),
+enc-quant (``csrc/encq.cu``) and stereo (``csrc/stereo.cu``).
 
-Counterpart of the mode32 and enc-quant part of
-``simd_dct_tpu/kernels/pallas_dct.py`` (``encode_quantize32`` /
-``decode_quantize32`` / ``roundtrip_quantize32``, ``encode_quantize`` /
-``decode_quantize``) and of the trial kernel of ``dispatch/capability.py``.
+Counterpart of ``simd_dct_tpu/kernels/pallas_dct.py`` (``encode_quantize32``
+/ ``decode_quantize32`` / ``roundtrip_quantize32``, ``encode_quantize`` /
+``decode_quantize``, ``encode_quantize_stereo`` / ``decode_quantize_stereo``)
+and of the trial kernel of ``dispatch/capability.py``.
 
 Device rule: a CPU tensor goes to the plain PyTorch version
 (``kernels/torch_path.py``); a CUDA tensor launches the kernel, on
@@ -27,16 +27,18 @@ import torch
 
 from ..core.quantize import (ROUNDING_MODES, dequant_scales, lut_array,
                              quant_scales)
+from ..layout import stereo as L_stereo
 from . import _build
 from . import torch_path as _tp
 
 LAUNCHES = {"enc32": 0, "dec32": 0, "roundtrip32": 0, "probe": 0,
-            "encq": 0, "decq": 0}
+            "encq": 0, "decq": 0, "enc_stereo": 0, "dec_stereo": 0}
 
 _ROUNDING_CODE = {"rne": 0, "scalar": 1, "clamp_first": 2}
 _LAYOUT_CODE = {"scalar": 0, "pair": 1, "pair_as_written": 2}
+_VIEW_LAYOUT_CODE = {"interleaved": 0, "planar": 1, "native": 2}
 _I32_MIN, _I32_MAX = -(1 << 31), (1 << 31) - 1
-_MAX_BATCH = 65535   # grid.y of one launch
+_MAX_BATCH = 65535   # grid.y (grid.z for stereo) of one launch
 
 
 def reset_launch_counts() -> None:
@@ -48,14 +50,16 @@ def supports_mode(mode: str, h: int, w: int, layout: str = "scalar") -> bool:
     """Geometry the kernels take directly: any H % 16 == 0 and, for the
     mode32 family, W % 64 == 0 (groups of 8 blocks, src/simd_dct.cpp:118);
     for enc-quant, W % 8 == 0 in the ``scalar`` layout and W % 16 == 0 in
-    the pair layouts (whole two-block cells).  No padding or slicing pass
-    exists or is needed."""
+    the pair layouts (whole two-block cells); for stereo, W % 8 == 0 in
+    every view layout.  No padding or slicing pass exists or is needed."""
     if h <= 0 or w <= 0 or h % 16:
         return False
     if mode in ("enc_quant32", "dec_quant32", "roundtrip32"):
         return w % 64 == 0
     if mode in ("enc_quant", "dec_quant"):
         return w % (8 if layout == "scalar" else 16) == 0
+    if mode in ("enc_quant_stereo", "dec_quant_stereo"):
+        return w % 8 == 0
     return False
 
 
@@ -79,10 +83,11 @@ def _check_tensor(t, name: str, ndims: tuple[int, ...]) -> None:
 def _check_geometry(mode: str, h: int, w: int,
                     layout: str = "scalar") -> None:
     if not supports_mode(mode, h, w, layout):
-        need = 64 if mode.endswith("32") else (8 if layout == "scalar"
-                                               else 16)
-        raise ValueError(f"{mode} ({layout}) needs H % 16 == 0 and "
-                         f"W % {need} == 0, got H={h}, W={w}")
+        need = 64 if mode.endswith("32") else (
+            8 if layout == "scalar" or mode.endswith("stereo") else 16)
+        what = f"{mode} ({layout})" if mode.endswith("quant") else mode
+        raise ValueError(f"{what} needs H % 16 == 0 and W % {need} == 0, "
+                         f"got H={h}, W={w}")
 
 
 @functools.lru_cache(maxsize=32)
@@ -272,6 +277,72 @@ def decode_quantize(data: torch.Tensor, lut, size_x: int, size_y: int,
                            _stream(data))
         LAUNCHES["decq"] += 1
     _build.check(lib, rc, "decq")
+    return out
+
+
+def encode_quantize_stereo(img: torch.Tensor, lut, start_y: int = 0,
+                           end_y: int = 1 << 30, rounding: str = "rne",
+                           view_layout: str = "interleaved") -> torch.Tensor:
+    """Stereo encode of both views of a (H, W) or (B, H, W) dual-view image
+    -> records in ``view_layout``: (..., H*W) interleaved,
+    (..., 2, 64, H/16, W/8) planar or (..., 2, 64, H/16, BWP) native u8;
+    one launch per batch."""
+    _check_tensor(img, "img", (2, 3))
+    h, w = img.shape[-2:]
+    frame = L_stereo.record_shape(view_layout, h, w)
+    _check_geometry("enc_quant_stereo", h, w)
+    if rounding not in ROUNDING_MODES:
+        raise ValueError(f"rounding must be one of {ROUNDING_MODES}")
+    if img.device.type == "cpu":
+        return _tp.encode_quantize_stereo(img, lut, start_y, end_y, rounding,
+                                          view_layout)
+    batch = _batch_of(img, 2)
+    out = torch.empty(img.shape[:-2] + frame, dtype=torch.uint8,
+                      device=img.device)
+    if out.numel() == 0:
+        return out
+    q, _ = _host_scales(lut)
+    lib = _build.load()
+    with _on_device_of(img):
+        rc = lib.sdct_enc_stereo(img.data_ptr(), out.data_ptr(), q.ctypes.data,
+                                 batch, h, w, L_stereo.native_stereo_bwp(w),
+                                 _clamp_i32(start_y), _clamp_i32(end_y),
+                                 _ROUNDING_CODE[rounding],
+                                 _VIEW_LAYOUT_CODE[view_layout], _stream(img))
+        LAUNCHES["enc_stereo"] += 1
+    _build.check(lib, rc, "enc_stereo")
+    return out
+
+
+def decode_quantize_stereo(data: torch.Tensor, lut, size_x: int, size_y: int,
+                           view_layout: str = "interleaved") -> torch.Tensor:
+    """Stereo records in ``view_layout`` (one frame's shape as
+    ``encode_quantize_stereo`` returns it, with an optional batch axis) ->
+    (size_y, size_x) or (B, size_y, size_x) u8 pixels of both views."""
+    frame = L_stereo.record_shape(view_layout, size_y, size_x)
+    _check_tensor(data, "data", (len(frame), len(frame) + 1))
+    _check_geometry("dec_quant_stereo", size_y, size_x)
+    if tuple(data.shape[data.ndim - len(frame):]) != frame:
+        raise ValueError(f"expected {view_layout} stereo records of shape "
+                         f"(..., {', '.join(map(str, frame))}), got "
+                         f"{tuple(data.shape)}")
+    if data.device.type == "cpu":
+        return _tp.decode_quantize_stereo(data, lut, size_x, size_y,
+                                          view_layout)
+    batch = _batch_of(data, len(frame))
+    out = torch.empty(data.shape[:data.ndim - len(frame)] + (size_y, size_x),
+                      dtype=torch.uint8, device=data.device)
+    if out.numel() == 0:
+        return out
+    _, qi = _host_scales(lut)
+    lib = _build.load()
+    with _on_device_of(data):
+        rc = lib.sdct_dec_stereo(data.data_ptr(), out.data_ptr(),
+                                 qi.ctypes.data, batch, size_y, size_x,
+                                 L_stereo.native_stereo_bwp(size_x),
+                                 _VIEW_LAYOUT_CODE[view_layout], _stream(data))
+        LAUNCHES["dec_stereo"] += 1
+    _build.check(lib, rc, "dec_stereo")
     return out
 
 

@@ -1,16 +1,16 @@
-"""Plain PyTorch version of the mode32 and enc-quant kernels (the ``torch``
-tier).
+"""Plain PyTorch version of the mode32, enc-quant and stereo kernels (the
+``torch`` tier).
 
-Counterpart of the mode32 and enc-quant part of
-``simd_dct_tpu/kernels/xla_path.py`` (its generic einsum branch: blockize,
-``dct8x8``, quantize, then the record layout).  It runs on any device
-PyTorch runs on.  The CPU tests hold it against the JAX package, and
-``chip_smoke.py`` holds the CUDA kernels (``kernels/cuda_dct.py``) against
-it on the card.
+Counterpart of ``simd_dct_tpu/kernels/xla_path.py`` (its generic einsum
+branch: blockize, ``dct8x8``, quantize, then the record layout).  It runs
+on any device PyTorch runs on.  The CPU tests hold it against the JAX
+package, and ``chip_smoke.py`` holds the CUDA kernels
+(``kernels/cuda_dct.py``) against it on the card.
 
 Every function takes optional leading batch axes.  The strip range
 ``[start_y, end_y]`` keeps strip ``s`` (rows ``[8s, 8s+8)`` of the top
-view) iff ``start_y <= 16*s <= end_y`` -- the SIMD kernels' ``y*2``
+view, and for stereo the same rows of the bottom view) iff
+``start_y <= 16*s <= end_y`` -- the SIMD kernels' ``y*2``
 convention (src/simd_dct.cpp:1686-1696) -- or, with ``legacy_range``, iff
 ``start_y <= 8*s <= end_y``, the NoSimd enc-quant kernel's test
 (src/simd_dct.cpp:377,384).
@@ -26,6 +26,7 @@ from ..core.quantize import (dequant_scales, dequantize_from_u8,
                              quant_scales, quantize_to_u8)
 from ..layout import blocks as L_blocks
 from ..layout import reorder as L_reorder
+from ..layout import stereo as L_stereo
 
 
 ENCQ_LAYOUTS = ("scalar", "pair", "pair_as_written")
@@ -88,7 +89,7 @@ def encode_quantize32(img: torch.Tensor, lut, start_y: int = 0,
     (..., H, W) dual-view image: raw 0..255 domain, fy-major buffers,
     coefficient-major 512-byte group records.  -> (..., H/2*W) u8."""
     h, w = img.shape[-2:]
-    flat = encode32_view(img[..., : h // 2, :], lut, rounding)
+    flat = encode32_view(L_stereo.top_view(img), lut, rounding)
     return _apply_mask(flat, _strip_mask(h // 16, start_y, end_y), 8 * w)
 
 
@@ -118,7 +119,7 @@ def encode_quantize(img: torch.Tensor, lut, start_y: int = 0,
         raise ValueError(f"layout must be one of {ENCQ_LAYOUTS}, "
                          f"got {layout!r}")
     h, w = img.shape[-2:]
-    bufs = _coeff_buffers(img[..., : h // 2, :], normalize=True,
+    bufs = _coeff_buffers(L_stereo.top_view(img), normalize=True,
                           orientation="fx")
     data = quantize_to_u8(bufs, quant_scales(lut, img.device), rounding)
     flat = (L_reorder.block_contiguous(data) if layout == "scalar"
@@ -141,6 +142,47 @@ def decode_quantize(data: torch.Tensor, lut, size_x: int, size_y: int,
             else L_reorder.pair_cells_inverse(data, bw))
     coeffs = dequantize_from_u8(bufs, dequant_scales(lut, data.device))
     return _buffers_to_view(coeffs, normalize=True, orientation="fx")
+
+
+def encode_quantize_stereo(img: torch.Tensor, lut, start_y: int = 0,
+                           end_y: int = 1 << 30, rounding: str = "rne",
+                           view_layout: str = "interleaved") -> torch.Tensor:
+    """simdDCT_EncodeQuantizeReorderStereoBuffer semantics on BOTH views of
+    a (..., H, W) dual-view image: the 1/255 domain, fy-major buffers, 64
+    coefficient planes.  Every byte of an excluded strip is zero, native
+    pad included; an included strip's native pad holds 127.
+    -> (..., H*W) interleaved, (..., 2, 64, S, BW) planar or
+    (..., 2, 64, S, BWP) native u8."""
+    L_stereo.check_view_layout(view_layout)
+    h, w = img.shape[-2:]
+    bufs = _coeff_buffers(L_stereo.split_views(img), normalize=True,
+                          orientation="fy")               # (..., 2, S, BW, 64)
+    data = quantize_to_u8(bufs, quant_scales(lut, img.device), rounding)
+    views = data.movedim(-1, -3)                          # (..., 2, 64, S, BW)
+    # the native form pads each plane row; every form zeroes excluded strips
+    row = L_stereo.native_stereo_bwp(w) if view_layout == "native" else w // 8
+    views = L_reorder.stereo_views_to_native(
+        views, row, _strip_mask(h // 16, start_y, end_y))
+    if view_layout == "interleaved":
+        return L_reorder.stereo_views_to_interleaved(views)
+    return views.contiguous()
+
+
+def decode_quantize_stereo(data: torch.Tensor, lut, size_x: int, size_y: int,
+                           view_layout: str = "interleaved") -> torch.Tensor:
+    """Inverse of ``encode_quantize_stereo`` for each form: (..., H*W)
+    interleaved, (..., 2, 64, S, BW) planar or (..., 2, 64, S, BWP) native
+    (whose pad columns are never read) -> (..., size_y, size_x) u8."""
+    L_stereo.check_view_layout(view_layout)
+    s, bw = size_y // 16, size_x // 8
+    if view_layout == "interleaved":
+        views = L_reorder.stereo_interleaved_to_views(data, s, bw)
+    else:
+        views = data[..., :bw]
+    coeffs = dequantize_from_u8(views.movedim(-3, -1),    # (..., 2, S, BW, 64)
+                                dequant_scales(lut, data.device))
+    return L_stereo.stack_views(
+        _buffers_to_view(coeffs, normalize=True, orientation="fy"))
 
 
 def probe_trial(x: torch.Tensor) -> torch.Tensor:

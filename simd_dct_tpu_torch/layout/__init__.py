@@ -1,8 +1,12 @@
-"""Blocking, the enc-quant scalar / pair-cell layouts and the mode32
-record layout."""
+"""Blocking, the dual-view geometry, the enc-quant scalar / pair-cell
+layouts, the mode32 record layout and the stereo plane layouts."""
 
 from .blocks import blockize, unblockize
 from .reorder import (block_contiguous, block_contiguous_inverse,
                       buffer_to_coeffs, coeffs_to_buffer, group8,
                       group8_inverse, pair_as_written, pair_as_written_masked,
-                      pair_cell_permutation, pair_cells, pair_cells_inverse)
+                      pair_cell_permutation, pair_cells, pair_cells_inverse,
+                      planar_stereo, planar_stereo_inverse,
+                      stereo_interleaved_to_views, stereo_views_to_interleaved,
+                      stereo_views_to_native)
+from .stereo import native_stereo_bwp, split_views, stack_views, top_view

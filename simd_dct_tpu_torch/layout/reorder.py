@@ -1,11 +1,10 @@
-"""The reference's mode32 and enc-quant byte layouts as tensor transforms
-(counterpart of the mode32 and enc-quant part of
-``simd_dct_tpu/layout/reorder.py``).
+"""The reference's mode32, enc-quant and stereo byte layouts as tensor
+transforms (counterpart of ``simd_dct_tpu/layout/reorder.py``).
 
 Buffer orders (coefficient index p within a block's 64-byte buffer):
 
-* mode32 stores **fy-major**, ``p = fy*8 + fx`` (src/simd_dct.cpp:1983-2011;
-  orientation ``"fy"``);
+* mode32 and stereo store **fy-major**, ``p = fy*8 + fx``
+  (src/simd_dct.cpp:1983-2011, 224-227; orientation ``"fy"``);
 * enc-quant stores **fx-major**, ``p = fx*8 + fy`` (DCT rows, transpose,
   DCT rows, src/simd_dct.cpp:347-358; orientation ``"fx"``): the buffer is
   the transposed coefficient matrix, ``buffer[p] = C[p % 8][p // 8]``.
@@ -170,3 +169,58 @@ def group8_inverse(flat: torch.Tensor, bw: int) -> torch.Tensor:
     s = n // (bw * 64)
     g = flat.reshape(*lead, s, bw // 8, 64, 8)
     return g.transpose(-1, -2).reshape(*lead, s, bw, 64)
+
+
+# -- stereo: fully coefficient-planar, both views ---------------------------
+#
+# Three forms of the same bytes (fy-major buffers, S = H/16 strips,
+# BW = W/8 blocks a view row):
+#   * interleaved (..., H*W): the reference's stream, 64 planes; per plane
+#     and strip, BW bytes of the left view, then BW of the right
+#     (src/simd_dct.cpp:258-264,284-294);
+#   * planar (..., 2, 64, S, BW): the views stored apart;
+#   * native (..., 2, 64, S, BWP): planar with each plane row padded to
+#     ``layout.stereo.native_stereo_bwp(W)`` columns of 127.
+
+def planar_stereo(bufs: torch.Tensor) -> torch.Tensor:
+    """(..., 2, S, BW, 64) [view, strip, block, coeff] -> (..., 64*S*2*BW)
+    interleaved stream."""
+    planes = bufs.movedim(-1, -4).transpose(-3, -2)    # (..., 64, S, 2, BW)
+    return planes.reshape(*bufs.shape[:-4], -1)
+
+
+def planar_stereo_inverse(flat: torch.Tensor, s: int, bw: int) -> torch.Tensor:
+    """(..., 64*S*2*BW) interleaved stream -> (..., 2, S, BW, 64)."""
+    planes = flat.reshape(*flat.shape[:-1], 64, s, 2, bw)
+    return planes.transpose(-3, -2).movedim(-4, -1)
+
+
+def stereo_views_to_interleaved(views: torch.Tensor) -> torch.Tensor:
+    """(..., 2, 64, S, BW) planar -> (..., 64*S*2*BW) interleaved stream."""
+    return views.movedim(-4, -2).reshape(*views.shape[:-4], -1)
+
+
+def stereo_interleaved_to_views(flat: torch.Tensor, s: int,
+                                bw: int) -> torch.Tensor:
+    """(..., 64*S*2*BW) interleaved stream -> (..., 2, 64, S, BW) planar."""
+    return flat.reshape(*flat.shape[:-1], 64, s, 2, bw).movedim(-2, -4)
+
+
+def stereo_views_to_native(views: torch.Tensor, bwp: int,
+                           strips) -> torch.Tensor:
+    """(..., 2, 64, S, BW) planar -> (..., 2, 64, S, BWP) native: the plane
+    rows padded to ``bwp`` columns of 127 (a quantized zero), then every
+    byte of an excluded strip, pad included, zeroed.  ``strips`` is the
+    per-strip inclusion (numpy bool, S).  With ``bwp == BW`` only the
+    zeroing is left: the planar form under a strip range."""
+    pad = bwp - views.shape[-1]
+    if pad:
+        fill = torch.full((*views.shape[:-1], pad), 127, dtype=views.dtype,
+                          device=views.device)
+        views = torch.cat([views, fill], dim=-1)
+    strips = np.asarray(strips, bool)
+    if strips.all():
+        return views
+    keep = torch.as_tensor(strips, device=views.device)[:, None]
+    return torch.where(keep, views, torch.zeros((), dtype=views.dtype,
+                                                device=views.device))

@@ -281,7 +281,9 @@ def test_wrappers_on_cpu_equal_plain_version():
     assert K.supports_mode("enc_quant", 32, 72)
     assert not K.supports_mode("enc_quant", 32, 72, "pair")
     assert K.supports_mode("dec_quant", 32, 80, "pair")
-    assert not K.supports_mode("enc_quant_stereo", 32, 128)
+    assert K.supports_mode("enc_quant_stereo", 32, 200)
+    assert not K.supports_mode("enc_quant_stereo", 32, 196)
+    assert not K.supports_mode("tiles", 32, 128)
 
 
 def test_convert_matches_jax():
@@ -313,6 +315,7 @@ def test_check_deterministic():
 def test_import_pulls_in_no_jax():
     code = ("import sys, simd_dct_tpu_torch, simd_dct_tpu_torch.convert, "
             "simd_dct_tpu_torch.kernels.cuda_dct, "
+            "simd_dct_tpu_torch.layout.stereo, "
             "simd_dct_tpu_torch.utils.debug, simd_dct_tpu_torch.utils.metrics; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'simd_dct_tpu.')) or m == 'simd_dct_tpu']; "

@@ -159,3 +159,81 @@ def test_api_numpy_input_runs_on_the_card(gen):
     assert K.LAUNCHES["encq"] == K.LAUNCHES["decq"] == 1
     assert sd.encode_quantize(img, LUT_Q, device="cpu").device.type == "cpu"
     assert K.LAUNCHES["encq"] == 1
+
+
+# -- stereo ------------------------------------------------------------------
+
+VIEW_LAYOUTS = ("interleaved", "planar", "native")
+
+
+@pytest.mark.parametrize("shape", [(256, 192), (272, 200), (3, 1088, 1920)])
+@pytest.mark.parametrize("view_layout", VIEW_LAYOUTS)
+@pytest.mark.parametrize("rounding", ["rne", "scalar", "clamp_first"])
+def test_enc_stereo_against_plain(gen, shape, view_layout, rounding):
+    img = _img(gen, *shape)
+    _ok(K.encode_quantize_stereo(img, LUT_Q, rounding=rounding,
+                                 view_layout=view_layout),
+        TP.encode_quantize_stereo(img, LUT_Q, rounding=rounding,
+                                  view_layout=view_layout))
+
+
+@pytest.mark.parametrize("shape", [(256, 192), (272, 200), (2, 1088, 1920)])
+@pytest.mark.parametrize("view_layout", VIEW_LAYOUTS)
+def test_dec_stereo_against_plain(gen, shape, view_layout):
+    img = _img(gen, *shape)
+    h, w = shape[-2:]
+    rec = TP.encode_quantize_stereo(img, LUT_Q, view_layout=view_layout)
+    _ok(K.decode_quantize_stereo(rec, LUT_Q, w, h, view_layout),
+        TP.decode_quantize_stereo(rec, LUT_Q, w, h, view_layout))
+
+
+@pytest.mark.parametrize("w", [200, 256])
+@pytest.mark.parametrize("view_layout", VIEW_LAYOUTS)
+@pytest.mark.parametrize("sy,ey", [(16, 16), (32, 95), (-(1 << 40), 40),
+                                   (48, 1 << 40)])
+def test_enc_stereo_strip_ranges(gen, w, view_layout, sy, ey):
+    img = _img(gen, 2, 256, w)
+    got = K.encode_quantize_stereo(img, LUT_Q, sy, ey, view_layout=view_layout)
+    want = TP.encode_quantize_stereo(img, LUT_Q, sy, ey,
+                                     view_layout=view_layout)
+    _ok(got, want)
+    # the unwritten bytes and the native pad, from the strip geometry
+    written = sd._strip_byte_mask(256, w, sy, ey, view_layout=view_layout)
+    skipped = torch.from_numpy(np.ascontiguousarray(
+        ~np.broadcast_to(written, got.shape[1:]))).cuda()
+    assert not got[:, skipped].any() and not want[:, skipped].any()
+    if view_layout == "native":
+        inc = torch.from_numpy(TP._strip_mask(16, sy, ey)).cuda()
+        pad = got[..., w // 8:]
+        assert bool((pad[:, :, :, inc] == 127).all())
+        assert not pad[:, :, :, ~inc].any()
+
+
+@pytest.mark.parametrize("w", [200, 1920])
+def test_stereo_layout_identities(gen, w):
+    img = _img(gen, 2, 512, w)
+    s, bw = 512 // 16, w // 8
+    ilv, pla, nat = (K.encode_quantize_stereo(img, LUT_Q, view_layout=vl)
+                     for vl in VIEW_LAYOUTS)
+    assert torch.equal(pla, TP.L_reorder.stereo_interleaved_to_views(ilv, s,
+                                                                      bw))
+    assert torch.equal(nat[..., :bw], pla)
+    assert bool((nat[..., bw:] == 127).all())
+    dec = [K.decode_quantize_stereo(r, LUT_Q, w, 512, vl)
+           for r, vl in zip((ilv, pla, nat), VIEW_LAYOUTS)]
+    assert torch.equal(dec[0], dec[1]) and torch.equal(dec[0], dec[2])
+
+
+def test_stereo_api_launches_kernels(gen):
+    img = _img(gen, 2, 256, 128).cpu().numpy()
+    K.reset_launch_counts()
+    rec = sd.encode_quantize_stereo(img, LUT_Q, view_layout="native")
+    pix = sd.decode_quantize_stereo(rec, LUT_Q, 128, 256,
+                                    view_layout="native")
+    torch.cuda.synchronize()
+    assert rec.device.type == pix.device.type == "cuda"
+    assert rec.shape == (2, 2, 64, 16, 128) and pix.shape == (2, 256, 128)
+    assert K.LAUNCHES["enc_stereo"] == K.LAUNCHES["dec_stereo"] == 1
+    spill = sd.encode_quantize_stereo(img[0, :248], LUT_Q, spill=True)
+    assert spill.shape == (256 * 128,)
+    assert K.LAUNCHES["enc_stereo"] == 2
