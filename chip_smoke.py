@@ -54,11 +54,24 @@ result line):
      dB of the plain version's;
   10. timing of kernel, plain version and a same-run device-to-device copy
       of the same bytes (one view's for mode32 and enc-quant, the whole
-      dual view's for stereo), rotating over inputs larger than the 50 MB
-      L2, median of REPS repetitions: kernel and copy by CUDA events with
-      the rotation queued behind a device-side sleep (no host launch cost
-      in the reading), the plain version by torch.profiler device time,
-      and the CUDA-event wall of back-to-back calls for each.
+      dual view's for stereo, the three channels' top view for colour),
+      rotating over inputs larger than the 50 MB L2, median of REPS
+      repetitions: kernel and copy by CUDA events with the rotation queued
+      behind a device-side sleep (no host launch cost in the reading), the
+      plain version by torch.profiler device time, and the CUDA-event wall
+      of back-to-back calls for each; it runs last, after phase 12;
+  11. the YCbCr 4:4:4 colour kernels against their plain versions (+-1 on
+      at most 0.2% of bytes) on (3, H, W) planar RGB at 4096x3840 (every
+      rounding mode), 1088x1920, 256x192 (W % 128 != 0) and an 8-frame
+      1088x1920 batch; the fused round trip equals decode(encode(x)) byte
+      for byte; its PSNR on the config-3 gate's input (three correlated
+      channels of one smooth field, a 1024x3840 top view,
+      simd_dct_tpu/bench/harness.py:151-156) within 0.1 dB of the plain
+      version's;
+  12. the colour main path through the public api with numpy inputs and no
+      device, counters set to 0 just before: encode, decode and round trip
+      of the 4K RGB dual view (3, 4096, 3840) and of a 64-frame
+      (64, 3, 1088, 1920) batch, one launch each (2 of each colour kernel).
 The line before the last is a JSON object with one entry per kernel (its
 time, its bound and its share of the copy); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -83,6 +96,7 @@ from simd_dct_tpu_torch.core.dct import dct_basis_np
 from simd_dct_tpu_torch.core.quantize import VR, default_quant_lut
 from simd_dct_tpu_torch.dispatch import capability
 from simd_dct_tpu_torch.kernels import _build, cuda_dct, torch_path
+from simd_dct_tpu_torch.layout import BASE_CHROMA_QUANT_TABLE
 from simd_dct_tpu_torch.layout.reorder import stereo_interleaved_to_views
 from simd_dct_tpu_torch.utils.debug import compare_backends
 from simd_dct_tpu_torch.utils.metrics import psnr
@@ -90,7 +104,9 @@ from simd_dct_tpu_torch.utils.metrics import psnr
 DCT32 = "simd_dct_tpu_torch/csrc/dct32.cu"
 ENCQ = "simd_dct_tpu_torch/csrc/encq.cu"
 STEREO = "simd_dct_tpu_torch/csrc/stereo.cu"
+COLOR = "simd_dct_tpu_torch/csrc/color32.cu"
 PALLAS = "simd_dct_tpu/kernels/pallas_dct.py"
+COLOR32 = "simd_dct_tpu/kernels/color32.py"
 # kernel -> (source, the TPU kernel it replaces, main path)
 KERNELS = {
     "enc32": (DCT32, f"{PALLAS}:81", "mode32"),
@@ -101,6 +117,9 @@ KERNELS = {
     "decq": (ENCQ, f"{PALLAS}:882", "enc-quant"),
     "enc_stereo": (STEREO, f"{PALLAS}:1221 and {PALLAS}:1259", "stereo"),
     "dec_stereo": (STEREO, f"{PALLAS}:1015", "stereo"),
+    "enc32_rgb": (COLOR, f"{COLOR32}:42", "colour"),
+    "dec32_rgb": (COLOR, f"{COLOR32}:136", "colour"),
+    "roundtrip32_rgb": (COLOR, f"{COLOR32}:207", "colour"),
 }
 # (H, W, frames) of the dual-view images the comparisons run on
 GEOMETRIES = [(4096, 3840, 1), (1088, 1920, 1), (256, 192, 1), (1088, 1920, 8)]
@@ -119,12 +138,19 @@ PEAK_FMA_S = 33.5e12
 # f32 FMAs per pixel of the cheapest form of one 2-D pass: the reference
 # butterfly's 29 multiplies and 29 adds per 8-point transform
 # (simd_dct_tpu/core/butterfly.py:8) fused into 29 FMAs, 16 transforms per
-# 8x8 block (7.25 a pixel), plus one for the (de)quantizer's scale
+# 8x8 block (7.25 a pixel), plus one for the (de)quantizer's scale.  The
+# colour kernels count per pixel position: per channel one pass (two for
+# the round trip) and 3 FMAs for each BT.601 mix, the bias folded in.
 PASS_FMA_PER_PX = 16 * 29 / 64 + 1
+MIX_FMA_PER_PX = 3
 FMA_PER_PX = {"enc32": PASS_FMA_PER_PX, "dec32": PASS_FMA_PER_PX,
               "roundtrip32": 2 * PASS_FMA_PER_PX, "probe": 0,
               "encq": PASS_FMA_PER_PX, "decq": PASS_FMA_PER_PX,
-              "enc_stereo": PASS_FMA_PER_PX, "dec_stereo": PASS_FMA_PER_PX}
+              "enc_stereo": PASS_FMA_PER_PX, "dec_stereo": PASS_FMA_PER_PX,
+              "enc32_rgb": 3 * (PASS_FMA_PER_PX + MIX_FMA_PER_PX),
+              "dec32_rgb": 3 * (PASS_FMA_PER_PX + MIX_FMA_PER_PX),
+              "roundtrip32_rgb": 3 * (2 * PASS_FMA_PER_PX
+                                      + 2 * MIX_FMA_PER_PX)}
 
 
 def log(*args):
@@ -507,6 +533,105 @@ def phase_main_path_stereo(gen, lut):
     return counts
 
 
+def random_rgb(gen, h, w, frames):
+    """(3, H, W) planar RGB, or a (frames, 3, H, W) batch, on the card."""
+    shape = (3, h, w) if frames == 1 else (frames, 3, h, w)
+    return torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8,
+                         device=DEV)
+
+
+def gate_rgb(h2: int = 1024, w: int = 3840) -> np.ndarray:
+    """The config-3 PSNR gate's input (simd_dct_tpu/bench/harness.py:62-66,
+    151-156): three correlated channels of one smooth field as the top
+    view of a (3, 2*h2, w) dual view whose bottom view is zero."""
+    rng = np.random.default_rng(8)
+    yy, xx = np.mgrid[0:h2, 0:w]
+    field = (128 + 45 * np.sin(xx / 9.0) * np.cos(yy / 7.0)
+             + 30 * (xx / max(w - 1, 1)) + rng.normal(0, 3, (h2, w)))
+    base = np.clip(field, 0, 255).astype(np.uint8).astype(np.float32)
+    top = np.clip(np.stack([base, base * 0.9 + 12, base * 0.8 + 25]), 0,
+                  255).astype(np.uint8)
+    return np.concatenate([top, np.zeros_like(top)], axis=1)
+
+
+def phase_compare_color(gen, luma, chroma, errs):
+    log("phase 11: YCbCr 4:4:4 colour kernels against the plain version on "
+        "the card")
+    for h, w, frames in GEOMETRIES:
+        rgb = random_rgb(gen, h, w, frames)
+        tag = f"{frames}x3x{h}x{w}"
+        roundings = ROUNDINGS if h == 4096 else ("rne",)
+        for rounding in roundings:
+            agree(f"enc32_rgb {tag} {rounding}",
+                  cuda_dct.encode_quantize32_ycbcr(rgb, luma, chroma,
+                                                   rounding),
+                  torch_path.encode_ycbcr32(rgb, luma, chroma, rounding),
+                  errs, "enc32_rgb")
+        rec = torch_path.encode_ycbcr32(rgb, luma, chroma)
+        agree(f"dec32_rgb {tag} (same records)",
+              cuda_dct.decode_quantize32_ycbcr(rec, luma, chroma, w, h),
+              torch_path.decode_ycbcr32(rec, luma, chroma, w, h), errs,
+              "dec32_rgb")
+        fused = cuda_dct.roundtrip_quantize32_ycbcr(rgb, luma, chroma)
+        composed = cuda_dct.decode_quantize32_ycbcr(
+            cuda_dct.encode_quantize32_ycbcr(rgb, luma, chroma), luma, chroma,
+            w, h)
+        require(torch.equal(fused, composed),
+                f"roundtrip32_rgb {tag}: fused == composed byte for byte")
+        log(f"  roundtrip32_rgb {tag}: fused == composed byte for byte")
+        agree(f"roundtrip32_rgb {tag}", fused,
+              torch_path.roundtrip_ycbcr32(rgb, luma, chroma), errs,
+              "roundtrip32_rgb")
+    planes = gate_rgb()
+    top = planes[:, : planes.shape[1] // 2]
+    x = torch.from_numpy(planes).to(DEV)
+    fused = cuda_dct.roundtrip_quantize32_ycbcr(x, luma, chroma).cpu().numpy()
+    plain = torch_path.roundtrip_ycbcr32(x, luma, chroma).cpu().numpy()
+    p_k, p_p = psnr(top, fused), psnr(top, plain)
+    log(f"  config-3 gate input (3x1024x3840 top view), quality 100: psnr "
+        f"kernel={p_k:.4f} dB plain={p_p:.4f} dB delta={p_k - p_p:+.4f} dB")
+    require(abs(p_k - p_p) < 0.1, "colour round-trip PSNR within 0.1 dB of "
+            "plain")
+    require(30.0 < p_k < 99.0, f"colour PSNR {p_k:.2f} dB is plausible")
+
+
+def phase_main_path_color(gen, luma, chroma):
+    log("phase 12: the colour main path through the public api "
+        "(numpy inputs, no device)")
+    rgb = np.stack([smooth_image(gen, 4096, 3840).cpu().numpy()
+                    for _ in range(3)])
+    video = random_rgb(gen, 1088, 1920, 64).cpu().numpy()
+    torch.cuda.synchronize()
+    cuda_dct.reset_launch_counts()
+    rec = sd.encode_quantize32_ycbcr(rgb, luma, chroma)
+    pix = sd.decode_quantize32_ycbcr(rec, luma, chroma, 3840, 4096)
+    rt = sd.roundtrip_quantize32_ycbcr(rgb, luma, chroma)
+    vid_rec = sd.encode_quantize32_ycbcr(video, luma, chroma)
+    vid = sd.decode_quantize32_ycbcr(vid_rec, luma, chroma, 1920, 1088)
+    vid_rt = sd.roundtrip_quantize32_ycbcr(video, luma, chroma)
+    torch.cuda.synchronize()
+    counts = dict(cuda_dct.LAUNCHES)
+    log(f"  launches: {counts}")
+    require(all(counts[k] == 2 for k in
+                ("enc32_rgb", "dec32_rgb", "roundtrip32_rgb")),
+            "one launch per call, the 64-frame batch included")
+    require(all(t.device.type == DEV for t in
+                (rec, pix, rt, vid_rec, vid, vid_rt)),
+            "numpy inputs with no device run on the card")
+    require(rec.shape == (3, 2048 * 3840)
+            and vid_rec.shape == (64, 3, 544 * 1920), "record shapes")
+    require(pix.shape == rt.shape == (3, 2048, 3840)
+            and vid.shape == vid_rt.shape == (64, 3, 544, 1920),
+            "image shapes")
+    require(torch.equal(pix, rt) and torch.equal(vid, vid_rt),
+            "api round trip == api decode(encode)")
+    p = psnr(rgb[:, :2048], rt.cpu().numpy())
+    log(f"  4K RGB round-trip PSNR at quality 100: {p:.4f} dB; video batch "
+        f"{tuple(vid.shape)}")
+    require(15.0 < p < 99.0, f"colour main-path PSNR {p:.2f} dB is plausible")
+    return counts
+
+
 def copy_pair(p):
     """Device-to-device copy of p[0] into p[1]: the same-run speed limit."""
     return p[1].copy_(p[0])
@@ -603,7 +728,7 @@ def profiled_us(fn, inputs, tries=3):
     return None, []
 
 
-def phase_timing(gen, lut, lut_q, reps):
+def phase_timing(gen, lut, lut_q, chroma, reps):
     log("phase 10: timing, median of "
         f"{reps} repetitions over rotations larger than L2.  kernel and "
         "copy: CUDA events with the rotation queued behind a device sleep; "
@@ -611,7 +736,8 @@ def phase_timing(gen, lut, lut_q, reps):
         "uploads, so it cannot be queued); wall: back-to-back calls")
     cycles_per_ms = sleep_cycles_per_ms()
     rows, table = {}, []
-    # mode32 and enc-quant encode the top 2048x3840 view, stereo both views
+    # mode32, enc-quant and colour encode the top 2048x3840 view, stereo
+    # both views
     cases = [("4096x3840 image", 4096, 3840, 1, 16),
              ("8x1088x1920 batch", 1088, 1920, 8, 6)]
     for label, h, w, frames, n_rot in cases:
@@ -624,10 +750,16 @@ def phase_timing(gen, lut, lut_q, reps):
         recs_n = [torch_path.encode_quantize_stereo(x, lut_q,
                                                     view_layout="native")
                   for x in imgs]
-        # one view's bytes (mode32, enc-quant) and the whole dual view's
-        # (stereo encodes both)
+        recs_sp = [torch_path.encode_quantize_stereo(x, lut_q,
+                                                     view_layout="planar")
+                   for x in imgs]
+        # (3, H, W) planar RGB: three times the bytes, half the rotation
+        rgbs = [random_rgb(gen, h, w, frames) for _ in range(n_rot // 2)]
+        recs_c = [torch_path.encode_ycbcr32(x, lut, chroma) for x in rgbs]
+        # one view's bytes (mode32, enc-quant), the whole dual view's
+        # (stereo encodes both) and the three channels' top view (colour)
         copies = {}
-        for key, srcs in (("view", recs), ("dual", imgs)):
+        for key, srcs in (("view", recs), ("dual", imgs), ("colour", recs_c)):
             pairs = [(r, torch.empty_like(r)) for r in srcs]
             c_us = queued_ms(copy_pair, pairs, reps, cycles_per_ms) * 1e3
             c_prof, _ = profiled_us(copy_pair, pairs)
@@ -640,6 +772,7 @@ def phase_timing(gen, lut, lut_q, reps):
         view = (2 * view_px, view_px, copies["view"])
         dual = (2 * dual_px, dual_px, copies["dual"])
         native = (native_bytes, dual_px, copies["dual"])
+        colour = (6 * view_px, view_px, copies["colour"])
         jobs = {
             "enc32": (lambda x: cuda_dct.encode_quantize32(x, lut),
                       lambda x: torch_path.encode_quantize32(x, lut), imgs,
@@ -688,12 +821,31 @@ def phase_timing(gen, lut, lut_q, reps):
                 lambda r: cuda_dct.decode_quantize_stereo(r, lut_q, w, h),
                 lambda r: torch_path.decode_quantize_stereo(r, lut_q, w, h),
                 recs_s, *dual),
+            "dec_stereo_planar": (
+                lambda r: cuda_dct.decode_quantize_stereo(r, lut_q, w, h,
+                                                          "planar"),
+                lambda r: torch_path.decode_quantize_stereo(r, lut_q, w, h,
+                                                            "planar"),
+                recs_sp, *dual),
             "dec_stereo_native": (
                 lambda r: cuda_dct.decode_quantize_stereo(r, lut_q, w, h,
                                                           "native"),
                 lambda r: torch_path.decode_quantize_stereo(r, lut_q, w, h,
                                                             "native"),
                 recs_n, *native),
+            "enc32_rgb": (
+                lambda x: cuda_dct.encode_quantize32_ycbcr(x, lut, chroma),
+                lambda x: torch_path.encode_ycbcr32(x, lut, chroma), rgbs,
+                *colour),
+            "dec32_rgb": (
+                lambda r: cuda_dct.decode_quantize32_ycbcr(r, lut, chroma, w,
+                                                           h),
+                lambda r: torch_path.decode_ycbcr32(r, lut, chroma, w, h),
+                recs_c, *colour),
+            "roundtrip32_rgb": (
+                lambda x: cuda_dct.roundtrip_quantize32_ycbcr(x, lut, chroma),
+                lambda x: torch_path.roundtrip_ycbcr32(x, lut, chroma), rgbs,
+                *colour),
         }
         for name, (kern, plain, inputs, n_bytes, n_px, c_us) in jobs.items():
             k_us = queued_ms(kern, inputs, reps, cycles_per_ms) * 1e3
@@ -748,12 +900,12 @@ def bound_ms(name: str, n_bytes: int, n_px: int) -> tuple[float, str]:
                                                            "operations")
 
 
-def kernel_rows(counts, counts_q, counts_s, errs, times):
+def kernel_rows(launches, errs, times):
     """One entry per kernel: the 4K-view times of this run (the scalar
     layout for encq / decq and the interleaved form for the stereo
     kernels, the other layouts beside it), the bound, the share of a
-    same-run copy, and the launches of its main path's run."""
-    launches = {"mode32": counts, "enc-quant": counts_q, "stereo": counts_s}
+    same-run copy, and the launches of its main path's run (``launches``:
+    main path -> counts)."""
     rows = []
     for name, (source, replaces, path) in KERNELS.items():
         ms, plain, copy, n_bytes, n_px = times[name]
@@ -782,7 +934,8 @@ def log_ptxas(lines) -> None:
     for line in lines:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(enc32|dec32|roundtrip32|probe|encq|decq|enc_stereo"
+            k = re.search(r"(enc32_rgb|dec32_rgb|roundtrip32_rgb|enc32|dec32"
+                          r"|roundtrip32|probe|encq|decq|enc_stereo"
                           r"|dec_stereo)_kernel"
                           r"(?:I((?:Li\d+E)+)E)?", m.group(1))
             name = f"{k.group(1)}_kernel" if k else m.group(1)
@@ -834,11 +987,16 @@ def main(argv=None) -> int:
     counts_q = phase_main_path_encq(gen, lut_q)
     phase_compare_stereo(gen, lut_q, errs)
     counts_s = phase_main_path_stereo(gen, lut_q)
-    times = phase_timing(gen, lut100, lut_q, REPS)
+    # colour: the mode32 raw domain, the JPEG chroma table at quality 100
+    chroma100 = BASE_CHROMA_QUANT_TABLE * np.float32(100 * 255)
+    phase_compare_color(gen, lut100, chroma100, errs)
+    counts_c = phase_main_path_color(gen, lut100, chroma100)
+    times = phase_timing(gen, lut100, lut_q, chroma100, REPS)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"kernels": kernel_rows(counts, counts_q, counts_s, errs,
-                                               times)}))
+    launches = {"mode32": counts, "enc-quant": counts_q, "stereo": counts_s,
+                "colour": counts_c}
+    log(json.dumps({"kernels": kernel_rows(launches, errs, times)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,14 +1,14 @@
-"""simd_dct_tpu_torch -- the enc-quant, mode32 and stereo engines of
-``simd_dct_tpu`` in PyTorch, with hand-written CUDA kernels for NVIDIA
-Hopper (sm_90a).
+"""simd_dct_tpu_torch -- the enc-quant, mode32, stereo and YCbCr 4:4:4
+colour engines of ``simd_dct_tpu`` in PyTorch, with hand-written CUDA
+kernels for NVIDIA Hopper (sm_90a).
 
 The JAX package ``simd_dct_tpu`` is the reference this package is held
 against; this package never imports jax.  Layer map:
 
 * ``core``     -- DCT basis and quantization math
 * ``layout``   -- blockize, the dual-view geometry, the enc-quant scalar /
-  pair-cell layouts, the mode32 group-of-8 record layout and the stereo
-  interleaved / planar / native plane layouts
+  pair-cell layouts, the mode32 group-of-8 record layout, the stereo
+  interleaved / planar / native plane layouts and the BT.601 colour mix
 * ``kernels``  -- plain PyTorch version (``torch_path``), CUDA kernel
   wrappers (``cuda_dct``) and the nvcc build (``_build``)
 * ``dispatch`` -- tiers ``cuda`` / ``torch`` and the capability probe
@@ -28,6 +28,8 @@ from .api import (
     encode_quantize32, decode_quantize32, roundtrip_quantize32,
     encode_quantize_stereo, decode_quantize_stereo,
     try_encode_quantize_stereo,
+    encode_quantize32_ycbcr, decode_quantize32_ycbcr,
+    roundtrip_quantize32_ycbcr,
 )
 from .core.quantize import default_quant_lut
 
@@ -39,5 +41,7 @@ __all__ = [
     "encode_quantize32", "decode_quantize32", "roundtrip_quantize32",
     "encode_quantize_stereo", "decode_quantize_stereo",
     "try_encode_quantize_stereo",
+    "encode_quantize32_ycbcr", "decode_quantize32_ycbcr",
+    "roundtrip_quantize32_ycbcr",
     "default_quant_lut",
 ]

@@ -1,6 +1,7 @@
-"""Public API: validated enc-quant, mode32 and stereo entry points.
+"""Public API: validated enc-quant, mode32, stereo and YCbCr 4:4:4 colour
+entry points.
 
-Counterpart of the enc-quant, mode32 and stereo part of
+Counterpart of the enc-quant, mode32, stereo and 4:4:4 colour part of
 ``simd_dct_tpu/api.py``, with the same validation contract and the same
 typed errors
 (``simdDctResult``, src/simd_dct.h:22-27).
@@ -12,8 +13,9 @@ the hand-written kernels, a CPU tensor the plain PyTorch version
 else that ``numpy.asarray`` takes is placed on ``device``, which defaults
 to ``cuda``; on a machine without a card that raises
 ``NotSupportedError`` -- pass ``device="cpu"`` to run the plain version on
-the host.  The result lies on the input's device.  A ``(B, H, W)`` batch is
-one batch dimension all the way down: one kernel launch covers every frame.
+the host.  The result lies on the input's device.  A ``(B, H, W)`` batch
+(``(B, 3, H, W)`` for colour) is one batch dimension all the way down: one
+kernel launch covers every frame.
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ _END_Y_SENTINEL = 1 << 30
 
 _COMPAT_TODO = ("compat=True (the strict-IEEE butterfly engine of "
                 "simd_dct_tpu/kernels/compat.py) is not ported yet: "
-                "ROADMAP.md, Queue 1 item 8")
+                "ROADMAP.md, Queue 1 item 15")
 
 
 def _as_tensor(x: Any, device, name: str) -> torch.Tensor:
@@ -402,6 +404,90 @@ def decode_quantize_stereo(data, lut, size_x: int, size_y: int, *,
         return _cuda.decode_quantize_stereo(_kernel_ready(d), lut_arr, size_x,
                                             size_y, view_layout)
     return _tp.decode_quantize_stereo(d, lut_arr, size_x, size_y, view_layout)
+
+
+# ---------------------------------------------------------------------------
+# YCbCr 4:4:4 colour: encode / decode / round trip
+# ---------------------------------------------------------------------------
+
+def _validate_color(planes, luma_lut, chroma_lut, device):
+    """(3, H, W) planar RGB or a (B, 3, H, W) batch, with the mode32
+    geometry of each plane and two valid LUTs."""
+    if planes is None or luma_lut is None or chroma_lut is None:
+        raise InvalidParameterError("planes and luts must not be None")
+    p = _as_tensor(planes, device, "planes")
+    if p.ndim not in (3, 4) or p.shape[-3] != 3:
+        raise InvalidParameterError(
+            "expected (3, H, W) planar RGB or a (B, 3, H, W) batch, got "
+            f"shape {tuple(p.shape)}")
+    _, lut_l, _, _ = _validate(p[..., 0, :, :], luma_lut, multiple_of_64=True)
+    _, lut_c, _, _ = _validate(p[..., 0, :, :], chroma_lut,
+                               multiple_of_64=True)
+    return p, lut_l, lut_c
+
+
+def encode_quantize32_ycbcr(planes, luma_lut, chroma_lut, *,
+                            rounding: str = "rne", backend: str | None = None,
+                            device=None) -> torch.Tensor:
+    """(3, H, W) u8 planar RGB, or a (B, 3, H, W) batch -> (3, H/2*W) or
+    (B, 3, H/2*W) u8 per-channel YCbCr mode32 records of the TOP view: the
+    BT.601 full-range mix in f32 (no u8 step), Y quantized with
+    ``luma_lut``, Cb and Cr with ``chroma_lut``, both in mode32's raw
+    0..255 domain (255x hotter than enc-quant's; the chroma table is
+    ``layout.BASE_CHROMA_QUANT_TABLE * quality * 255``)."""
+    _check_rounding(rounding)
+    p, lut_l, lut_c = _validate_color(planes, luma_lut, chroma_lut, device)
+    tier = select_backend(backend, device=p.device)
+    if tier == "cuda":
+        return _cuda.encode_quantize32_ycbcr(_kernel_ready(p), lut_l, lut_c,
+                                             rounding)
+    return _tp.encode_ycbcr32(p, lut_l, lut_c, rounding)
+
+
+def decode_quantize32_ycbcr(data, luma_lut, chroma_lut, size_x: int,
+                            size_y: int, *, backend: str | None = None,
+                            device=None) -> torch.Tensor:
+    """Inverse of ``encode_quantize32_ycbcr``: a multiple of
+    3*(size_y/2)*size_x record bytes -> (3, size_y/2, size_x) u8 planar
+    RGB, or (B, 3, size_y/2, size_x) for more than one frame or a batched
+    input (ndim >= 3, B == 1 included)."""
+    if data is None or luma_lut is None or chroma_lut is None:
+        raise InvalidParameterError("data and luts must not be None")
+    _check_decode_dims(size_x, size_y)
+    if size_x % 64:
+        raise NotSupportedError("enc-quant32 requires W % 64 == 0")
+    d = _as_tensor(data, device, "data")
+    _check_u8_records(d)
+    plane = (size_y // 2) * size_x
+    if d.numel() == 0 or d.numel() % (3 * plane):
+        raise InvalidParameterError(
+            f"expected a multiple of {3 * plane} record bytes for "
+            f"{(size_x, size_y)}, got {d.numel()}")
+    batch = d.numel() // (3 * plane)
+    # a batched input keeps its batch axis even for B == 1
+    d = d.reshape(batch, 3, plane) if batch > 1 or d.ndim >= 3 \
+        else d.reshape(3, plane)
+    lut_l, lut_c = _lut_array(luma_lut), _lut_array(chroma_lut)
+    tier = select_backend(backend, device=d.device)
+    if tier == "cuda":
+        return _cuda.decode_quantize32_ycbcr(_kernel_ready(d), lut_l, lut_c,
+                                             size_x, size_y)
+    return _tp.decode_ycbcr32(d, lut_l, lut_c, size_x, size_y)
+
+
+def roundtrip_quantize32_ycbcr(planes, luma_lut, chroma_lut, *,
+                               backend: str | None = None,
+                               device=None) -> torch.Tensor:
+    """YCbCr mode32 encode (``rne``) -> decode of the TOP view: (3, H, W) or
+    (B, 3, H, W) u8 planar RGB -> (3, H/2, W) or (B, 3, H/2, W) u8.  The
+    ``cuda`` tier runs one fused kernel whose records never reach device
+    memory; it equals decode(encode(x)) byte for byte."""
+    p, lut_l, lut_c = _validate_color(planes, luma_lut, chroma_lut, device)
+    tier = select_backend(backend, device=p.device)
+    if tier == "cuda":
+        return _cuda.roundtrip_quantize32_ycbcr(_kernel_ready(p), lut_l,
+                                                lut_c)
+    return _tp.roundtrip_ycbcr32(p, lut_l, lut_c)
 
 
 # ---------------------------------------------------------------------------

@@ -2,11 +2,12 @@
 
 The system has no learned weights: its state is the 64-entry quantization
 LUT and the record streams.  A LUT gives the same f32 scales in both
-packages, and a mode32, enc-quant or stereo stream written by either
-package decodes in the other (the byte layouts are the reference's,
+packages, and a mode32, enc-quant, stereo or YCbCr colour stream written by
+either package decodes in the other (the byte layouts are the reference's,
 src/simd_dct.cpp:258-264,361-364,1662-1670,2021-2025, and the JAX
-package's planar and native stereo forms).  Like the api, these functions
-put their result on the card unless the caller names another ``device``.
+package's planar and native stereo forms and per-channel colour records).
+Like the api, these functions put their result on the card unless the
+caller names another ``device``.
 """
 
 from __future__ import annotations
@@ -81,6 +82,24 @@ def stereo_records_from_numpy(records, size_x: int, size_y: int,
                          f"(..., {', '.join(map(str, expect))}), got "
                          f"{arr.shape}")
     return torch.as_tensor(arr, device=dev)
+
+
+def color_records_from_numpy(records, size_x: int, size_y: int,
+                             device: torch.device | str | None = None
+                             ) -> torch.Tensor:
+    """YCbCr 4:4:4 colour records, or a batch of them, as written by either
+    package (3*H/2*W bytes per frame: the mode32 stream of Y, then Cb, then
+    Cr) -> u8 tensor of shape (3, H/2*W), or (B, 3, H/2*W) for more than one
+    frame or a batched input (ndim >= 3), on ``device``."""
+    plane = (size_y // 2) * size_x
+    dev = default_device(device)
+    arr = _u8_array(records)
+    if plane <= 0 or arr.size == 0 or arr.size % (3 * plane):
+        raise ValueError(f"expected a multiple of {3 * plane} bytes for "
+                         f"{(size_x, size_y)}, got {arr.size}")
+    batch = arr.size // (3 * plane)
+    shape = (batch, 3, plane) if batch > 1 or arr.ndim >= 3 else (3, plane)
+    return torch.as_tensor(arr.reshape(shape), device=dev)
 
 
 def records_to_numpy(records: torch.Tensor) -> np.ndarray:

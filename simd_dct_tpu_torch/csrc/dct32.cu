@@ -29,22 +29,15 @@
 //     a whole (B, H, W) batch, and any W % 64 == 0, H2 % 8 == 0 geometry
 //     runs directly (no pad or slice pass).
 // Arithmetic is f32 on the CUDA cores, in the device functions of
-// dct_common.cuh (shared with encq.cu): the fused round trip equals
+// dct_common.cuh (shared with the other sources): the fused round trip equals
 // decode(encode(x)) byte for byte.
 
 #include "dct_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;      // 8x8 blocks per CUDA block (16 groups)
-constexpr int kGroupStride = 528;  // shared-memory bytes per 512-byte record
+// kThreads (16 groups), kGroupStride and smem_piece: dct_common.cuh
 constexpr int kRecSmem = (kThreads / 8) * kGroupStride;
-
-// The i-th 16-byte piece of a CUDA block's contiguous record span, as an
-// index into its padded shared-memory copy (32 pieces per record).
-__device__ __forceinline__ int smem_piece(int i) {
-  return (i >> 5) * (kGroupStride / 16) + (i & 31);
-}
 
 // Replaces simd_dct_tpu/kernels/pallas_dct.py _enc32_kernel.
 // Bound: memory, 1 byte read + 1 byte written per pixel; 16 f32 FMAs per
@@ -153,10 +146,6 @@ __global__ void probe_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict
   }
 }
 
-bool geometry_ok(int batch, int h2, int w) {
-  return batch > 0 && batch <= 65535 && h2 > 0 && w > 0 && h2 % 8 == 0 && w % 64 == 0;
-}
-
 unsigned grid_x(int h2, int w) {
   const long long nblk = (long long)(h2 / 8) * (w / 8);
   return (unsigned)((nblk + kThreads - 1) / kThreads);
@@ -172,7 +161,7 @@ extern "C" {
 int sdct_enc32(const void* img, void* out, const float* q, int batch, int h2, int w,
                long long frame_stride, int start_y, int end_y, int rounding,
                void* stream) {
-  if (!geometry_ok(batch, h2, w)) return (int)cudaErrorInvalidValue;
+  if (!mode32_geometry_ok(batch, h2, w)) return (int)cudaErrorInvalidValue;
   const dim3 grid(grid_x(h2, w), batch);
   cudaStream_t st = (cudaStream_t)stream;
   const uint8_t* in = (const uint8_t*)img;
@@ -198,7 +187,7 @@ int sdct_enc32(const void* img, void* out, const float* q, int batch, int h2, in
 // records: (batch, h2*w) u8.  out: (batch, h2, w) u8.  qi: 64 host f32.
 int sdct_dec32(const void* records, void* out, const float* qi, int batch, int h2, int w,
                void* stream) {
-  if (!geometry_ok(batch, h2, w)) return (int)cudaErrorInvalidValue;
+  if (!mode32_geometry_ok(batch, h2, w)) return (int)cudaErrorInvalidValue;
   const dim3 grid(grid_x(h2, w), batch);
   dec32_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)records, (uint8_t*)out, to_scales(qi), h2, w);
@@ -208,7 +197,7 @@ int sdct_dec32(const void* records, void* out, const float* qi, int batch, int h
 // img as for sdct_enc32; out: (batch, h2, w) u8.
 int sdct_roundtrip32(const void* img, void* out, const float* q, const float* qi, int batch,
                      int h2, int w, long long frame_stride, void* stream) {
-  if (!geometry_ok(batch, h2, w)) return (int)cudaErrorInvalidValue;
+  if (!mode32_geometry_ok(batch, h2, w)) return (int)cudaErrorInvalidValue;
   const dim3 grid(grid_x(h2, w), batch);
   roundtrip32_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)img, (uint8_t*)out, to_scales(q), to_scales(qi), h2, w, frame_stride);

@@ -1,8 +1,9 @@
 // Device functions shared by every kernel of simd_dct_tpu_torch/csrc: the
 // f32 DCT basis, the 8x8 forward and inverse transforms, the quantizer in
-// its three rounding modes, and 8x8 pixel-block loads and stores.  mode32
-// (dct32.cu), enc-quant (encq.cu) and stereo (stereo.cu) all include this
-// file, so the modes cannot differ in their arithmetic.
+// its three rounding modes, 8x8 pixel-block loads and stores, and the
+// staging of mode32 group records in shared memory.  mode32 (dct32.cu),
+// enc-quant (encq.cu), stereo (stereo.cu) and colour (color32.cu) all
+// include this file, so the modes cannot differ in their arithmetic.
 //
 // Every product and sum of the transforms is an explicit __fmaf_rn /
 // __fmul_rn, so no contraction choice of the compiler can differ between
@@ -48,6 +49,21 @@ enum Rounding { kRne = 0, kScalar = 1, kClampFirst = 2 };
 // f32(1/255), the pixel scale of the 1/255 domain (enc-quant and stereo),
 // as core/golden.py:184
 constexpr float kInv255 = 0x1.010102p-8f;
+
+// 8x8 blocks (one thread each) per CUDA block of the mode32 and enc-quant
+// kernels.
+constexpr int kThreads = 128;
+// Shared-memory bytes per staged 512-byte mode32 group record (dct32.cu,
+// color32.cu): 16 bytes of padding put the four groups of a warp on
+// different banks for the stride-8 record bytes (measured on an H100: dec32
+// about 5% faster than a 512-byte stride).
+constexpr int kGroupStride = 528;
+
+// The i-th 16-byte piece of a contiguous span of group records, as an index
+// into its padded shared-memory copy (32 pieces per record).
+__device__ __forceinline__ int smem_piece(int i) {
+  return (i >> 5) * (kGroupStride / 16) + (i & 31);
+}
 
 // X (8x8, row-major, in place) -> D X D^T.  Column pass first, then rows,
 // the association order of the golden model (core/golden.py _dct2d).
@@ -162,6 +178,12 @@ __device__ __forceinline__ void store_block(uint8_t* __restrict__ p, int w,
     v.y = pack4(&x[r * 8 + 4]);
     *reinterpret_cast<uint2*>(p + (size_t)r * w) = v;
   }
+}
+
+// The geometry every mode32-family launch takes: whole 8-block groups
+// (W % 64 == 0), whole strips (H2 % 8 == 0), a batch on one grid axis.
+inline bool mode32_geometry_ok(int batch, int h2, int w) {
+  return batch > 0 && batch <= 65535 && h2 > 0 && w > 0 && h2 % 8 == 0 && w % 64 == 0;
 }
 
 inline Scales to_scales(const float* host) {

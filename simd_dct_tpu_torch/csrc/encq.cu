@@ -44,7 +44,7 @@
 
 namespace {
 
-constexpr int kThreads = 128;     // 8x8 blocks (64-byte units) per CUDA block
+// kThreads (dct_common.cuh): 8x8 blocks (64-byte units) per CUDA block
 constexpr int kUnitStride = 80;   // shared-memory bytes per 64-byte unit
 constexpr int kPieces = kUnitStride / 16;
 

@@ -1,10 +1,13 @@
 """Wrappers around the hand-written CUDA kernels: mode32 (``csrc/dct32.cu``),
-enc-quant (``csrc/encq.cu``) and stereo (``csrc/stereo.cu``).
+enc-quant (``csrc/encq.cu``), stereo (``csrc/stereo.cu``) and YCbCr 4:4:4
+colour (``csrc/color32.cu``).
 
 Counterpart of ``simd_dct_tpu/kernels/pallas_dct.py`` (``encode_quantize32``
 / ``decode_quantize32`` / ``roundtrip_quantize32``, ``encode_quantize`` /
-``decode_quantize``, ``encode_quantize_stereo`` / ``decode_quantize_stereo``)
-and of the trial kernel of ``dispatch/capability.py``.
+``decode_quantize``, ``encode_quantize_stereo`` / ``decode_quantize_stereo``),
+of ``simd_dct_tpu/kernels/color32.py`` (``encode_quantize32_ycbcr`` /
+``decode_quantize32_ycbcr`` / ``roundtrip_quantize32_ycbcr``) and of the
+trial kernel of ``dispatch/capability.py``.
 
 Device rule: a CPU tensor goes to the plain PyTorch version
 (``kernels/torch_path.py``); a CUDA tensor launches the kernel, on
@@ -27,18 +30,27 @@ import torch
 
 from ..core.quantize import (ROUNDING_MODES, dequant_scales, lut_array,
                              quant_scales)
+from ..layout import color as L_color
 from ..layout import stereo as L_stereo
 from . import _build
 from . import torch_path as _tp
 
 LAUNCHES = {"enc32": 0, "dec32": 0, "roundtrip32": 0, "probe": 0,
-            "encq": 0, "decq": 0, "enc_stereo": 0, "dec_stereo": 0}
+            "encq": 0, "decq": 0, "enc_stereo": 0, "dec_stereo": 0,
+            "enc32_rgb": 0, "dec32_rgb": 0, "roundtrip32_rgb": 0}
 
 _ROUNDING_CODE = {"rne": 0, "scalar": 1, "clamp_first": 2}
 _LAYOUT_CODE = {"scalar": 0, "pair": 1, "pair_as_written": 2}
 _VIEW_LAYOUT_CODE = {"interleaved": 0, "planar": 1, "native": 2}
 _I32_MIN, _I32_MAX = -(1 << 31), (1 << 31) - 1
 _MAX_BATCH = 65535   # grid.y (grid.z for stereo) of one launch
+_MODE32 = ("enc_quant32", "dec_quant32", "roundtrip32", "enc_quant32_ycbcr",
+           "dec_quant32_ycbcr", "roundtrip32_ycbcr")
+# The colour kernels' ColorMix, 21 host f32 passed by value: RGB -> YCbCr
+# and back (row-major), then the bias; the bits of layout/color.py.
+_COLOR_MIX = np.concatenate([L_color.RGB2YCC.ravel(), L_color.YCC2RGB.ravel(),
+                             L_color.YCC_BIAS]).astype(np.float32)
+_COLOR_MIX.flags.writeable = False
 
 
 def reset_launch_counts() -> None:
@@ -48,13 +60,14 @@ def reset_launch_counts() -> None:
 
 def supports_mode(mode: str, h: int, w: int, layout: str = "scalar") -> bool:
     """Geometry the kernels take directly: any H % 16 == 0 and, for the
-    mode32 family, W % 64 == 0 (groups of 8 blocks, src/simd_dct.cpp:118);
+    mode32 family and its YCbCr colour form, W % 64 == 0 (groups of 8
+    blocks, src/simd_dct.cpp:118);
     for enc-quant, W % 8 == 0 in the ``scalar`` layout and W % 16 == 0 in
     the pair layouts (whole two-block cells); for stereo, W % 8 == 0 in
     every view layout.  No padding or slicing pass exists or is needed."""
     if h <= 0 or w <= 0 or h % 16:
         return False
-    if mode in ("enc_quant32", "dec_quant32", "roundtrip32"):
+    if mode in _MODE32:
         return w % 64 == 0
     if mode in ("enc_quant", "dec_quant"):
         return w % (8 if layout == "scalar" else 16) == 0
@@ -83,7 +96,7 @@ def _check_tensor(t, name: str, ndims: tuple[int, ...]) -> None:
 def _check_geometry(mode: str, h: int, w: int,
                     layout: str = "scalar") -> None:
     if not supports_mode(mode, h, w, layout):
-        need = 64 if mode.endswith("32") else (
+        need = 64 if mode in _MODE32 else (
             8 if layout == "scalar" or mode.endswith("stereo") else 16)
         what = f"{mode} ({layout})" if mode.endswith("quant") else mode
         raise ValueError(f"{what} needs H % 16 == 0 and W % {need} == 0, "
@@ -343,6 +356,103 @@ def decode_quantize_stereo(data: torch.Tensor, lut, size_x: int, size_y: int,
                                  _VIEW_LAYOUT_CODE[view_layout], _stream(data))
         LAUNCHES["dec_stereo"] += 1
     _build.check(lib, rc, "dec_stereo")
+    return out
+
+
+def _check_planes(t, name: str) -> None:
+    _check_tensor(t, name, (3, 4))
+    if t.shape[-3] != 3:
+        raise ValueError(f"{name} must be (3, H, W) planar RGB or a "
+                         f"(B, 3, H, W) batch, got shape {tuple(t.shape)}")
+
+
+def encode_quantize32_ycbcr(planes: torch.Tensor, luma, chroma,
+                            rounding: str = "rne") -> torch.Tensor:
+    """Colour mode32 encode of the TOP view of a (3, H, W) or (B, 3, H, W)
+    planar RGB dual-view image -> (3, H/2*W) or (B, 3, H/2*W) u8 records
+    (Y with ``luma``, Cb and Cr with ``chroma``); one launch per batch."""
+    _check_planes(planes, "planes")
+    h, w = planes.shape[-2:]
+    _check_geometry("enc_quant32_ycbcr", h, w)
+    if rounding not in ROUNDING_MODES:
+        raise ValueError(f"rounding must be one of {ROUNDING_MODES}")
+    if planes.device.type == "cpu":
+        return _tp.encode_ycbcr32(planes, luma, chroma, rounding)
+    batch = _batch_of(planes, 3)
+    h2 = h // 2
+    out = torch.empty(planes.shape[:-2] + (h2 * w,), dtype=torch.uint8,
+                      device=planes.device)
+    if out.numel() == 0:
+        return out
+    ql, _ = _host_scales(luma)
+    qc, _ = _host_scales(chroma)
+    lib = _build.load()
+    with _on_device_of(planes):
+        rc = lib.sdct_enc32_rgb(planes.data_ptr(), out.data_ptr(),
+                                ql.ctypes.data, qc.ctypes.data,
+                                _COLOR_MIX.ctypes.data, batch, h2, w, h * w,
+                                _ROUNDING_CODE[rounding], _stream(planes))
+        LAUNCHES["enc32_rgb"] += 1
+    _build.check(lib, rc, "enc32_rgb")
+    return out
+
+
+def decode_quantize32_ycbcr(data: torch.Tensor, luma, chroma, size_x: int,
+                            size_y: int) -> torch.Tensor:
+    """Colour mode32 records, (3, size_y/2*size_x) or (B, 3, size_y/2*size_x)
+    u8 -> (3, size_y/2, size_x) or (B, 3, size_y/2, size_x) u8 planar RGB."""
+    _check_tensor(data, "data", (2, 3))
+    _check_geometry("dec_quant32_ycbcr", size_y, size_x)
+    h2 = size_y // 2
+    if tuple(data.shape[-2:]) != (3, h2 * size_x):
+        raise ValueError(f"expected (..., 3, {h2 * size_x}) record bytes, "
+                         f"got {tuple(data.shape)}")
+    if data.device.type == "cpu":
+        return _tp.decode_ycbcr32(data, luma, chroma, size_x, size_y)
+    batch = _batch_of(data, 2)
+    out = torch.empty(data.shape[:-1] + (h2, size_x), dtype=torch.uint8,
+                      device=data.device)
+    if out.numel() == 0:
+        return out
+    _, qil = _host_scales(luma)
+    _, qic = _host_scales(chroma)
+    lib = _build.load()
+    with _on_device_of(data):
+        rc = lib.sdct_dec32_rgb(data.data_ptr(), out.data_ptr(),
+                                qil.ctypes.data, qic.ctypes.data,
+                                _COLOR_MIX.ctypes.data, batch, h2, size_x,
+                                _stream(data))
+        LAUNCHES["dec32_rgb"] += 1
+    _build.check(lib, rc, "dec32_rgb")
+    return out
+
+
+def roundtrip_quantize32_ycbcr(planes: torch.Tensor, luma,
+                               chroma) -> torch.Tensor:
+    """Fused colour mode32 encode (``rne``) -> decode of the TOP view:
+    (3, H, W) or (B, 3, H, W) u8 -> (3, H/2, W) or (B, 3, H/2, W) u8."""
+    _check_planes(planes, "planes")
+    h, w = planes.shape[-2:]
+    _check_geometry("roundtrip32_ycbcr", h, w)
+    if planes.device.type == "cpu":
+        return _tp.roundtrip_ycbcr32(planes, luma, chroma)
+    batch = _batch_of(planes, 3)
+    h2 = h // 2
+    out = torch.empty(planes.shape[:-2] + (h2, w), dtype=torch.uint8,
+                      device=planes.device)
+    if out.numel() == 0:
+        return out
+    ql, qil = _host_scales(luma)
+    qc, qic = _host_scales(chroma)
+    lib = _build.load()
+    with _on_device_of(planes):
+        rc = lib.sdct_roundtrip32_rgb(planes.data_ptr(), out.data_ptr(),
+                                      ql.ctypes.data, qc.ctypes.data,
+                                      qil.ctypes.data, qic.ctypes.data,
+                                      _COLOR_MIX.ctypes.data, batch, h2, w,
+                                      h * w, _stream(planes))
+        LAUNCHES["roundtrip32_rgb"] += 1
+    _build.check(lib, rc, "roundtrip32_rgb")
     return out
 
 

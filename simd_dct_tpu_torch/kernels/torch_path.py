@@ -1,8 +1,9 @@
-"""Plain PyTorch version of the mode32, enc-quant and stereo kernels (the
-``torch`` tier).
+"""Plain PyTorch version of the mode32, enc-quant, stereo and YCbCr colour
+kernels (the ``torch`` tier).
 
 Counterpart of ``simd_dct_tpu/kernels/xla_path.py`` (its generic einsum
-branch: blockize, ``dct8x8``, quantize, then the record layout).  It runs
+branch: blockize, ``dct8x8``, quantize, then the record layout) and of the
+XLA tier of ``simd_dct_tpu/kernels/color32.py``.  It runs
 on any device PyTorch runs on.  The CPU tests hold it against the JAX
 package, and ``chip_smoke.py`` holds the CUDA kernels
 (``kernels/cuda_dct.py``) against it on the card.
@@ -25,6 +26,7 @@ from ..core.dct import dct8x8, idct8x8
 from ..core.quantize import (dequant_scales, dequantize_from_u8,
                              quant_scales, quantize_to_u8)
 from ..layout import blocks as L_blocks
+from ..layout import color as L_color
 from ..layout import reorder as L_reorder
 from ..layout import stereo as L_stereo
 
@@ -51,6 +53,13 @@ def _apply_mask(flat: torch.Tensor, mask: np.ndarray,
 _INV_255 = np.float32(1.0 / 255.0)    # golden.py:184, xla_path.py:43
 
 
+def _dct_buffers(blocks: torch.Tensor,
+                 orientation: str = "fy") -> torch.Tensor:
+    """(..., S, BW, 8, 8) f32 blocks -> (..., S, BW, 64) f32 coefficient
+    buffers."""
+    return L_reorder.coeffs_to_buffer(dct8x8(blocks), orientation)
+
+
 def _coeff_buffers(view_u8: torch.Tensor, normalize: bool = False,
                    orientation: str = "fy") -> torch.Tensor:
     """(..., S*8, W) u8 -> (..., S, BW, 64) f32 coefficient buffers.
@@ -59,7 +68,7 @@ def _coeff_buffers(view_u8: torch.Tensor, normalize: bool = False,
     x = L_blocks.blockize(view_u8).to(torch.float32)
     if normalize:
         x = x * torch.tensor(_INV_255, device=x.device)
-    return L_reorder.coeffs_to_buffer(dct8x8(x), orientation)
+    return _dct_buffers(x, orientation)
 
 
 def _buffers_to_view(bufs: torch.Tensor, normalize: bool = False,
@@ -183,6 +192,51 @@ def decode_quantize_stereo(data: torch.Tensor, lut, size_x: int, size_y: int,
                                 dequant_scales(lut, data.device))
     return L_stereo.stack_views(
         _buffers_to_view(coeffs, normalize=True, orientation="fy"))
+
+
+def _channel_scales(scales_of, luma, chroma, device) -> torch.Tensor:
+    """(3, 1, 1, 64) f32: the luma LUT's scales for Y, the chroma LUT's for
+    Cb and Cr, broadcasting over (..., 3, S, BW, 64) buffers."""
+    y, c = scales_of(luma, device), scales_of(chroma, device)
+    return torch.stack([y, c, c])[:, None, None, :]
+
+
+def encode_ycbcr32(planes: torch.Tensor, luma, chroma,
+                   rounding: str = "rne") -> torch.Tensor:
+    """Colour mode32 encode of the TOP view of a (..., 3, H, W) planar RGB
+    dual-view image: the BT.601 mix to f32 YCbCr (no u8 step), then per
+    channel the mode32 encode in the raw 0..255 domain, Y with ``luma``'s
+    scales and Cb, Cr with ``chroma``'s.  -> (..., 3, H/2*W) u8 (counterpart
+    of ``simd_dct_tpu/kernels/color32.py`` ``encode_ycbcr_xla``)."""
+    top = L_stereo.top_view(planes).to(torch.float32)
+    ycc = L_color.mix_planes(top, L_color.RGB2YCC, L_color.YCC_BIAS)
+    bufs = _dct_buffers(L_blocks.blockize(ycc))      # (..., 3, S, BW, 64)
+    data = quantize_to_u8(
+        bufs, _channel_scales(quant_scales, luma, chroma, planes.device),
+        rounding)
+    return L_reorder.group8(data)
+
+
+def decode_ycbcr32(data: torch.Tensor, luma, chroma, size_x: int,
+                   size_y: int) -> torch.Tensor:
+    """Inverse of ``encode_ycbcr32``: (..., 3, size_y/2*size_x) records ->
+    (..., 3, size_y/2, size_x) u8 planar RGB.  The YCbCr values go from the
+    IDCT to the inverse mix in f32, unrounded (``decode_ycbcr_xla``)."""
+    bufs = L_reorder.group8_inverse(data, size_x // 8)
+    coeffs = dequantize_from_u8(
+        bufs, _channel_scales(dequant_scales, luma, chroma, data.device))
+    ycc = L_blocks.unblockize(idct8x8(L_reorder.buffer_to_coeffs(coeffs)))
+    bias = torch.as_tensor(L_color.YCC_BIAS, device=data.device)
+    rgb = L_color.mix_planes(ycc - bias[:, None, None], L_color.YCC2RGB)
+    return torch.clamp(torch.round(rgb), 0.0, 255.0).to(torch.uint8)
+
+
+def roundtrip_ycbcr32(planes: torch.Tensor, luma, chroma) -> torch.Tensor:
+    """Colour mode32 encode (``rne``) then decode of the TOP view, composed:
+    (..., 3, H, W) -> (..., 3, H/2, W) u8."""
+    h, w = planes.shape[-2:]
+    return decode_ycbcr32(encode_ycbcr32(planes, luma, chroma), luma, chroma,
+                          w, h)
 
 
 def probe_trial(x: torch.Tensor) -> torch.Tensor:

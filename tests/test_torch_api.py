@@ -316,6 +316,8 @@ def test_import_pulls_in_no_jax():
     code = ("import sys, simd_dct_tpu_torch, simd_dct_tpu_torch.convert, "
             "simd_dct_tpu_torch.kernels.cuda_dct, "
             "simd_dct_tpu_torch.layout.stereo, "
+            "simd_dct_tpu_torch.layout.color, "
+            "simd_dct_tpu_torch.kernels.torch_path, "
             "simd_dct_tpu_torch.utils.debug, simd_dct_tpu_torch.utils.metrics; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'simd_dct_tpu.')) or m == 'simd_dct_tpu']; "

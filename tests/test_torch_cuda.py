@@ -17,6 +17,7 @@ from simd_dct_tpu_torch import api as sd
 from simd_dct_tpu_torch.core.quantize import default_quant_lut
 from simd_dct_tpu_torch.kernels import cuda_dct as K
 from simd_dct_tpu_torch.kernels import torch_path as TP
+from simd_dct_tpu_torch.layout import BASE_CHROMA_QUANT_TABLE
 from simd_dct_tpu_torch.utils.debug import compare_backends
 
 pytestmark = pytest.mark.cuda
@@ -237,3 +238,46 @@ def test_stereo_api_launches_kernels(gen):
     spill = sd.encode_quantize_stereo(img[0, :248], LUT_Q, spill=True)
     assert spill.shape == (256 * 128,)
     assert K.LAUNCHES["enc_stereo"] == 2
+
+
+# -- YCbCr 4:4:4 colour ------------------------------------------------------
+
+LUMA = default_quant_lut(100) * np.float32(255.0)   # mode32's raw domain
+CHROMA = BASE_CHROMA_QUANT_TABLE * np.float32(100 * 255)
+
+
+@pytest.mark.parametrize("shape", [(3, 256, 192), (3, 272, 64),
+                                   (3, 3, 1088, 1920)])
+@pytest.mark.parametrize("rounding", ["rne", "scalar", "clamp_first"])
+def test_enc32_rgb_against_plain(gen, shape, rounding):
+    planes = _img(gen, *shape)
+    _ok(K.encode_quantize32_ycbcr(planes, LUMA, CHROMA, rounding),
+        TP.encode_ycbcr32(planes, LUMA, CHROMA, rounding))
+
+
+@pytest.mark.parametrize("shape", [(3, 256, 192), (2, 3, 1088, 1920)])
+def test_dec32_rgb_and_roundtrip_rgb(gen, shape):
+    planes = _img(gen, *shape)
+    h, w = shape[-2:]
+    rec = TP.encode_ycbcr32(planes, LUMA, CHROMA)
+    _ok(K.decode_quantize32_ycbcr(rec, LUMA, CHROMA, w, h),
+        TP.decode_ycbcr32(rec, LUMA, CHROMA, w, h))
+    fused = K.roundtrip_quantize32_ycbcr(planes, LUMA, CHROMA)
+    composed = K.decode_quantize32_ycbcr(
+        K.encode_quantize32_ycbcr(planes, LUMA, CHROMA), LUMA, CHROMA, w, h)
+    assert torch.equal(fused, composed)
+    _ok(fused, TP.roundtrip_ycbcr32(planes, LUMA, CHROMA))
+
+
+def test_color_api_launches_kernels(gen):
+    planes = _img(gen, 2, 3, 256, 128).cpu().numpy()
+    K.reset_launch_counts()
+    rec = sd.encode_quantize32_ycbcr(planes, LUMA, CHROMA)
+    pix = sd.decode_quantize32_ycbcr(rec, LUMA, CHROMA, 128, 256)
+    rt = sd.roundtrip_quantize32_ycbcr(planes, LUMA, CHROMA)
+    torch.cuda.synchronize()
+    assert rec.device.type == pix.device.type == rt.device.type == "cuda"
+    assert rec.shape == (2, 3, 128 * 128) and pix.shape == (2, 3, 128, 128)
+    assert torch.equal(pix, rt)
+    assert K.LAUNCHES["enc32_rgb"] == K.LAUNCHES["dec32_rgb"] == 1
+    assert K.LAUNCHES["roundtrip32_rgb"] == 1
