@@ -59,7 +59,8 @@ result line):
       repetitions: kernel and copy by CUDA events with the rotation queued
       behind a device-side sleep (no host launch cost in the reading), the
       plain version by torch.profiler device time, and the CUDA-event wall
-      of back-to-back calls for each; it runs last, after phase 12;
+      of back-to-back calls for each (the 4:2:0 rows beside the colour
+      rows' copy of the three channels' top view);
   11. the YCbCr 4:4:4 colour kernels against their plain versions (+-1 on
       at most 0.2% of bytes) on (3, H, W) planar RGB at 4096x3840 (every
       rounding mode), 1088x1920, 256x192 (W % 128 != 0) and an 8-frame
@@ -71,8 +72,19 @@ result line):
   12. the colour main path through the public api with numpy inputs and no
       device, counters set to 0 just before: encode, decode and round trip
       of the 4K RGB dual view (3, 4096, 3840) and of a 64-frame
-      (64, 3, 1088, 1920) batch, one launch each (2 of each colour kernel).
-The line before the last is a JSON object with one entry per kernel (its
+      (64, 3, 1088, 1920) batch, one launch each (2 of each colour kernel);
+  13. the YCbCr 4:2:0 kernels against their plain versions (+-1 on at most
+      0.2% of bytes) at 4096x3840 (every rounding mode), 1088x1920, 64x384
+      (W % 256 != 0: a CUDA block's 32 macroblocks cross a macroblock row)
+      and an 8-frame 1088x1920 batch; the Y segment of each 4:2:0 stream
+      equals channel 0 of enc32_rgb's records byte for byte; round-trip
+      PSNR on the config-3 gate's input within 0.1 dB of the plain
+      version's;
+  14. the 4:2:0 main path through the public api with numpy inputs and no
+      device, counters set to 0 just before: encode and decode of the 4K
+      RGB dual view and of a 64-frame (64, 3, 1088, 1920) batch (2 launches
+      of each 4:2:0 kernel).
+Phase 10 runs last, after phase 14.  The line before the last is a JSON object with one entry per kernel (its
 time, its bound and its share of the copy); the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -105,8 +117,10 @@ DCT32 = "simd_dct_tpu_torch/csrc/dct32.cu"
 ENCQ = "simd_dct_tpu_torch/csrc/encq.cu"
 STEREO = "simd_dct_tpu_torch/csrc/stereo.cu"
 COLOR = "simd_dct_tpu_torch/csrc/color32.cu"
+COLOR420 = "simd_dct_tpu_torch/csrc/color420.cu"
 PALLAS = "simd_dct_tpu/kernels/pallas_dct.py"
 COLOR32 = "simd_dct_tpu/kernels/color32.py"
+C420 = "simd_dct_tpu/kernels/color420.py"
 # kernel -> (source, the TPU kernel it replaces, main path)
 KERNELS = {
     "enc32": (DCT32, f"{PALLAS}:81", "mode32"),
@@ -120,9 +134,15 @@ KERNELS = {
     "enc32_rgb": (COLOR, f"{COLOR32}:42", "colour"),
     "dec32_rgb": (COLOR, f"{COLOR32}:136", "colour"),
     "roundtrip32_rgb": (COLOR, f"{COLOR32}:207", "colour"),
+    "enc420_rgb": (COLOR420, f"{C420}:135", "colour 4:2:0"),
+    "dec420_rgb": (COLOR420, f"{C420}:260", "colour 4:2:0"),
 }
 # (H, W, frames) of the dual-view images the comparisons run on
 GEOMETRIES = [(4096, 3840, 1), (1088, 1920, 1), (256, 192, 1), (1088, 1920, 8)]
+# 4:2:0 needs W % 128 == 0 and H % 32 == 0; at W = 384 (24 macroblocks a
+# row) a CUDA block's 32 macroblocks cross a macroblock row
+GEOMETRIES_420 = [(4096, 3840, 1), (1088, 1920, 1), (64, 384, 1),
+                  (1088, 1920, 8)]
 # stereo: W = 200 (BW = 25) takes the kernels' byte-wide plane-row path
 STEREO_GEOMETRIES = [(4096, 3840, 1), (1088, 1920, 1), (256, 200, 1),
                      (1088, 1920, 8)]
@@ -140,9 +160,12 @@ PEAK_FMA_S = 33.5e12
 # (simd_dct_tpu/core/butterfly.py:8) fused into 29 FMAs, 16 transforms per
 # 8x8 block (7.25 a pixel), plus one for the (de)quantizer's scale.  The
 # colour kernels count per pixel position: per channel one pass (two for
-# the round trip) and 3 FMAs for each BT.601 mix, the bias folded in.
+# the round trip) and 3 FMAs for each BT.601 mix, the bias folded in.  The
+# 4:2:0 kernels pass a quarter of the pixels per chroma channel, and the
+# encode pools them: 3 adds per 4 pixels (the 1/4 folds into the scale).
 PASS_FMA_PER_PX = 16 * 29 / 64 + 1
 MIX_FMA_PER_PX = 3
+POOL_FMA_PER_PX = 3 / 4
 FMA_PER_PX = {"enc32": PASS_FMA_PER_PX, "dec32": PASS_FMA_PER_PX,
               "roundtrip32": 2 * PASS_FMA_PER_PX, "probe": 0,
               "encq": PASS_FMA_PER_PX, "decq": PASS_FMA_PER_PX,
@@ -150,7 +173,10 @@ FMA_PER_PX = {"enc32": PASS_FMA_PER_PX, "dec32": PASS_FMA_PER_PX,
               "enc32_rgb": 3 * (PASS_FMA_PER_PX + MIX_FMA_PER_PX),
               "dec32_rgb": 3 * (PASS_FMA_PER_PX + MIX_FMA_PER_PX),
               "roundtrip32_rgb": 3 * (2 * PASS_FMA_PER_PX
-                                      + 2 * MIX_FMA_PER_PX)}
+                                      + 2 * MIX_FMA_PER_PX),
+              "enc420_rgb": (1.5 * PASS_FMA_PER_PX + 3 * MIX_FMA_PER_PX
+                             + 2 * POOL_FMA_PER_PX),
+              "dec420_rgb": 1.5 * PASS_FMA_PER_PX + 3 * MIX_FMA_PER_PX}
 
 
 def log(*args):
@@ -632,6 +658,80 @@ def phase_main_path_color(gen, luma, chroma):
     return counts
 
 
+def phase_compare_color420(gen, luma, chroma, errs):
+    log("phase 13: YCbCr 4:2:0 colour kernels against the plain version on "
+        "the card")
+    for h, w, frames in GEOMETRIES_420:
+        rgb = random_rgb(gen, h, w, frames)
+        tag = f"{frames}x3x{h}x{w}"
+        roundings = ROUNDINGS if h == 4096 else ("rne",)
+        for rounding in roundings:
+            stream = cuda_dct.encode_quantize32_ycbcr420(rgb, luma, chroma,
+                                                         rounding)
+            agree(f"enc420_rgb {tag} {rounding}", stream,
+                  torch_path.encode_ycbcr420(rgb, luma, chroma, rounding),
+                  errs, "enc420_rgb")
+            y444 = cuda_dct.encode_quantize32_ycbcr(rgb, luma, chroma,
+                                                    rounding)[..., 0, :]
+            require(torch.equal(stream[..., : y444.shape[-1]], y444),
+                    f"{tag} {rounding}: the 4:2:0 Y segment == enc32_rgb's "
+                    "channel 0")
+            log(f"  {tag} {rounding}: Y segment == enc32_rgb channel 0 byte "
+                "for byte")
+        rec = torch_path.encode_ycbcr420(rgb, luma, chroma)
+        agree(f"dec420_rgb {tag} (same records)",
+              cuda_dct.decode_quantize32_ycbcr420(rec, luma, chroma, w, h),
+              torch_path.decode_ycbcr420(rec, luma, chroma, w, h), errs,
+              "dec420_rgb")
+    planes = gate_rgb()
+    top = planes[:, : planes.shape[1] // 2]
+    h, w = planes.shape[-2:]
+    x = torch.from_numpy(planes).to(DEV)
+    kern = cuda_dct.decode_quantize32_ycbcr420(
+        cuda_dct.encode_quantize32_ycbcr420(x, luma, chroma), luma, chroma,
+        w, h).cpu().numpy()
+    plain = torch_path.decode_ycbcr420(
+        torch_path.encode_ycbcr420(x, luma, chroma), luma, chroma, w,
+        h).cpu().numpy()
+    p_k, p_p = psnr(top, kern), psnr(top, plain)
+    log(f"  config-3 gate input (3x1024x3840 top view), quality 100: 4:2:0 "
+        f"round-trip psnr kernel={p_k:.4f} dB plain={p_p:.4f} dB "
+        f"delta={p_k - p_p:+.4f} dB")
+    require(abs(p_k - p_p) < 0.1, "4:2:0 round-trip PSNR within 0.1 dB of "
+            "plain")
+    require(30.0 < p_k < 99.0, f"4:2:0 PSNR {p_k:.2f} dB is plausible")
+
+
+def phase_main_path_color420(gen, luma, chroma):
+    log("phase 14: the 4:2:0 main path through the public api (numpy "
+        "inputs, no device)")
+    rgb = np.stack([smooth_image(gen, 4096, 3840).cpu().numpy()
+                    for _ in range(3)])
+    video = random_rgb(gen, 1088, 1920, 64).cpu().numpy()
+    torch.cuda.synchronize()
+    cuda_dct.reset_launch_counts()
+    rec = sd.encode_quantize32_ycbcr420(rgb, luma, chroma)
+    pix = sd.decode_quantize32_ycbcr420(rec, luma, chroma, 3840, 4096)
+    vid_rec = sd.encode_quantize32_ycbcr420(video, luma, chroma)
+    vid = sd.decode_quantize32_ycbcr420(vid_rec, luma, chroma, 1920, 1088)
+    torch.cuda.synchronize()
+    counts = dict(cuda_dct.LAUNCHES)
+    log(f"  launches: {counts}")
+    require(counts["enc420_rgb"] == 2 and counts["dec420_rgb"] == 2,
+            "one launch per call, the 64-frame batch included")
+    require(all(t.device.type == DEV for t in (rec, pix, vid_rec, vid)),
+            "numpy inputs with no device run on the card")
+    require(rec.shape == (2048 * 3840 * 3 // 2,)
+            and vid_rec.shape == (64, 544 * 1920 * 3 // 2), "stream shapes")
+    require(pix.shape == (3, 2048, 3840) and vid.shape == (64, 3, 544, 1920),
+            "image shapes")
+    p = psnr(rgb[:, :2048], pix.cpu().numpy())
+    log(f"  4K RGB 4:2:0 round-trip PSNR at quality 100: {p:.4f} dB; video "
+        f"batch {tuple(vid.shape)}")
+    require(15.0 < p < 99.0, f"4:2:0 main-path PSNR {p:.2f} dB is plausible")
+    return counts
+
+
 def copy_pair(p):
     """Device-to-device copy of p[0] into p[1]: the same-run speed limit."""
     return p[1].copy_(p[0])
@@ -756,6 +856,7 @@ def phase_timing(gen, lut, lut_q, chroma, reps):
         # (3, H, W) planar RGB: three times the bytes, half the rotation
         rgbs = [random_rgb(gen, h, w, frames) for _ in range(n_rot // 2)]
         recs_c = [torch_path.encode_ycbcr32(x, lut, chroma) for x in rgbs]
+        recs_420 = [torch_path.encode_ycbcr420(x, lut, chroma) for x in rgbs]
         # one view's bytes (mode32, enc-quant), the whole dual view's
         # (stereo encodes both) and the three channels' top view (colour)
         copies = {}
@@ -773,6 +874,8 @@ def phase_timing(gen, lut, lut_q, chroma, reps):
         dual = (2 * dual_px, dual_px, copies["dual"])
         native = (native_bytes, dual_px, copies["dual"])
         colour = (6 * view_px, view_px, copies["colour"])
+        # 4:2:0: 3 bytes in and 1.5 out per pixel position
+        c420 = (9 * view_px // 2, view_px, copies["colour"])
         jobs = {
             "enc32": (lambda x: cuda_dct.encode_quantize32(x, lut),
                       lambda x: torch_path.encode_quantize32(x, lut), imgs,
@@ -846,6 +949,15 @@ def phase_timing(gen, lut, lut_q, chroma, reps):
                 lambda x: cuda_dct.roundtrip_quantize32_ycbcr(x, lut, chroma),
                 lambda x: torch_path.roundtrip_ycbcr32(x, lut, chroma), rgbs,
                 *colour),
+            "enc420_rgb": (
+                lambda x: cuda_dct.encode_quantize32_ycbcr420(x, lut, chroma),
+                lambda x: torch_path.encode_ycbcr420(x, lut, chroma), rgbs,
+                *c420),
+            "dec420_rgb": (
+                lambda r: cuda_dct.decode_quantize32_ycbcr420(r, lut, chroma,
+                                                              w, h),
+                lambda r: torch_path.decode_ycbcr420(r, lut, chroma, w, h),
+                recs_420, *c420),
         }
         for name, (kern, plain, inputs, n_bytes, n_px, c_us) in jobs.items():
             k_us = queued_ms(kern, inputs, reps, cycles_per_ms) * 1e3
@@ -934,7 +1046,8 @@ def log_ptxas(lines) -> None:
     for line in lines:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(enc32_rgb|dec32_rgb|roundtrip32_rgb|enc32|dec32"
+            k = re.search(r"(enc420_rgb|dec420_rgb|enc32_rgb|dec32_rgb"
+                          r"|roundtrip32_rgb|enc32|dec32"
                           r"|roundtrip32|probe|encq|decq|enc_stereo"
                           r"|dec_stereo)_kernel"
                           r"(?:I((?:Li\d+E)+)E)?", m.group(1))
@@ -991,11 +1104,13 @@ def main(argv=None) -> int:
     chroma100 = BASE_CHROMA_QUANT_TABLE * np.float32(100 * 255)
     phase_compare_color(gen, lut100, chroma100, errs)
     counts_c = phase_main_path_color(gen, lut100, chroma100)
+    phase_compare_color420(gen, lut100, chroma100, errs)
+    counts_420 = phase_main_path_color420(gen, lut100, chroma100)
     times = phase_timing(gen, lut100, lut_q, chroma100, REPS)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     launches = {"mode32": counts, "enc-quant": counts_q, "stereo": counts_s,
-                "colour": counts_c}
+                "colour": counts_c, "colour 4:2:0": counts_420}
     log(json.dumps({"kernels": kernel_rows(launches, errs, times)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,5 +1,5 @@
-"""simd_dct_tpu_torch -- the enc-quant, mode32, stereo and YCbCr 4:4:4
-colour engines of ``simd_dct_tpu`` in PyTorch, with hand-written CUDA
+"""simd_dct_tpu_torch -- the enc-quant, mode32, stereo and YCbCr 4:4:4 and
+4:2:0 colour engines of ``simd_dct_tpu`` in PyTorch, with hand-written CUDA
 kernels for NVIDIA Hopper (sm_90a).
 
 The JAX package ``simd_dct_tpu`` is the reference this package is held
@@ -8,7 +8,8 @@ against; this package never imports jax.  Layer map:
 * ``core``     -- DCT basis and quantization math
 * ``layout``   -- blockize, the dual-view geometry, the enc-quant scalar /
   pair-cell layouts, the mode32 group-of-8 record layout, the stereo
-  interleaved / planar / native plane layouts and the BT.601 colour mix
+  interleaved / planar / native plane layouts, the BT.601 colour mix and
+  the 4:2:0 record stream
 * ``kernels``  -- plain PyTorch version (``torch_path``), CUDA kernel
   wrappers (``cuda_dct``) and the nvcc build (``_build``)
 * ``dispatch`` -- tiers ``cuda`` / ``torch`` and the capability probe
@@ -30,6 +31,7 @@ from .api import (
     try_encode_quantize_stereo,
     encode_quantize32_ycbcr, decode_quantize32_ycbcr,
     roundtrip_quantize32_ycbcr,
+    encode_quantize32_ycbcr420, decode_quantize32_ycbcr420,
 )
 from .core.quantize import default_quant_lut
 
@@ -43,5 +45,6 @@ __all__ = [
     "try_encode_quantize_stereo",
     "encode_quantize32_ycbcr", "decode_quantize32_ycbcr",
     "roundtrip_quantize32_ycbcr",
+    "encode_quantize32_ycbcr420", "decode_quantize32_ycbcr420",
     "default_quant_lut",
 ]

@@ -1,8 +1,8 @@
-"""Public API: validated enc-quant, mode32, stereo and YCbCr 4:4:4 colour
-entry points.
+"""Public API: validated enc-quant, mode32, stereo and YCbCr 4:4:4 and 4:2:0
+colour entry points.
 
-Counterpart of the enc-quant, mode32, stereo and 4:4:4 colour part of
-``simd_dct_tpu/api.py``, with the same validation contract and the same
+Counterpart of the enc-quant, mode32, stereo, 4:4:4 and 4:2:0 colour part
+of ``simd_dct_tpu/api.py``, with the same validation contract and the same
 typed errors
 (``simdDctResult``, src/simd_dct.h:22-27).
 
@@ -30,6 +30,7 @@ from .core.quantize import ROUNDING_MODES, lut_array
 from .dispatch.capability import default_device, select_backend
 from .kernels import cuda_dct as _cuda
 from .kernels import torch_path as _tp
+from .layout.color420 import record_bytes_420
 from .layout.stereo import VIEW_LAYOUTS, record_shape
 
 
@@ -488,6 +489,75 @@ def roundtrip_quantize32_ycbcr(planes, luma_lut, chroma_lut, *,
         return _cuda.roundtrip_quantize32_ycbcr(_kernel_ready(p), lut_l,
                                                 lut_c)
     return _tp.roundtrip_ycbcr32(p, lut_l, lut_c)
+
+
+# ---------------------------------------------------------------------------
+# YCbCr 4:2:0 colour: encode / decode with 2x2-subsampled chroma
+# ---------------------------------------------------------------------------
+
+def _check_420_geometry(h: int, w: int):
+    if w % 128:
+        raise NotSupportedError(
+            f"enc-quant32-ycbcr420 requires W % 128 == 0 (half-res chroma "
+            f"W/2 % 64), got {w}")
+    if h % 32:
+        raise NotSupportedError(
+            f"enc-quant32-ycbcr420 requires H % 32 == 0 (half-res chroma "
+            f"strips), got {h}")
+
+
+def encode_quantize32_ycbcr420(planes, luma_lut, chroma_lut, *,
+                               rounding: str = "rne",
+                               backend: str | None = None,
+                               device=None) -> torch.Tensor:
+    """(3, H, W) u8 planar RGB, or a (B, 3, H, W) batch -> (1.5*H/2*W,) or
+    (B, 1.5*H/2*W) u8 4:2:0 streams of the TOP view, ``[Y records | Cb
+    records | Cr records]``: the BT.601 mix in f32, Cb and Cr averaged over
+    2x2 pixels to half resolution, then the mode32 records of each plane, Y
+    quantized with ``luma_lut`` and Cb, Cr with ``chroma_lut`` (the raw
+    0..255 domain, as ``encode_quantize32_ycbcr``).  Needs W % 128 == 0 and
+    H % 32 == 0, so the half-resolution planes meet mode32's geometry."""
+    _check_rounding(rounding)
+    p, lut_l, lut_c = _validate_color(planes, luma_lut, chroma_lut, device)
+    h, w = p.shape[-2:]
+    _check_420_geometry(h, w)
+    tier = select_backend(backend, device=p.device)
+    if tier == "cuda":
+        return _cuda.encode_quantize32_ycbcr420(_kernel_ready(p), lut_l,
+                                                lut_c, rounding)
+    return _tp.encode_ycbcr420(p, lut_l, lut_c, rounding)
+
+
+def decode_quantize32_ycbcr420(data, luma_lut, chroma_lut, size_x: int,
+                               size_y: int, *, backend: str | None = None,
+                               device=None) -> torch.Tensor:
+    """Inverse of ``encode_quantize32_ycbcr420``: a multiple of
+    1.5*(size_y/2)*size_x stream bytes -> (3, size_y/2, size_x) u8 planar
+    RGB, or (B, 3, size_y/2, size_x) for more than one frame or a batched
+    input (ndim >= 2, B == 1 included, so that decode(encode(x)) has the
+    shape of x's top view; the JAX package drops the axis of a batch of
+    one).  Each chroma value covers its 2x2 pixels."""
+    if data is None or luma_lut is None or chroma_lut is None:
+        raise InvalidParameterError("data and luts must not be None")
+    if size_x <= 0 or size_y <= 0:
+        raise InvalidParameterError(
+            f"invalid dimensions {(size_x, size_y)}")
+    _check_420_geometry(size_y, size_x)
+    d = _as_tensor(data, device, "data")
+    _check_u8_records(d)
+    frame = record_bytes_420(size_y // 2, size_x)
+    if d.numel() == 0 or d.numel() % frame:
+        raise InvalidParameterError(
+            f"expected a multiple of {frame} record bytes for "
+            f"{(size_x, size_y)}, got {d.numel()}")
+    batch = d.numel() // frame
+    d = d.reshape(batch, frame) if batch > 1 or d.ndim >= 2 else d.reshape(-1)
+    lut_l, lut_c = _lut_array(luma_lut), _lut_array(chroma_lut)
+    tier = select_backend(backend, device=d.device)
+    if tier == "cuda":
+        return _cuda.decode_quantize32_ycbcr420(_kernel_ready(d), lut_l,
+                                                lut_c, size_x, size_y)
+    return _tp.decode_ycbcr420(d, lut_l, lut_c, size_x, size_y)
 
 
 # ---------------------------------------------------------------------------

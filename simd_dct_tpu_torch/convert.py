@@ -2,10 +2,11 @@
 
 The system has no learned weights: its state is the 64-entry quantization
 LUT and the record streams.  A LUT gives the same f32 scales in both
-packages, and a mode32, enc-quant, stereo or YCbCr colour stream written by
-either package decodes in the other (the byte layouts are the reference's,
-src/simd_dct.cpp:258-264,361-364,1662-1670,2021-2025, and the JAX
-package's planar and native stereo forms and per-channel colour records).
+packages, and a mode32, enc-quant, stereo or YCbCr 4:4:4 or 4:2:0 colour
+stream written by either package decodes in the other (the byte layouts
+are the reference's, src/simd_dct.cpp:258-264,361-364,1662-1670,2021-2025,
+and the JAX package's planar and native stereo forms, per-channel colour
+records and [Y | Cb | Cr] 4:2:0 streams).
 Like the api, these functions put their result on the card unless the
 caller names another ``device``.
 """
@@ -17,6 +18,7 @@ import torch
 
 from .core.quantize import dequant_scales, lut_array, quant_scales
 from .dispatch.capability import default_device
+from .layout.color420 import record_bytes_420
 from .layout.stereo import record_shape
 
 
@@ -100,6 +102,22 @@ def color_records_from_numpy(records, size_x: int, size_y: int,
     batch = arr.size // (3 * plane)
     shape = (batch, 3, plane) if batch > 1 or arr.ndim >= 3 else (3, plane)
     return torch.as_tensor(arr.reshape(shape), device=dev)
+
+
+def color420_records_from_numpy(records, size_x: int, size_y: int,
+                                device: torch.device | str | None = None
+                                ) -> torch.Tensor:
+    """YCbCr 4:2:0 streams, or a batch of them, as written by either package
+    (1.5*H/2*W bytes per frame: the mode32 records of Y, then of the
+    half-resolution Cb and Cr) -> u8 tensor of shape (1.5*H/2*W,), or
+    (B, 1.5*H/2*W) for a batched input (ndim >= 2, B == 1 included), on
+    ``device``."""
+    dev = default_device(device)
+    arr = _u8_array(records)
+    if arr.size == 0:
+        raise ValueError("expected at least one frame of records, got none")
+    return _flat_frames(arr, record_bytes_420(size_y // 2, size_x), size_x,
+                        size_y, dev)
 
 
 def records_to_numpy(records: torch.Tensor) -> np.ndarray:

@@ -36,8 +36,8 @@
 // where holding a block's three channels in one thread would need 192.
 // grid = (ceil(blocks per plane / 32), batch): one launch covers a
 // (B, 3, H, W) batch; any W % 64 == 0, H2 % 8 == 0 runs directly.  The mix
-// matrices and the bias come by value from the host constants of
-// layout/color.py, like the scales.
+// matrices and the bias (ColorMix, dct_common.cuh) come by value from the
+// host constants of layout/color.py, like the scales.
 
 #include "dct_common.cuh"
 
@@ -49,28 +49,6 @@ constexpr int kColorGroups = kColorBlocks / 8;   // 8-block record groups a chan
 constexpr int kRecSmem = 3 * kColorGroups * kGroupStride;
 constexpr int kYccPitch = 65;                    // floats per (channel, block) slab
 constexpr int kYccPlane = kColorBlocks * kYccPitch;
-
-// The BT.601 mix: RGB -> YCbCr and back, row-major, and the bias added to
-// Y, Cb and Cr after the forward mix (layout/color.py).
-struct ColorMix {
-  float fwd[9];
-  float inv[9];
-  float bias[3];
-};
-
-__device__ __forceinline__ float pick(int c, float a, float b, float d) {
-  return c == 0 ? a : (c == 1 ? b : d);
-}
-
-// (m0*x0 + m1*x1) + m2*x2, every step rounded (layout/color.py mix_planes).
-__device__ __forceinline__ float mix3(float m0, float m1, float m2, float x0, float x1,
-                                      float x2) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(x0, m0), __fmul_rn(x1, m1)), __fmul_rn(x2, m2));
-}
-
-__device__ __forceinline__ float byte_of(const uint2& v, int i) {
-  return (float)(((i < 4 ? v.x : v.y) >> (8 * (i & 3))) & 0xffu);
-}
 
 // Channel c of the forward mix of one 8x8 RGB block; p points at its R
 // piece, the G and B pieces lie plane_stride and 2*plane_stride further.
@@ -239,12 +217,6 @@ roundtrip32_rgb_kernel(const uint8_t* __restrict__ img, uint8_t* __restrict__ ou
 unsigned color_grid_x(int h2, int w) {
   const long long nblk = (long long)(h2 / 8) * (w / 8);
   return (unsigned)((nblk + kColorBlocks - 1) / kColorBlocks);
-}
-
-inline ColorMix to_mix(const float* host) {
-  ColorMix m;
-  memcpy(&m, host, sizeof(m));
-  return m;
 }
 
 }  // namespace

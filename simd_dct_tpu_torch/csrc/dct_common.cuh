@@ -1,9 +1,10 @@
 // Device functions shared by every kernel of simd_dct_tpu_torch/csrc: the
 // f32 DCT basis, the 8x8 forward and inverse transforms, the quantizer in
 // its three rounding modes, 8x8 pixel-block loads and stores, and the
-// staging of mode32 group records in shared memory.  mode32 (dct32.cu),
-// enc-quant (encq.cu), stereo (stereo.cu) and colour (color32.cu) all
-// include this file, so the modes cannot differ in their arithmetic.
+// staging of mode32 group records in shared memory, and the BT.601 colour
+// mix.  mode32 (dct32.cu), enc-quant (encq.cu), stereo (stereo.cu) and
+// colour (color32.cu, color420.cu) all include this file, so the modes
+// cannot differ in their arithmetic.
 //
 // Every product and sum of the transforms is an explicit __fmaf_rn /
 // __fmul_rn, so no contraction choice of the compiler can differ between
@@ -190,6 +191,36 @@ inline Scales to_scales(const float* host) {
   Scales s;
   memcpy(s.v, host, sizeof(s.v));
   return s;
+}
+
+// -- colour (color32.cu, color420.cu) ----------------------------------------
+
+// The BT.601 mix: RGB -> YCbCr and back, row-major, and the bias added to
+// Y, Cb and Cr after the forward mix (layout/color.py).
+struct ColorMix {
+  float fwd[9];
+  float inv[9];
+  float bias[3];
+};
+
+__device__ __forceinline__ float pick(int c, float a, float b, float d) {
+  return c == 0 ? a : (c == 1 ? b : d);
+}
+
+// (m0*x0 + m1*x1) + m2*x2, every step rounded (layout/color.py mix_planes).
+__device__ __forceinline__ float mix3(float m0, float m1, float m2, float x0, float x1,
+                                      float x2) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(x0, m0), __fmul_rn(x1, m1)), __fmul_rn(x2, m2));
+}
+
+__device__ __forceinline__ float byte_of(const uint2& v, int i) {
+  return (float)(((i < 4 ? v.x : v.y) >> (8 * (i & 3))) & 0xffu);
+}
+
+inline ColorMix to_mix(const float* host) {
+  ColorMix m;
+  memcpy(&m, host, sizeof(m));
+  return m;
 }
 
 }  // namespace

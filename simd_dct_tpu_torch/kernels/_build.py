@@ -132,6 +132,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sdct_dec32_rgb.restype = i
     lib.sdct_roundtrip32_rgb.argtypes = [p, p, p, p, p, p, p, i, i, i, ll, p]
     lib.sdct_roundtrip32_rgb.restype = i
+    lib.sdct_enc420_rgb.argtypes = [p, p, p, p, p, i, i, i, ll, i, p]
+    lib.sdct_enc420_rgb.restype = i
+    lib.sdct_dec420_rgb.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.sdct_dec420_rgb.restype = i
     lib.sdct_probe.argtypes = [p, p, i, p]
     lib.sdct_probe.restype = i
     lib.sdct_error_string.argtypes = [i]

@@ -1,13 +1,15 @@
 """Wrappers around the hand-written CUDA kernels: mode32 (``csrc/dct32.cu``),
-enc-quant (``csrc/encq.cu``), stereo (``csrc/stereo.cu``) and YCbCr 4:4:4
-colour (``csrc/color32.cu``).
+enc-quant (``csrc/encq.cu``), stereo (``csrc/stereo.cu``), YCbCr 4:4:4
+colour (``csrc/color32.cu``) and YCbCr 4:2:0 colour (``csrc/color420.cu``).
 
 Counterpart of ``simd_dct_tpu/kernels/pallas_dct.py`` (``encode_quantize32``
 / ``decode_quantize32`` / ``roundtrip_quantize32``, ``encode_quantize`` /
 ``decode_quantize``, ``encode_quantize_stereo`` / ``decode_quantize_stereo``),
 of ``simd_dct_tpu/kernels/color32.py`` (``encode_quantize32_ycbcr`` /
-``decode_quantize32_ycbcr`` / ``roundtrip_quantize32_ycbcr``) and of the
-trial kernel of ``dispatch/capability.py``.
+``decode_quantize32_ycbcr`` / ``roundtrip_quantize32_ycbcr``), of
+``simd_dct_tpu/kernels/color420.py`` (``enc420_rgb`` / ``dec420_rgb`` with
+``pack_records`` / ``unpack_records``) and of the trial kernel of
+``dispatch/capability.py``.
 
 Device rule: a CPU tensor goes to the plain PyTorch version
 (``kernels/torch_path.py``); a CUDA tensor launches the kernel, on
@@ -31,13 +33,15 @@ import torch
 from ..core.quantize import (ROUNDING_MODES, dequant_scales, lut_array,
                              quant_scales)
 from ..layout import color as L_color
+from ..layout.color420 import record_bytes_420
 from ..layout import stereo as L_stereo
 from . import _build
 from . import torch_path as _tp
 
 LAUNCHES = {"enc32": 0, "dec32": 0, "roundtrip32": 0, "probe": 0,
             "encq": 0, "decq": 0, "enc_stereo": 0, "dec_stereo": 0,
-            "enc32_rgb": 0, "dec32_rgb": 0, "roundtrip32_rgb": 0}
+            "enc32_rgb": 0, "dec32_rgb": 0, "roundtrip32_rgb": 0,
+            "enc420_rgb": 0, "dec420_rgb": 0}
 
 _ROUNDING_CODE = {"rne": 0, "scalar": 1, "clamp_first": 2}
 _LAYOUT_CODE = {"scalar": 0, "pair": 1, "pair_as_written": 2}
@@ -46,6 +50,8 @@ _I32_MIN, _I32_MAX = -(1 << 31), (1 << 31) - 1
 _MAX_BATCH = 65535   # grid.y (grid.z for stereo) of one launch
 _MODE32 = ("enc_quant32", "dec_quant32", "roundtrip32", "enc_quant32_ycbcr",
            "dec_quant32_ycbcr", "roundtrip32_ycbcr")
+# 4:2:0: the half-resolution chroma planes keep mode32's own geometry
+_MODE420 = ("enc_quant32_ycbcr420", "dec_quant32_ycbcr420")
 # The colour kernels' ColorMix, 21 host f32 passed by value: RGB -> YCbCr
 # and back (row-major), then the bias; the bits of layout/color.py.
 _COLOR_MIX = np.concatenate([L_color.RGB2YCC.ravel(), L_color.YCC2RGB.ravel(),
@@ -61,12 +67,15 @@ def reset_launch_counts() -> None:
 def supports_mode(mode: str, h: int, w: int, layout: str = "scalar") -> bool:
     """Geometry the kernels take directly: any H % 16 == 0 and, for the
     mode32 family and its YCbCr colour form, W % 64 == 0 (groups of 8
-    blocks, src/simd_dct.cpp:118);
-    for enc-quant, W % 8 == 0 in the ``scalar`` layout and W % 16 == 0 in
-    the pair layouts (whole two-block cells); for stereo, W % 8 == 0 in
+    blocks, src/simd_dct.cpp:118); for YCbCr 4:2:0, H % 32 == 0 and
+    W % 128 == 0, so that the half-resolution chroma planes meet mode32's
+    rule; for enc-quant, W % 8 == 0 in the ``scalar`` layout and W % 16 == 0
+    in the pair layouts (whole two-block cells); for stereo, W % 8 == 0 in
     every view layout.  No padding or slicing pass exists or is needed."""
     if h <= 0 or w <= 0 or h % 16:
         return False
+    if mode in _MODE420:
+        return h % 32 == 0 and w % 128 == 0
     if mode in _MODE32:
         return w % 64 == 0
     if mode in ("enc_quant", "dec_quant"):
@@ -96,6 +105,9 @@ def _check_tensor(t, name: str, ndims: tuple[int, ...]) -> None:
 def _check_geometry(mode: str, h: int, w: int,
                     layout: str = "scalar") -> None:
     if not supports_mode(mode, h, w, layout):
+        if mode in _MODE420:
+            raise ValueError(f"{mode} needs H % 32 == 0 and W % 128 == 0, "
+                             f"got H={h}, W={w}")
         need = 64 if mode in _MODE32 else (
             8 if layout == "scalar" or mode.endswith("stereo") else 16)
         what = f"{mode} ({layout})" if mode.endswith("quant") else mode
@@ -453,6 +465,70 @@ def roundtrip_quantize32_ycbcr(planes: torch.Tensor, luma,
                                       h * w, _stream(planes))
         LAUNCHES["roundtrip32_rgb"] += 1
     _build.check(lib, rc, "roundtrip32_rgb")
+    return out
+
+
+def encode_quantize32_ycbcr420(planes: torch.Tensor, luma, chroma,
+                               rounding: str = "rne") -> torch.Tensor:
+    """Colour 4:2:0 encode of the TOP view of a (3, H, W) or (B, 3, H, W)
+    planar RGB dual-view image -> (1.5*H/2*W,) or (B, 1.5*H/2*W) u8 streams
+    [Y | Cb | Cr] (Y with ``luma``, the 2x2-pooled Cb and Cr with
+    ``chroma``); one launch per batch."""
+    _check_planes(planes, "planes")
+    h, w = planes.shape[-2:]
+    _check_geometry("enc_quant32_ycbcr420", h, w)
+    if rounding not in ROUNDING_MODES:
+        raise ValueError(f"rounding must be one of {ROUNDING_MODES}")
+    if planes.device.type == "cpu":
+        return _tp.encode_ycbcr420(planes, luma, chroma, rounding)
+    batch = _batch_of(planes, 3)
+    h2 = h // 2
+    out = torch.empty(planes.shape[:-3] + (record_bytes_420(h2, w),),
+                      dtype=torch.uint8, device=planes.device)
+    if out.numel() == 0:
+        return out
+    ql, _ = _host_scales(luma)
+    qc, _ = _host_scales(chroma)
+    lib = _build.load()
+    with _on_device_of(planes):
+        rc = lib.sdct_enc420_rgb(planes.data_ptr(), out.data_ptr(),
+                                 ql.ctypes.data, qc.ctypes.data,
+                                 _COLOR_MIX.ctypes.data, batch, h2, w, h * w,
+                                 _ROUNDING_CODE[rounding], _stream(planes))
+        LAUNCHES["enc420_rgb"] += 1
+    _build.check(lib, rc, "enc420_rgb")
+    return out
+
+
+def decode_quantize32_ycbcr420(data: torch.Tensor, luma, chroma, size_x: int,
+                               size_y: int) -> torch.Tensor:
+    """Colour 4:2:0 streams, (1.5*size_y/2*size_x,) or (B, 1.5*size_y/2*
+    size_x) u8 -> (3, size_y/2, size_x) or (B, 3, size_y/2, size_x) u8
+    planar RGB."""
+    _check_tensor(data, "data", (1, 2))
+    _check_geometry("dec_quant32_ycbcr420", size_y, size_x)
+    h2 = size_y // 2
+    n = record_bytes_420(h2, size_x)
+    if data.shape[-1] != n:
+        raise ValueError(f"expected {n} record bytes per frame, got "
+                         f"{data.shape[-1]}")
+    if data.device.type == "cpu":
+        return _tp.decode_ycbcr420(data, luma, chroma, size_x, size_y)
+    batch = _batch_of(data, 1)
+    out = torch.empty(data.shape[:-1] + (3, h2, size_x), dtype=torch.uint8,
+                      device=data.device)
+    if out.numel() == 0:
+        return out
+    _, qil = _host_scales(luma)
+    _, qic = _host_scales(chroma)
+    lib = _build.load()
+    with _on_device_of(data):
+        rc = lib.sdct_dec420_rgb(data.data_ptr(), out.data_ptr(),
+                                 qil.ctypes.data, qic.ctypes.data,
+                                 _COLOR_MIX.ctypes.data, batch, h2, size_x,
+                                 _stream(data))
+        LAUNCHES["dec420_rgb"] += 1
+    _build.check(lib, rc, "dec420_rgb")
     return out
 
 

@@ -1,9 +1,9 @@
-"""Plain PyTorch version of the mode32, enc-quant, stereo and YCbCr colour
-kernels (the ``torch`` tier).
+"""Plain PyTorch version of the mode32, enc-quant, stereo and YCbCr 4:4:4
+and 4:2:0 colour kernels (the ``torch`` tier).
 
 Counterpart of ``simd_dct_tpu/kernels/xla_path.py`` (its generic einsum
 branch: blockize, ``dct8x8``, quantize, then the record layout) and of the
-XLA tier of ``simd_dct_tpu/kernels/color32.py``.  It runs
+XLA tiers of ``simd_dct_tpu/kernels/color32.py`` and ``color420.py``.  It runs
 on any device PyTorch runs on.  The CPU tests hold it against the JAX
 package, and ``chip_smoke.py`` holds the CUDA kernels
 (``kernels/cuda_dct.py``) against it on the card.
@@ -27,6 +27,7 @@ from ..core.quantize import (dequant_scales, dequantize_from_u8,
                              quant_scales, quantize_to_u8)
 from ..layout import blocks as L_blocks
 from ..layout import color as L_color
+from ..layout import color420 as L_color420
 from ..layout import reorder as L_reorder
 from ..layout import stereo as L_stereo
 
@@ -194,6 +195,37 @@ def decode_quantize_stereo(data: torch.Tensor, lut, size_x: int, size_y: int,
         _buffers_to_view(coeffs, normalize=True, orientation="fy"))
 
 
+def _ycc_top(planes: torch.Tensor) -> torch.Tensor:
+    """(..., 3, H, W) u8 planar RGB -> (..., 3, H/2, W) f32 YCbCr of the
+    TOP view: the BT.601 mix, bias added, no u8 step."""
+    top = L_stereo.top_view(planes).to(torch.float32)
+    return L_color.mix_planes(top, L_color.RGB2YCC, L_color.YCC_BIAS)
+
+
+def _plane_records(planes: torch.Tensor, scales: torch.Tensor,
+                   rounding: str) -> torch.Tensor:
+    """(..., H, W) f32 planes -> (..., H*W) u8 mode32 records in the raw
+    0..255 domain."""
+    bufs = _dct_buffers(L_blocks.blockize(planes))
+    return L_reorder.group8(quantize_to_u8(bufs, scales, rounding))
+
+
+def _plane_values(records: torch.Tensor, scales: torch.Tensor,
+                  size_x: int) -> torch.Tensor:
+    """Inverse of ``_plane_records`` up to the rounding to u8:
+    (..., H*W) u8 records of W-wide planes -> (..., H, W) f32 values."""
+    bufs = L_reorder.group8_inverse(records, size_x // 8)
+    coeffs = dequantize_from_u8(bufs, scales)
+    return L_blocks.unblockize(idct8x8(L_reorder.buffer_to_coeffs(coeffs)))
+
+
+def _unmix(ycc: torch.Tensor) -> torch.Tensor:
+    """(..., 3, H, W) f32 YCbCr, bias removed -> u8 planar RGB: the inverse
+    mix, round half to even, clip."""
+    rgb = L_color.mix_planes(ycc, L_color.YCC2RGB)
+    return torch.clamp(torch.round(rgb), 0.0, 255.0).to(torch.uint8)
+
+
 def _channel_scales(scales_of, luma, chroma, device) -> torch.Tensor:
     """(3, 1, 1, 64) f32: the luma LUT's scales for Y, the chroma LUT's for
     Cb and Cr, broadcasting over (..., 3, S, BW, 64) buffers."""
@@ -208,13 +240,9 @@ def encode_ycbcr32(planes: torch.Tensor, luma, chroma,
     channel the mode32 encode in the raw 0..255 domain, Y with ``luma``'s
     scales and Cb, Cr with ``chroma``'s.  -> (..., 3, H/2*W) u8 (counterpart
     of ``simd_dct_tpu/kernels/color32.py`` ``encode_ycbcr_xla``)."""
-    top = L_stereo.top_view(planes).to(torch.float32)
-    ycc = L_color.mix_planes(top, L_color.RGB2YCC, L_color.YCC_BIAS)
-    bufs = _dct_buffers(L_blocks.blockize(ycc))      # (..., 3, S, BW, 64)
-    data = quantize_to_u8(
-        bufs, _channel_scales(quant_scales, luma, chroma, planes.device),
-        rounding)
-    return L_reorder.group8(data)
+    return _plane_records(
+        _ycc_top(planes),
+        _channel_scales(quant_scales, luma, chroma, planes.device), rounding)
 
 
 def decode_ycbcr32(data: torch.Tensor, luma, chroma, size_x: int,
@@ -222,13 +250,11 @@ def decode_ycbcr32(data: torch.Tensor, luma, chroma, size_x: int,
     """Inverse of ``encode_ycbcr32``: (..., 3, size_y/2*size_x) records ->
     (..., 3, size_y/2, size_x) u8 planar RGB.  The YCbCr values go from the
     IDCT to the inverse mix in f32, unrounded (``decode_ycbcr_xla``)."""
-    bufs = L_reorder.group8_inverse(data, size_x // 8)
-    coeffs = dequantize_from_u8(
-        bufs, _channel_scales(dequant_scales, luma, chroma, data.device))
-    ycc = L_blocks.unblockize(idct8x8(L_reorder.buffer_to_coeffs(coeffs)))
+    ycc = _plane_values(
+        data, _channel_scales(dequant_scales, luma, chroma, data.device),
+        size_x)
     bias = torch.as_tensor(L_color.YCC_BIAS, device=data.device)
-    rgb = L_color.mix_planes(ycc - bias[:, None, None], L_color.YCC2RGB)
-    return torch.clamp(torch.round(rgb), 0.0, 255.0).to(torch.uint8)
+    return _unmix(ycc - bias[:, None, None])
 
 
 def roundtrip_ycbcr32(planes: torch.Tensor, luma, chroma) -> torch.Tensor:
@@ -237,6 +263,47 @@ def roundtrip_ycbcr32(planes: torch.Tensor, luma, chroma) -> torch.Tensor:
     h, w = planes.shape[-2:]
     return decode_ycbcr32(encode_ycbcr32(planes, luma, chroma), luma, chroma,
                           w, h)
+
+
+def encode_ycbcr420(planes: torch.Tensor, luma, chroma,
+                    rounding: str = "rne") -> torch.Tensor:
+    """Colour 4:2:0 encode of the TOP view of a (..., 3, H, W) planar RGB
+    dual-view image: the BT.601 mix to f32 YCbCr, Cb and Cr pooled over 2x2
+    pixels (``layout.color420.pool2x2``), then the mode32 encode of each
+    plane in the raw 0..255 domain, Y with ``luma``'s scales and the half-
+    resolution Cb, Cr with ``chroma``'s.  -> (..., 1.5*H/2*W) u8 stream
+    [Y | Cb | Cr] (counterpart of ``simd_dct_tpu/kernels/color420.py``
+    ``encode_ycbcr420_xla`` and ``pack_records``)."""
+    h2, w = planes.shape[-2] // 2, planes.shape[-1]
+    ycc = _ycc_top(planes)
+    dev = planes.device
+    y_rec = _plane_records(ycc[..., 0, :, :], quant_scales(luma, dev),
+                           rounding)
+    c_rec = _plane_records(L_color420.pool2x2(ycc[..., 1:, :, :]),
+                           quant_scales(chroma, dev), rounding)
+    return L_color420.pack_records(
+        y_rec.unflatten(-1, (h2 // 8, 8 * w)),
+        c_rec.unflatten(-1, (h2 // 16, 4 * w)))
+
+
+def decode_ycbcr420(data: torch.Tensor, luma, chroma, size_x: int,
+                    size_y: int) -> torch.Tensor:
+    """Inverse of ``encode_ycbcr420``: (..., 1.5*size_y/2*size_x) stream ->
+    (..., 3, size_y/2, size_x) u8 planar RGB.  Each plane goes through the
+    IDCT; Cb and Cr lose their bias and each value covers 2x2 pixels
+    (``replicate2x2``); the inverse mix takes the unrounded f32 values
+    (``decode_ycbcr420_xla``)."""
+    y_rec, c_rec = L_color420.unpack_records(data, size_x, size_y // 2)
+    dev = data.device
+    ylum = _plane_values(y_rec.flatten(-2), dequant_scales(luma, dev),
+                         size_x)
+    half = _plane_values(c_rec.flatten(-2), dequant_scales(chroma, dev),
+                         size_x // 2)
+    bias = torch.as_tensor(L_color.YCC_BIAS, device=dev)
+    ycc = torch.cat([(ylum - bias[0]).unsqueeze(-3),
+                     L_color420.replicate2x2(half - bias[1:, None, None])],
+                    dim=-3)
+    return _unmix(ycc)
 
 
 def probe_trial(x: torch.Tensor) -> torch.Tensor:

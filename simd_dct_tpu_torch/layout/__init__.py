@@ -1,11 +1,13 @@
 """Blocking, the dual-view geometry, the enc-quant scalar / pair-cell
-layouts, the mode32 record layout, the stereo plane layouts and the
-YCbCr colour planes."""
+layouts, the mode32 record layout, the stereo plane layouts, the
+YCbCr colour planes and the 4:2:0 record stream."""
 
 from .blocks import blockize, unblockize
 from .color import (BASE_CHROMA_QUANT_TABLE, RGB2YCC, YCC2RGB, YCC_BIAS,
                     mix_planes, planar_to_rgb, rgb_to_planar, rgb_to_ycbcr,
                     ycbcr_to_rgb)
+from .color420 import (pack_records, pool2x2, record_bytes_420, replicate2x2,
+                       unpack_records)
 from .reorder import (block_contiguous, block_contiguous_inverse,
                       buffer_to_coeffs, coeffs_to_buffer, group8,
                       group8_inverse, pair_as_written, pair_as_written_masked,

@@ -317,6 +317,7 @@ def test_import_pulls_in_no_jax():
             "simd_dct_tpu_torch.kernels.cuda_dct, "
             "simd_dct_tpu_torch.layout.stereo, "
             "simd_dct_tpu_torch.layout.color, "
+            "simd_dct_tpu_torch.layout.color420, "
             "simd_dct_tpu_torch.kernels.torch_path, "
             "simd_dct_tpu_torch.utils.debug, simd_dct_tpu_torch.utils.metrics; "
             "bad = [m for m in sys.modules if m == 'jax' or "

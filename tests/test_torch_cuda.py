@@ -281,3 +281,46 @@ def test_color_api_launches_kernels(gen):
     assert torch.equal(pix, rt)
     assert K.LAUNCHES["enc32_rgb"] == K.LAUNCHES["dec32_rgb"] == 1
     assert K.LAUNCHES["roundtrip32_rgb"] == 1
+
+
+# -- YCbCr 4:2:0 colour ------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(3, 64, 384), (3, 128, 256),
+                                   (3, 3, 1088, 1920)])
+@pytest.mark.parametrize("rounding", ["rne", "scalar", "clamp_first"])
+def test_enc420_rgb_against_plain(gen, shape, rounding):
+    planes = _img(gen, *shape)
+    _ok(K.encode_quantize32_ycbcr420(planes, LUMA, CHROMA, rounding),
+        TP.encode_ycbcr420(planes, LUMA, CHROMA, rounding))
+
+
+@pytest.mark.parametrize("shape", [(3, 64, 384), (2, 3, 1088, 1920)])
+def test_dec420_rgb_against_plain(gen, shape):
+    planes = _img(gen, *shape)
+    h, w = shape[-2:]
+    rec = TP.encode_ycbcr420(planes, LUMA, CHROMA)
+    _ok(K.decode_quantize32_ycbcr420(rec, LUMA, CHROMA, w, h),
+        TP.decode_ycbcr420(rec, LUMA, CHROMA, w, h))
+
+
+@pytest.mark.parametrize("shape", [(3, 64, 384), (2, 3, 1088, 1920)])
+def test_420_y_segment_is_enc32_rgb_luma(gen, shape):
+    planes = _img(gen, *shape)
+    h, w = shape[-2:]
+    stream = K.encode_quantize32_ycbcr420(planes, LUMA, CHROMA)
+    luma = K.encode_quantize32_ycbcr(planes, LUMA, CHROMA)[..., 0, :]
+    assert torch.equal(stream[..., : (h // 2) * w], luma)
+
+
+def test_color420_api_launches_kernels(gen):
+    planes = _img(gen, 2, 3, 256, 384).cpu().numpy()
+    K.reset_launch_counts()
+    rec = sd.encode_quantize32_ycbcr420(planes, LUMA, CHROMA)
+    pix = sd.decode_quantize32_ycbcr420(rec, LUMA, CHROMA, 384, 256)
+    one = sd.decode_quantize32_ycbcr420(rec[:1], LUMA, CHROMA, 384, 256)
+    torch.cuda.synchronize()
+    assert rec.device.type == pix.device.type == "cuda"
+    assert rec.shape == (2, 3 * 128 * 384 // 2)
+    assert pix.shape == (2, 3, 128, 384) and one.shape == (1, 3, 128, 384)
+    assert torch.equal(one[0], pix[0])
+    assert K.LAUNCHES["enc420_rgb"] == 1 and K.LAUNCHES["dec420_rgb"] == 2
