@@ -83,9 +83,34 @@ result line):
   14. the 4:2:0 main path through the public api with numpy inputs and no
       device, counters set to 0 just before: encode and decode of the 4K
       RGB dual view and of a 64-frame (64, 3, 1088, 1920) batch (2 launches
-      of each 4:2:0 kernel).
-Phase 10 runs last, after phase 14.  The line before the last is a JSON object with one entry per kernel (its
-time, its bound and its share of the copy); the last line is
+      of each 4:2:0 kernel);
+  15. the tile kernels against their plain versions (+-1 on at most 0.2%
+      of bytes) on 2048x3840 (the 4K top view), 1024x1920, 128x128 and an
+      8-frame 1024x1920 batch of views, raw + fy (mode32), normalized + fx
+      (enc-quant) and normalized + fy (stereo), every rounding mode; and the
+      identities with the kernels ported earlier, each with its mismatch
+      count: tiles_to_group8 == enc32, tiles_to_block_contiguous == encq
+      scalar, tiles_to_pair == encq pair, tiles_to_planar of both views ==
+      enc_stereo interleaved, and the detile of each converted record ==
+      dec32, decq scalar / pair and the stereo decode;
+  16. the tile main path, the hybrid route (tile kernel, then a converter
+      into the records of one mode, and back), counters set to 0 just
+      before: mode32, enc-quant scalar and pair, and stereo (both views in
+      one launch) on the 4096x3840 dual view, and a 64-frame 1024x1920
+      mode32 batch each way; both tile kernels must have launched and the
+      results lie on the card;
+  17. the compat tier on the card: the three encodes at 4096x3840 (rne)
+      and at 256x384 in every rounding, layout, strip range and view
+      layout, and the three decodes, each byte-identical to the same call
+      on CPU tensors and within +-1 on at most 0.2% of the fast kernels;
+      the wall time and the CUDA kernels (profiler) of each 4K call;
+  18. a batch of 65,536 frames of 16x64 (64 MB, one more than a launch
+      takes) through encode_quantize32 / decode_quantize32,
+      encode_quantize (scalar) and encode_quantize_stereo: each equals its
+      two halves run apart, and the launch counters show 2 launches.
+Phase 10 runs last, after phase 18.  The line before the last is a JSON
+object with one entry per kernel (its time, its bound and its share of the
+copy); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -107,7 +132,7 @@ from simd_dct_tpu_torch import api as sd
 from simd_dct_tpu_torch.core.dct import dct_basis_np
 from simd_dct_tpu_torch.core.quantize import VR, default_quant_lut
 from simd_dct_tpu_torch.dispatch import capability
-from simd_dct_tpu_torch.kernels import _build, cuda_dct, torch_path
+from simd_dct_tpu_torch.kernels import _build, cuda_dct, panel, torch_path
 from simd_dct_tpu_torch.layout import BASE_CHROMA_QUANT_TABLE
 from simd_dct_tpu_torch.layout.reorder import stereo_interleaved_to_views
 from simd_dct_tpu_torch.utils.debug import compare_backends
@@ -118,6 +143,7 @@ ENCQ = "simd_dct_tpu_torch/csrc/encq.cu"
 STEREO = "simd_dct_tpu_torch/csrc/stereo.cu"
 COLOR = "simd_dct_tpu_torch/csrc/color32.cu"
 COLOR420 = "simd_dct_tpu_torch/csrc/color420.cu"
+TILES = "simd_dct_tpu_torch/csrc/tiles.cu"
 PALLAS = "simd_dct_tpu/kernels/pallas_dct.py"
 COLOR32 = "simd_dct_tpu/kernels/color32.py"
 C420 = "simd_dct_tpu/kernels/color420.py"
@@ -136,6 +162,8 @@ KERNELS = {
     "roundtrip32_rgb": (COLOR, f"{COLOR32}:207", "colour"),
     "enc420_rgb": (COLOR420, f"{C420}:135", "colour 4:2:0"),
     "dec420_rgb": (COLOR420, f"{C420}:260", "colour 4:2:0"),
+    "tiles": (TILES, f"{PALLAS}:267", "tiles"),
+    "detile": (TILES, f"{PALLAS}:331", "tiles"),
 }
 # (H, W, frames) of the dual-view images the comparisons run on
 GEOMETRIES = [(4096, 3840, 1), (1088, 1920, 1), (256, 192, 1), (1088, 1920, 8)]
@@ -146,6 +174,9 @@ GEOMETRIES_420 = [(4096, 3840, 1), (1088, 1920, 1), (64, 384, 1),
 # stereo: W = 200 (BW = 25) takes the kernels' byte-wide plane-row path
 STEREO_GEOMETRIES = [(4096, 3840, 1), (1088, 1920, 1), (256, 200, 1),
                      (1088, 1920, 8)]
+# tiles: (H2, W, frames) of the views (H2 % 128 == 0, W % 128 == 0)
+TILE_GEOMETRIES = [(2048, 3840, 1), (1024, 1920, 1), (128, 128, 1),
+                   (1024, 1920, 8)]
 LAYOUTS = ("scalar", "pair", "pair_as_written")
 VIEW_LAYOUTS = ("interleaved", "planar", "native")
 ROUNDINGS = ("rne", "scalar", "clamp_first")
@@ -176,7 +207,8 @@ FMA_PER_PX = {"enc32": PASS_FMA_PER_PX, "dec32": PASS_FMA_PER_PX,
                                       + 2 * MIX_FMA_PER_PX),
               "enc420_rgb": (1.5 * PASS_FMA_PER_PX + 3 * MIX_FMA_PER_PX
                              + 2 * POOL_FMA_PER_PX),
-              "dec420_rgb": 1.5 * PASS_FMA_PER_PX + 3 * MIX_FMA_PER_PX}
+              "dec420_rgb": 1.5 * PASS_FMA_PER_PX + 3 * MIX_FMA_PER_PX,
+              "tiles": PASS_FMA_PER_PX, "detile": PASS_FMA_PER_PX}
 
 
 def log(*args):
@@ -732,6 +764,332 @@ def phase_main_path_color420(gen, luma, chroma):
     return counts
 
 
+# -- the panel engine's tiles -------------------------------------------------
+
+# (name, normalize, orientation, LUT key): the three configurations of the
+# modes, mode32's raw domain and the 1/255 domain of enc-quant and stereo
+TILE_CONFIGS = [("mode32", False, "fy", "raw"), ("enc-quant", True, "fx", "q"),
+                ("stereo", True, "fy", "q")]
+
+
+def tile_scales(lut):
+    """(quant, dequant) scales of a LUT as the tile wrappers take them: host
+    f32 arrays (scales on the card would cost a synchronisation a call)."""
+    from simd_dct_tpu_torch.core.quantize import dequant_scales, quant_scales
+    return quant_scales(lut).numpy(), dequant_scales(lut).numpy()
+
+
+def count_identity(name: str, got, want, mismatches: dict) -> None:
+    """An identity that is expected exact: log its mismatch count and hold
+    it to the +-1 on at most 0.2% contract."""
+    n = int((got != want).sum())
+    mismatches[name] = mismatches.get(name, 0) + n
+    rep = compare_backends({"tiles": got, "kernel": want})["tiles-vs-kernel"]
+    log(f"  identity {name}: mismatches={n} of {got.numel()} "
+        f"max_abs_diff={rep['max_abs_diff']}")
+    require(rep["ok"], f"{name} within +-1 on at most 0.2% of bytes")
+
+
+def phase_compare_tiles(gen, luts, errs):
+    log("phase 15: tile kernels against the plain version on the card, and "
+        "the identities with the mode kernels")
+    mismatches: dict[str, int] = {}
+    for h2, w, frames in TILE_GEOMETRIES:
+        img = random_images(gen, 2 * h2, w, frames)    # dual view
+        top = img[..., :h2, :].contiguous()
+        tag = f"{frames}x{h2}x{w}"
+        for name, normalize, orientation, key in TILE_CONFIGS:
+            q, qi = tile_scales(luts[key])
+            view = img.view(*img.shape[:-2], 2, h2, w) \
+                if name == "stereo" else top
+            for rounding in ROUNDINGS:
+                tiles = cuda_dct.tiles_panels(
+                    view, q, normalize=normalize, rounding=rounding,
+                    orientation=orientation)
+                agree(f"tiles {tag} {name} {rounding}", tiles,
+                      panel.forward_tiles(view, q, normalize=normalize,
+                                          orientation=orientation,
+                                          rounding=rounding), errs, "tiles")
+                if name == "mode32":
+                    rec = cuda_dct.encode_quantize32(img, luts[key],
+                                                     rounding=rounding)
+                    count_identity(f"{tag} {rounding} tiles_to_group8 == "
+                                   "enc32", panel.tiles_to_group8(tiles),
+                                   rec, mismatches)
+                elif name == "enc-quant":
+                    for layout, conv in (
+                            ("scalar", panel.tiles_to_block_contiguous),
+                            ("pair", panel.tiles_to_pair)):
+                        rec = cuda_dct.encode_quantize(
+                            img, luts[key], rounding=rounding, layout=layout)
+                        count_identity(f"{tag} {rounding} {conv.__name__} "
+                                       f"== encq {layout}", conv(tiles), rec,
+                                       mismatches)
+                else:
+                    rec = cuda_dct.encode_quantize_stereo(img, luts[key],
+                                                          rounding=rounding)
+                    count_identity(f"{tag} {rounding} tiles_to_planar == "
+                                   "enc_stereo interleaved",
+                                   panel.tiles_to_planar(tiles), rec,
+                                   mismatches)
+            agree(f"detile {tag} {name} (same tiles)",
+                  cuda_dct.detile_panels(tiles, qi, normalize=normalize,
+                                         orientation=orientation),
+                  panel.inverse_tiles(tiles, qi, normalize=normalize,
+                                      orientation=orientation), errs,
+                  "detile")
+        # the detile of each mode's records, converted, == its decode
+        q32 = luts["raw"]
+        rec = cuda_dct.encode_quantize32(img, q32)
+        _, qi = tile_scales(q32)
+        count_identity(f"{tag} detile(group8_to_tiles) == dec32",
+                       cuda_dct.detile_panels(
+                           panel.group8_to_tiles(rec, h2, w), qi,
+                           normalize=False, orientation="fy"),
+                       cuda_dct.decode_quantize32(rec, q32, w, 2 * h2),
+                       mismatches)
+        _, qi = tile_scales(luts["q"])
+        for layout, back in (("scalar", panel.block_contiguous_to_tiles),
+                             ("pair", panel.pair_to_tiles)):
+            rec = cuda_dct.encode_quantize(img, luts["q"], layout=layout)
+            count_identity(f"{tag} detile({back.__name__}) == decq {layout}",
+                           cuda_dct.detile_panels(
+                               back(rec, h2, w), qi, normalize=True,
+                               orientation="fx"),
+                           cuda_dct.decode_quantize(rec, luts["q"], w, 2 * h2,
+                                                    layout), mismatches)
+        rec = cuda_dct.encode_quantize_stereo(img, luts["q"])
+        views = cuda_dct.detile_panels(panel.planar_to_tiles(rec, h2, w), qi,
+                                       normalize=True, orientation="fy")
+        count_identity(f"{tag} detile(planar_to_tiles) == dec_stereo",
+                       views.reshape(img.shape),
+                       cuda_dct.decode_quantize_stereo(rec, luts["q"], w,
+                                                       2 * h2), mismatches)
+    nonzero = {k: n for k, n in mismatches.items() if n}
+    log(f"  identities: {len(mismatches)}, mismatches in all: "
+        f"{sum(mismatches.values())}; nonzero: {json.dumps(nonzero)}")
+    return mismatches
+
+
+def phase_main_path_tiles(gen, luts):
+    log("phase 16: the tile main path (the hybrid route: tile kernel, then "
+        "a converter into each mode's records, and back)")
+    img = smooth_image(gen, 4096, 3840)
+    top = img[:2048].contiguous()
+    views = img.view(2, 2048, 3840)
+    video = random_images(gen, 1024, 1920, 64)
+    q32, qi32 = tile_scales(luts["raw"])
+    qq, qiq = tile_scales(luts["q"])
+    torch.cuda.synchronize()
+    cuda_dct.reset_launch_counts()
+    t32 = cuda_dct.tiles_panels(top, q32, normalize=False, rounding="rne",
+                                orientation="fy")
+    rec32 = panel.tiles_to_group8(t32)
+    pix32 = cuda_dct.detile_panels(panel.group8_to_tiles(rec32, 2048, 3840),
+                                   qi32, normalize=False, orientation="fy")
+    tq = cuda_dct.tiles_panels(top, qq, normalize=True, rounding="rne",
+                               orientation="fx")
+    recq = {"scalar": panel.tiles_to_block_contiguous(tq),
+            "pair": panel.tiles_to_pair(tq)}
+    pixq = {"scalar": cuda_dct.detile_panels(
+                panel.block_contiguous_to_tiles(recq["scalar"], 2048, 3840),
+                qiq, normalize=True, orientation="fx"),
+            "pair": cuda_dct.detile_panels(
+                panel.pair_to_tiles(recq["pair"], 2048, 3840), qiq,
+                normalize=True, orientation="fx")}
+    ts = cuda_dct.tiles_panels(views, qq, normalize=True, rounding="rne",
+                               orientation="fy")
+    rec_st = panel.tiles_to_planar(ts)
+    pix_st = cuda_dct.detile_panels(panel.planar_to_tiles(rec_st, 2048, 3840),
+                                    qiq, normalize=True, orientation="fy")
+    tv = cuda_dct.tiles_panels(video, q32, normalize=False, rounding="rne",
+                               orientation="fy")
+    vid_rec = panel.tiles_to_group8(tv)
+    vid = cuda_dct.detile_panels(panel.group8_to_tiles(vid_rec, 1024, 1920),
+                                 qi32, normalize=False, orientation="fy")
+    torch.cuda.synchronize()
+    counts = dict(cuda_dct.LAUNCHES)
+    log(f"  launches: {counts}")
+    require(counts["tiles"] == 4 and counts["detile"] == 5,
+            "4 tile and 5 detile launches, the 64-frame batch one each way")
+    outs = [t32, rec32, pix32, tq, *recq.values(), *pixq.values(), ts,
+            rec_st, pix_st, tv, vid_rec, vid]
+    require(all(t.device.type == DEV for t in outs), "results on the card")
+    require(rec32.shape == (2048 * 3840,) and rec_st.shape == (4096 * 3840,)
+            and vid_rec.shape == (64, 1024 * 1920), "record shapes")
+    require(pix32.shape == (2048, 3840) and pix_st.shape == (2, 2048, 3840)
+            and vid.shape == (64, 1024, 1920), "image shapes")
+    # the hybrid route's records are the mode kernels' (checked after the
+    # counts were read: these launches are not the tile path's)
+    require(torch.equal(rec32, cuda_dct.encode_quantize32(img, luts["raw"]))
+            and torch.equal(recq["scalar"],
+                            cuda_dct.encode_quantize(img, luts["q"]))
+            and torch.equal(recq["pair"], cuda_dct.encode_quantize(
+                img, luts["q"], layout="pair"))
+            and torch.equal(rec_st, cuda_dct.encode_quantize_stereo(
+                img, luts["q"])), "hybrid records == the mode kernels'")
+    p32 = psnr(img[:2048].cpu().numpy(), pix32.cpu().numpy())
+    pst = psnr(img.cpu().numpy(), pix_st.reshape(4096, 3840).cpu().numpy())
+    log(f"  hybrid 4K round-trip PSNR: mode32 {p32:.4f} dB, stereo "
+        f"{pst:.4f} dB; video batch {tuple(vid.shape)}")
+    require(15.0 < min(p32, pst) and max(p32, pst) < 99.0,
+            "hybrid PSNR is plausible")
+    return counts
+
+
+# -- the compat tier on the card ---------------------------------------------
+
+def cuda_kernels_of(fn) -> int | None:
+    """CUDA activities (kernels and copies) torch.profiler records during
+    one call; None when it records none."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n or None
+
+
+def compat_equal(name: str, call, args, kw, fast=None) -> torch.Tensor:
+    """call(*args, compat=True) on the card == the same call on CPU
+    tensors, byte for byte; and within +-1 on at most 0.2% of ``fast``."""
+    got = call(*args, compat=True, **kw)
+    cpu_args = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+    want = call(*cpu_args, compat=True, **kw)
+    require(got.device.type == DEV, f"compat {name} runs on the card")
+    n = int((got.cpu() != want).sum())
+    msg = f"  compat {name}: card vs cpu mismatches={n}"
+    require(n == 0, f"compat {name}: the card's bytes == the CPU's")
+    if fast is not None:
+        rep = compare_backends({"compat": got, "fast": fast})["compat-vs-fast"]
+        msg += (f"; against the fast kernel max_abs_diff="
+                f"{rep['max_abs_diff']} mismatch_rate="
+                f"{rep['mismatch_rate']:.3e}")
+        require(rep["ok"], f"compat {name} within +-1 of the fast kernel")
+    log(msg)
+    return got
+
+
+def phase_compat(gen, lut, lut_q):
+    log("phase 17: the compat tier on the card (strict IEEE, eager ops)")
+    img = random_images(gen, 4096, 3840, 1)
+    stats = {}
+    encodes = {
+        "encode_quantize32": (sd.encode_quantize32, lut),
+        "encode_quantize": (sd.encode_quantize, lut_q),
+        "encode_quantize_stereo": (sd.encode_quantize_stereo, lut_q)}
+    decodes = {"encode_quantize32": sd.decode_quantize32,
+               "encode_quantize": sd.decode_quantize,
+               "encode_quantize_stereo": sd.decode_quantize_stereo}
+    for name, (enc, l) in encodes.items():
+        rec = compat_equal(f"{name} 4096x3840", enc, (img, l), {},
+                           fast=enc(img, l))
+        dec = decodes[name]
+        compat_equal(f"{dec.__name__} 4096x3840", dec, (rec, l, 3840, 4096),
+                     {}, fast=dec(rec, l, 3840, 4096))
+        for label, fn in ((name, lambda: enc(img, l, compat=True)),
+                          (dec.__name__,
+                           lambda: dec(rec, l, 3840, 4096, compat=True))):
+            fn()
+            torch.cuda.synchronize()
+            walls = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            n = cuda_kernels_of(fn)
+            wall = statistics.median(walls)
+            stats[label] = {"wall_ms": wall, "cuda_kernels": n}
+            log(f"  compat {label} 4096x3840: wall {wall:.3f} ms (median of "
+                f"5), {n} CUDA kernels (profiler)")
+    small = random_images(gen, 256, 384, 2)
+    for rounding in ROUNDINGS:
+        for layout in LAYOUTS:
+            for sy, ey, legacy in [(0, None, False), (16, 100, False),
+                                   (0, 60, True)]:
+                kw = dict(rounding=rounding, layout=layout,
+                          legacy_range=legacy)
+                compat_equal(f"encode_quantize 2x256x384 {rounding} {layout} "
+                             f"[{sy}, {ey}] legacy={legacy}",
+                             sd.encode_quantize, (small, lut_q, sy, ey), kw,
+                             fast=sd.encode_quantize(small, lut_q, sy, ey,
+                                                     **kw))
+        for sy, ey in [(0, None), (16, 100)]:
+            kw = dict(rounding=rounding)
+            compat_equal(f"encode_quantize32 2x256x384 {rounding} "
+                         f"[{sy}, {ey}]", sd.encode_quantize32,
+                         (small, lut, sy, ey), kw,
+                         fast=sd.encode_quantize32(small, lut, sy, ey, **kw))
+            for vl in VIEW_LAYOUTS:
+                kw = dict(rounding=rounding, view_layout=vl)
+                compat_equal(f"encode_quantize_stereo 2x256x384 {rounding} "
+                             f"{vl} [{sy}, {ey}]", sd.encode_quantize_stereo,
+                             (small, lut_q, sy, ey), kw,
+                             fast=sd.encode_quantize_stereo(small, lut_q, sy,
+                                                            ey, **kw))
+    for layout in ("scalar", "pair"):
+        rec = sd.encode_quantize(small, lut_q, layout=layout)
+        compat_equal(f"decode_quantize 2x256x384 {layout}",
+                     sd.decode_quantize, (rec, lut_q, 384, 256),
+                     dict(layout=layout),
+                     fast=sd.decode_quantize(rec, lut_q, 384, 256,
+                                             layout=layout))
+    rec = sd.encode_quantize32(small, lut)
+    compat_equal("decode_quantize32 2x256x384", sd.decode_quantize32,
+                 (rec, lut, 384, 256), {},
+                 fast=sd.decode_quantize32(rec, lut, 384, 256))
+    for vl in VIEW_LAYOUTS:
+        rec = sd.encode_quantize_stereo(small, lut_q, view_layout=vl)
+        compat_equal(f"decode_quantize_stereo 2x256x384 {vl}",
+                     sd.decode_quantize_stereo, (rec, lut_q, 384, 256),
+                     dict(view_layout=vl),
+                     fast=sd.decode_quantize_stereo(rec, lut_q, 384, 256,
+                                                    view_layout=vl))
+    return stats
+
+
+# -- a batch longer than one launch takes -------------------------------------
+
+def phase_large_batch(gen, lut, lut_q):
+    log("phase 18: 65,536 frames of 16x64 (one more than a launch takes)")
+    frames = 65536
+    img = random_images(gen, 16, 64, frames)
+    half = frames // 2
+    calls = {
+        "enc32": lambda x: sd.encode_quantize32(x, lut),
+        "encq": lambda x: sd.encode_quantize(x, lut_q),
+        "enc_stereo": lambda x: sd.encode_quantize_stereo(x, lut_q),
+    }
+    recs = {}
+    for name, call in calls.items():
+        torch.cuda.synchronize()
+        cuda_dct.reset_launch_counts()
+        whole = call(img)
+        torch.cuda.synchronize()
+        n = cuda_dct.LAUNCHES[name]
+        parts = torch.cat([call(img[:half]), call(img[half:])])
+        require(n == 2, f"{name}: 65,536 frames take 2 launches, got {n}")
+        require(torch.equal(whole, parts), f"{name}: the batch == its halves")
+        log(f"  {name}: {tuple(whole.shape)} in {n} launches, equal to the "
+            "two halves run apart")
+        recs[name] = whole
+    rec = recs["enc32"]
+    torch.cuda.synchronize()
+    cuda_dct.reset_launch_counts()
+    whole = sd.decode_quantize32(rec, lut, 64, 16)
+    torch.cuda.synchronize()
+    n = cuda_dct.LAUNCHES["dec32"]
+    parts = torch.cat([sd.decode_quantize32(rec[:half], lut, 64, 16),
+                       sd.decode_quantize32(rec[half:], lut, 64, 16)])
+    require(n == 2 and torch.equal(whole, parts),
+            "dec32: 65,536 frames in 2 launches == the two halves")
+    log(f"  dec32: {tuple(whole.shape)} in {n} launches, equal to the two "
+        "halves run apart")
+
+
 def copy_pair(p):
     """Device-to-device copy of p[0] into p[1]: the same-run speed limit."""
     return p[1].copy_(p[0])
@@ -857,10 +1215,22 @@ def phase_timing(gen, lut, lut_q, chroma, reps):
         rgbs = [random_rgb(gen, h, w, frames) for _ in range(n_rot // 2)]
         recs_c = [torch_path.encode_ycbcr32(x, lut, chroma) for x in rgbs]
         recs_420 = [torch_path.encode_ycbcr420(x, lut, chroma) for x in rgbs]
+        # tiles: the top 2048x3840 view of each 4K image; the batch case
+        # takes 8 views of 1024x1920 (544 rows are no whole tiles)
+        tviews = ([x[: h // 2].contiguous() for x in imgs] if frames == 1
+                  else [random_images(gen, 1024, w, frames)
+                        for _ in range(n_rot)])
+        tq, tqi = tile_scales(lut)
+        tiles = [panel.forward_tiles(v, tq, normalize=False,
+                                     orientation="fy", rounding="rne")
+                 for v in tviews]
         # one view's bytes (mode32, enc-quant), the whole dual view's
         # (stereo encodes both) and the three channels' top view (colour)
         copies = {}
-        for key, srcs in (("view", recs), ("dual", imgs), ("colour", recs_c)):
+        srcs_of = [("view", recs), ("dual", imgs), ("colour", recs_c)]
+        if frames > 1:
+            srcs_of.append(("tile", tviews))
+        for key, srcs in srcs_of:
             pairs = [(r, torch.empty_like(r)) for r in srcs]
             c_us = queued_ms(copy_pair, pairs, reps, cycles_per_ms) * 1e3
             c_prof, _ = profiled_us(copy_pair, pairs)
@@ -876,6 +1246,10 @@ def phase_timing(gen, lut, lut_q, chroma, reps):
         colour = (6 * view_px, view_px, copies["colour"])
         # 4:2:0: 3 bytes in and 1.5 out per pixel position
         c420 = (9 * view_px // 2, view_px, copies["colour"])
+        tile_px = tviews[0].numel()
+        tile_label = ("2048x3840 top view" if frames == 1
+                      else f"{frames}x1024x{w} views")
+        tile = (2 * tile_px, tile_px, copies.get("tile", copies["view"]))
         jobs = {
             "enc32": (lambda x: cuda_dct.encode_quantize32(x, lut),
                       lambda x: torch_path.encode_quantize32(x, lut), imgs,
@@ -958,6 +1332,20 @@ def phase_timing(gen, lut, lut_q, chroma, reps):
                                                               w, h),
                 lambda r: torch_path.decode_ycbcr420(r, lut, chroma, w, h),
                 recs_420, *c420),
+            "tiles": (
+                lambda v: cuda_dct.tiles_panels(v, tq, normalize=False,
+                                                rounding="rne",
+                                                orientation="fy"),
+                lambda v: panel.forward_tiles(v, tq, normalize=False,
+                                              orientation="fy",
+                                              rounding="rne"), tviews,
+                *tile),
+            "detile": (
+                lambda t: cuda_dct.detile_panels(t, tqi, normalize=False,
+                                                 orientation="fy"),
+                lambda t: panel.inverse_tiles(t, tqi, normalize=False,
+                                              orientation="fy"), tiles,
+                *tile),
         }
         for name, (kern, plain, inputs, n_bytes, n_px, c_us) in jobs.items():
             k_us = queued_ms(kern, inputs, reps, cycles_per_ms) * 1e3
@@ -970,7 +1358,8 @@ def phase_timing(gen, lut, lut_q, chroma, reps):
             kernel = max((k for k in KERNELS if name.startswith(k)), key=len)
             bound, _ = bound_ms(kernel, n_bytes, n_px)
             table.append({
-                "kernel": name, "shape": label, "kernel_us": k_us,
+                "kernel": name, "kernel_us": k_us,
+                "shape": tile_label if name in ("tiles", "detile") else label,
                 "kernel_profiler_us": k_prof, "kernel_wall_us": k_wall,
                 "plain_us": p_us, "plain_estimator":
                     "profiler" if p_prof is not None else "wall",
@@ -978,12 +1367,12 @@ def phase_timing(gen, lut, lut_q, chroma, reps):
                 "bytes": n_bytes, "bound_us": bound * 1e3,
                 "kernel_gbps": n_bytes / (k_us * 1e3),
                 "frac_of_copy": c_us / k_us, "frac_of_bound": bound * 1e3 / k_us,
-                "kernel_us_per_frame": k_us / frames,
+                "kernel_us_per_frame": k_us / frames, "frames": frames,
                 "kernel_names": k_names, "plain_kernels": len(p_names)})
             if frames == 1:
                 rows[name] = (k_us / 1e3, p_us / 1e3, c_us / 1e3, n_bytes,
                               n_px)
-            log(f"  {name:17s} {label:18s} kernel {k_us:8.3f} us "
+            log(f"  {name:17s} {table[-1]['shape']:18s} kernel {k_us:8.3f} us "
                 f"(profiler {k_prof if k_prof is None else round(k_prof, 3)}"
                 f", wall {k_wall:7.2f})  plain {p_us:9.2f} us "
                 f"(wall {p_wall:8.2f})  copy {c_us:6.3f} us  "
@@ -1049,8 +1438,8 @@ def log_ptxas(lines) -> None:
             k = re.search(r"(enc420_rgb|dec420_rgb|enc32_rgb|dec32_rgb"
                           r"|roundtrip32_rgb|enc32|dec32"
                           r"|roundtrip32|probe|encq|decq|enc_stereo"
-                          r"|dec_stereo)_kernel"
-                          r"(?:I((?:Li\d+E)+)E)?", m.group(1))
+                          r"|dec_stereo|tiles|detile)_kernel"
+                          r"(?:I((?:L[ib]\d+E)+)E)?", m.group(1))
             name = f"{k.group(1)}_kernel" if k else m.group(1)
             if k and k.group(2):
                 name += "<" + ",".join(re.findall(r"\d+", k.group(2))) + ">"
@@ -1106,12 +1495,25 @@ def main(argv=None) -> int:
     counts_c = phase_main_path_color(gen, lut100, chroma100)
     phase_compare_color420(gen, lut100, chroma100, errs)
     counts_420 = phase_main_path_color420(gen, lut100, chroma100)
+    luts = {"raw": lut100, "q": lut_q}
+    identities = phase_compare_tiles(gen, luts, errs)
+    counts_t = phase_main_path_tiles(gen, luts)
+    compat_stats = phase_compat(gen, lut100, lut_q)
+    phase_large_batch(gen, lut100, lut_q)
     times = phase_timing(gen, lut100, lut_q, chroma100, REPS)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     launches = {"mode32": counts, "enc-quant": counts_q, "stereo": counts_s,
-                "colour": counts_c, "colour 4:2:0": counts_420}
-    log(json.dumps({"kernels": kernel_rows(launches, errs, times)}))
+                "colour": counts_c, "colour 4:2:0": counts_420,
+                "tiles": counts_t}
+    log("compat " + json.dumps(compat_stats))
+    rows = kernel_rows(launches, errs, times)
+    for row in rows:
+        if row["name"] in ("tiles", "detile"):
+            row["identity_mismatches"] = sum(
+                n for k, n in identities.items()
+                if ("detile(" in k) == (row["name"] == "detile"))
+    log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

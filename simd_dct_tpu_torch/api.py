@@ -15,7 +15,13 @@ to ``cuda``; on a machine without a card that raises
 ``NotSupportedError`` -- pass ``device="cpu"`` to run the plain version on
 the host.  The result lies on the input's device.  A ``(B, H, W)`` batch
 (``(B, 3, H, W)`` for colour) is one batch dimension all the way down: one
-kernel launch covers every frame.
+kernel launch covers up to 65,535 frames.
+
+``compat=True`` (enc-quant, mode32 and stereo, encode and decode) selects
+the strict-IEEE tier (``kernels/compat.py``): byte-identical to the C++
+oracle (``native/golden_dct.cpp``), on the input's device, as eager
+PyTorch ops; a conformance tier, not a fast path.  Without it, each tier
+agrees with the oracle within +-1 on rounding-boundary bytes.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch
 
 from .core.quantize import ROUNDING_MODES, lut_array
 from .dispatch.capability import default_device, select_backend
+from .kernels import compat as _compat
 from .kernels import cuda_dct as _cuda
 from .kernels import torch_path as _tp
 from .layout.color420 import record_bytes_420
@@ -54,10 +61,6 @@ class NotSupportedError(SimdDctError):
 
 
 _END_Y_SENTINEL = 1 << 30
-
-_COMPAT_TODO = ("compat=True (the strict-IEEE butterfly engine of "
-                "simd_dct_tpu/kernels/compat.py) is not ported yet: "
-                "ROADMAP.md, Queue 1 item 15")
 
 
 def _as_tensor(x: Any, device, name: str) -> torch.Tensor:
@@ -130,11 +133,6 @@ def _check_rounding(rounding: str):
             f"rounding must be one of {ROUNDING_MODES}, got {rounding!r}")
 
 
-def _reject_compat(compat: bool):
-    if compat:
-        raise NotSupportedError(_COMPAT_TODO)
-
-
 def _resolve_end_y(end_y):
     """None -> open-ended (the reference compares the raw caller value
     against y*2 each strip, src/simd_dct.cpp:268)."""
@@ -201,9 +199,10 @@ def encode_quantize(image, lut, start_y: int = 0, end_y: int | None = None,
         raise NotSupportedError(
             f"layout {layout!r} requires W % 16 == 0, got W={w}")
     tier = select_backend(backend, device=img.device)
-    _reject_compat(compat)
     args = (int(start_y), _resolve_end_y(end_y), rounding, layout,
             bool(legacy_range))
+    if compat:
+        return _compat.encode_quantize(img, lut_arr, *args)
     if tier == "cuda":
         return _cuda.encode_quantize(_kernel_ready(img), lut_arr, *args)
     return _tp.encode_quantize(img, lut_arr, *args)
@@ -226,7 +225,8 @@ def decode_quantize(data, lut, size_x: int, size_y: int, *,
     d, lut_arr = _validate_decode(data, lut, size_x, size_y,
                                   (size_y // 2) * size_x, device)
     tier = select_backend(backend, device=d.device)
-    _reject_compat(compat)
+    if compat:
+        return _compat.decode_quantize(d, lut_arr, size_x, size_y, layout)
     if tier == "cuda":
         return _cuda.decode_quantize(_kernel_ready(d), lut_arr, size_x,
                                      size_y, layout)
@@ -252,8 +252,10 @@ def encode_quantize32(image, lut, start_y: int = 0, end_y: int | None = None,
     if spill and h % 16:
         img = _spill_view_image(img, w)
     tier = select_backend(backend, device=img.device)
-    _reject_compat(compat)
     ey = _resolve_end_y(end_y)
+    if compat:
+        return _compat.encode_quantize32(img, lut_arr, int(start_y), ey,
+                                         rounding)
     if tier == "cuda":
         return _cuda.encode_quantize32(_kernel_ready(img), lut_arr,
                                        int(start_y), ey, rounding)
@@ -305,7 +307,8 @@ def decode_quantize32(data, lut, size_x: int, size_y: int, *,
     d, lut_arr = _validate_decode(data, lut, size_x, size_y,
                                   (size_y // 2) * size_x, device)
     tier = select_backend(backend, device=d.device)
-    _reject_compat(compat)
+    if compat:
+        return _compat.decode_quantize32(d, lut_arr, size_x, size_y)
     if tier == "cuda":
         return _cuda.decode_quantize32(_kernel_ready(d), lut_arr, size_x,
                                        size_y)
@@ -361,8 +364,9 @@ def encode_quantize_stereo(image, lut, start_y: int = 0,
         img = _spill_stereo_image(img, w)
     _check_rounding(rounding)
     tier = select_backend(backend, device=img.device)
-    _reject_compat(compat)
     args = (int(start_y), _resolve_end_y(end_y), rounding, view_layout)
+    if compat:
+        return _compat.encode_quantize_stereo(img, lut_arr, *args)
     if tier == "cuda":
         return _cuda.encode_quantize_stereo(_kernel_ready(img), lut_arr,
                                             *args)
@@ -400,7 +404,9 @@ def decode_quantize_stereo(data, lut, size_x: int, size_y: int, *,
         d, lut_arr = _validate_stereo_planes(data, lut, size_x, size_y,
                                              view_layout, device)
     tier = select_backend(backend, device=d.device)
-    _reject_compat(compat)
+    if compat:
+        return _compat.decode_quantize_stereo(d, lut_arr, size_x, size_y,
+                                              view_layout)
     if tier == "cuda":
         return _cuda.decode_quantize_stereo(_kernel_ready(d), lut_arr, size_x,
                                             size_y, view_layout)

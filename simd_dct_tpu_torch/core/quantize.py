@@ -4,8 +4,9 @@ Counterpart of ``simd_dct_tpu/core/quantize.py``: ``q = 255 / (lut * 0.95)``,
 +127 bias, clamp to u8, in the three rounding variants ``rne`` (SSE/AVX,
 round half to even), ``scalar`` (NoSimd, round half away in the /255
 domain) and ``clamp_first`` (SSE2/SSSE3 stereo: float clamp, then RNE).
-Every scale is computed in f32 in the JAX package's operation order, so
-the tensors are bit-identical to its ``quant_scales`` / ``dequant_scales``.
+Every scale is computed on the host in f32, in the JAX package's operation
+order, so the tensors are bit-identical to its ``quant_scales`` /
+``dequant_scales`` on any device.
 """
 
 from __future__ import annotations
@@ -15,6 +16,9 @@ import torch
 
 VR = np.float32(0.95)        # headroom factor (src/simd_dct.cpp:191,905,1871)
 BIAS = np.float32(127.0)     # +127 coefficient bias (src/simd_dct.cpp:906,1880)
+# f32(1/255), the pixel scale of the 1/255 domain (enc-quant and stereo;
+# core/golden.py:184, kernels/xla_path.py:43)
+INV_255 = np.float32(1.0 / 255.0)
 
 ROUNDING_MODES = ("rne", "scalar", "clamp_first")
 
@@ -61,15 +65,19 @@ def _lut_tensor(lut, device) -> torch.Tensor:
 
 
 def quant_scales(lut, device: torch.device | str = "cpu") -> torch.Tensor:
-    """``q[p] = 255 / (lut[p] * 0.95)`` in f32."""
-    lut = _lut_tensor(lut, device)
-    return torch.tensor(255.0, dtype=torch.float32) / (lut * float(VR))
+    """``q[p] = 255 / (lut[p] * 0.95)`` in f32, computed on the host and
+    placed on ``device``."""
+    lut = _lut_tensor(lut, "cpu")
+    q = torch.tensor(255.0, dtype=torch.float32) / (lut * float(VR))
+    return q.to(device)
 
 
 def dequant_scales(lut, device: torch.device | str = "cpu") -> torch.Tensor:
-    """Decode multiplier ``(lut * 0.95) / 255`` in f32."""
-    lut = _lut_tensor(lut, device)
-    return (lut * float(VR)) / 255.0
+    """Decode multiplier ``(lut * 0.95) / 255`` in f32, computed on the host
+    and placed on ``device``: on the card PyTorch divides by a scalar as a
+    multiply by its reciprocal, whose last bit can differ."""
+    lut = _lut_tensor(lut, "cpu")
+    return ((lut * float(VR)) / 255.0).to(device)
 
 
 def quantize_to_u8(coeffs: torch.Tensor, scales: torch.Tensor,
@@ -82,7 +90,12 @@ def quantize_to_u8(coeffs: torch.Tensor, scales: torch.Tensor,
     ``clip(rint(x) + 127, 0, 255)`` for every finite input (rounding is
     monotone and the bounds are integers) and keeps the int32 cast in
     range for any scale."""
-    x = coeffs * scales
+    return round_to_u8(coeffs * scales, rounding)
+
+
+def round_to_u8(x: torch.Tensor, rounding: str = "rne") -> torch.Tensor:
+    """Scaled f32 coefficients -> biased u8, the second half of
+    ``quantize_to_u8`` (the panel engine scales its tiles itself)."""
     if rounding == "rne":
         v = torch.round(x).clamp(-127.0, 128.0).to(torch.int32) + 127
         return v.to(torch.uint8)

@@ -4,9 +4,12 @@ One ``nvcc`` per ``csrc/*.cu``, all started together, compiles each source
 to an object; one more links them into a shared library with a plain C
 interface, which ``ctypes`` loads (a few seconds; no PyTorch headers).
 The library goes to ``simd_dct_tpu_torch/_build/<hash>/``, keyed by a hash
-of the sources and flags, at first use.  It is compiled to a temporary
-path and renamed into place, so a concurrent build never sees a partial
-file.  A missing ``nvcc`` or a failed build raises ``RuntimeError``.
+of the sources and flags, at first use; where the package directory cannot
+be written (an installed package), to ``simd_dct_tpu_torch/<hash>/`` under
+the user's cache directory (``$XDG_CACHE_HOME``, else ``~/.cache``).  It is
+compiled to a temporary path and renamed into place, so a concurrent build
+never sees a partial file.  A missing ``nvcc`` or a failed build raises
+``RuntimeError``.
 """
 
 from __future__ import annotations
@@ -58,6 +61,27 @@ def find_nvcc() -> str:
         "$CUDA_HOME/bin, PATH and " + DEFAULT_CUDA_HOME + "/bin)")
 
 
+def _writable(path: str) -> bool:
+    """Whether ``path``, or the nearest directory above it that exists, can
+    be written."""
+    while not os.path.exists(path):
+        parent = os.path.dirname(path)
+        if parent == path:
+            return False
+        path = parent
+    return os.access(path, os.W_OK | os.X_OK)
+
+
+def build_root() -> str:
+    """``BUILD_ROOT`` inside the package where it can be written, else the
+    user's cache directory."""
+    if _writable(BUILD_ROOT):
+        return BUILD_ROOT
+    cache = (os.environ.get("XDG_CACHE_HOME")
+             or os.path.join(os.path.expanduser("~"), ".cache"))
+    return os.path.join(cache, "simd_dct_tpu_torch")
+
+
 def _digest(srcs: list[str]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in srcs:
@@ -73,7 +97,7 @@ def build() -> str:
     srcs = sources()
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {CSRC}")
-    out_dir = os.path.join(BUILD_ROOT, _digest(srcs))
+    out_dir = os.path.join(build_root(), _digest(srcs))
     lib = os.path.join(out_dir, LIB_NAME)
     if os.path.exists(lib):
         return lib
@@ -136,6 +160,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sdct_enc420_rgb.restype = i
     lib.sdct_dec420_rgb.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.sdct_dec420_rgb.restype = i
+    lib.sdct_tiles.argtypes = [p, p, p, i, i, i, i, i, i, p]
+    lib.sdct_tiles.restype = i
+    lib.sdct_detile.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.sdct_detile.restype = i
     lib.sdct_probe.argtypes = [p, p, i, p]
     lib.sdct_probe.restype = i
     lib.sdct_error_string.argtypes = [i]

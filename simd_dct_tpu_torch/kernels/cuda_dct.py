@@ -1,6 +1,7 @@
 """Wrappers around the hand-written CUDA kernels: mode32 (``csrc/dct32.cu``),
 enc-quant (``csrc/encq.cu``), stereo (``csrc/stereo.cu``), YCbCr 4:4:4
-colour (``csrc/color32.cu``) and YCbCr 4:2:0 colour (``csrc/color420.cu``).
+colour (``csrc/color32.cu``), YCbCr 4:2:0 colour (``csrc/color420.cu``) and
+the panel engine's tiles (``csrc/tiles.cu``).
 
 Counterpart of ``simd_dct_tpu/kernels/pallas_dct.py`` (``encode_quantize32``
 / ``decode_quantize32`` / ``roundtrip_quantize32``, ``encode_quantize`` /
@@ -8,18 +9,22 @@ Counterpart of ``simd_dct_tpu/kernels/pallas_dct.py`` (``encode_quantize32``
 of ``simd_dct_tpu/kernels/color32.py`` (``encode_quantize32_ycbcr`` /
 ``decode_quantize32_ycbcr`` / ``roundtrip_quantize32_ycbcr``), of
 ``simd_dct_tpu/kernels/color420.py`` (``enc420_rgb`` / ``dec420_rgb`` with
-``pack_records`` / ``unpack_records``) and of the trial kernel of
-``dispatch/capability.py``.
+``pack_records`` / ``unpack_records``), of ``_tiles_panels`` /
+``_detile_panels`` of ``pallas_dct.py`` (``tiles_panels`` /
+``detile_panels``) and of the trial kernel of ``dispatch/capability.py``.
 
 Device rule: a CPU tensor goes to the plain PyTorch version
-(``kernels/torch_path.py``); a CUDA tensor launches the kernel, on
+(``kernels/torch_path.py``, for the tiles ``kernels/panel.py``); a CUDA
+tensor launches the kernel, on
 PyTorch's current stream, or raises.  There is no fallback from a failed
 build or launch to the plain version.  Each wrapper checks device, dtype
 (u8), shape and contiguity first, whatever the device, allocates its output
 with ``torch.empty`` and raises if the launch returns a CUDA error.
 
 ``LAUNCHES`` counts the launches of each kernel; a wrapper adds one where
-it launches, and nowhere else.
+it launches, and nowhere else.  A batch lies on one grid axis, which holds
+at most 65,535 frames, so a longer batch goes out in launches of at most
+that many frames (``batch_slices``), each counted.
 """
 
 from __future__ import annotations
@@ -34,20 +39,23 @@ from ..core.quantize import (ROUNDING_MODES, dequant_scales, lut_array,
                              quant_scales)
 from ..layout import color as L_color
 from ..layout.color420 import record_bytes_420
+from ..layout import reorder as L_reorder
 from ..layout import stereo as L_stereo
 from . import _build
+from . import panel as _panel
 from . import torch_path as _tp
 
 LAUNCHES = {"enc32": 0, "dec32": 0, "roundtrip32": 0, "probe": 0,
             "encq": 0, "decq": 0, "enc_stereo": 0, "dec_stereo": 0,
             "enc32_rgb": 0, "dec32_rgb": 0, "roundtrip32_rgb": 0,
-            "enc420_rgb": 0, "dec420_rgb": 0}
+            "enc420_rgb": 0, "dec420_rgb": 0, "tiles": 0, "detile": 0}
 
 _ROUNDING_CODE = {"rne": 0, "scalar": 1, "clamp_first": 2}
 _LAYOUT_CODE = {"scalar": 0, "pair": 1, "pair_as_written": 2}
 _VIEW_LAYOUT_CODE = {"interleaved": 0, "planar": 1, "native": 2}
+_ORIENTATION_CODE = {"fy": 0, "fx": 1}
 _I32_MIN, _I32_MAX = -(1 << 31), (1 << 31) - 1
-_MAX_BATCH = 65535   # grid.y (grid.z for stereo) of one launch
+_MAX_BATCH = 65535   # frames a launch takes (its grid.y; stereo, tiles: z)
 _MODE32 = ("enc_quant32", "dec_quant32", "roundtrip32", "enc_quant32_ycbcr",
            "dec_quant32_ycbcr", "roundtrip32_ycbcr")
 # 4:2:0: the half-resolution chroma planes keep mode32's own geometry
@@ -133,10 +141,32 @@ def _host_scales(lut) -> tuple[np.ndarray, np.ndarray]:
 
 
 def _batch_of(t: torch.Tensor, base_ndim: int) -> int:
-    b = t.shape[0] if t.ndim > base_ndim else 1
-    if b > _MAX_BATCH:
-        raise ValueError(f"at most {_MAX_BATCH} frames per launch, got {b}")
-    return b
+    return t.shape[0] if t.ndim > base_ndim else 1
+
+
+def batch_slices(batch: int) -> list[tuple[int, int]]:
+    """(first frame, frames) of each launch of a ``batch``-frame call, in
+    order: at most ``_MAX_BATCH`` frames each, every frame in exactly one."""
+    return [(lo, min(_MAX_BATCH, batch - lo))
+            for lo in range(0, batch, _MAX_BATCH)]
+
+
+def _launch(name: str, tensors: tuple[torch.Tensor, ...], batch: int,
+            launch) -> None:
+    """Launch kernel ``name`` once per slice of ``batch_slices(batch)``:
+    ``launch(lib, src, dst, frames)`` gets the pointers of ``tensors``
+    (input, output; each ``batch`` contiguous frames) advanced to the
+    slice's first frame.  Each launch adds one to ``LAUNCHES[name]``, so a
+    batch of more than ``_MAX_BATCH`` frames counts more than one; a launch
+    that returns a CUDA error raises."""
+    lib = _build.load()
+    frame_bytes = [t.numel() // batch for t in tensors]
+    with _on_device_of(tensors[0]):
+        for lo, n in batch_slices(batch):
+            rc = launch(lib, *(t.data_ptr() + lo * f
+                               for t, f in zip(tensors, frame_bytes)), n)
+            LAUNCHES[name] += 1
+            _build.check(lib, rc, name)
 
 
 def _clamp_i32(y: int) -> int:
@@ -160,7 +190,8 @@ def encode_quantize32(img: torch.Tensor, lut, start_y: int = 0,
                       end_y: int = 1 << 30,
                       rounding: str = "rne") -> torch.Tensor:
     """Mode32 encode of the TOP view of a (H, W) or (B, H, W) dual-view
-    image -> (H/2*W,) or (B, H/2*W) u8 records; one launch per batch."""
+    image -> (H/2*W,) or (B, H/2*W) u8 records; one launch per 65,535
+    frames."""
     _check_tensor(img, "img", (2, 3))
     h, w = img.shape[-2:]
     _check_geometry("enc_quant32", h, w)
@@ -175,14 +206,11 @@ def encode_quantize32(img: torch.Tensor, lut, start_y: int = 0,
     if out.numel() == 0:
         return out
     q, _ = _host_scales(lut)
-    lib = _build.load()
-    with _on_device_of(img):
-        rc = lib.sdct_enc32(img.data_ptr(), out.data_ptr(), q.ctypes.data,
-                            batch, h2, w, h * w, _clamp_i32(start_y),
-                            _clamp_i32(end_y), _ROUNDING_CODE[rounding],
-                            _stream(img))
-        LAUNCHES["enc32"] += 1
-    _build.check(lib, rc, "enc32")
+    _launch("enc32", (img, out), batch,
+            lambda lib, src, dst, n: lib.sdct_enc32(
+                src, dst, q.ctypes.data, n, h2, w, h * w,
+                _clamp_i32(start_y), _clamp_i32(end_y),
+                _ROUNDING_CODE[rounding], _stream(img)))
     return out
 
 
@@ -204,12 +232,9 @@ def decode_quantize32(data: torch.Tensor, lut, size_x: int,
     if out.numel() == 0:
         return out
     _, qi = _host_scales(lut)
-    lib = _build.load()
-    with _on_device_of(data):
-        rc = lib.sdct_dec32(data.data_ptr(), out.data_ptr(), qi.ctypes.data,
-                            batch, h2, size_x, _stream(data))
-        LAUNCHES["dec32"] += 1
-    _build.check(lib, rc, "dec32")
+    _launch("dec32", (data, out), batch,
+            lambda lib, src, dst, n: lib.sdct_dec32(
+                src, dst, qi.ctypes.data, n, h2, size_x, _stream(data)))
     return out
 
 
@@ -228,13 +253,10 @@ def roundtrip_quantize32(img: torch.Tensor, lut) -> torch.Tensor:
     if out.numel() == 0:
         return out
     q, qi = _host_scales(lut)
-    lib = _build.load()
-    with _on_device_of(img):
-        rc = lib.sdct_roundtrip32(img.data_ptr(), out.data_ptr(),
-                                  q.ctypes.data, qi.ctypes.data, batch, h2,
-                                  w, h * w, _stream(img))
-        LAUNCHES["roundtrip32"] += 1
-    _build.check(lib, rc, "roundtrip32")
+    _launch("roundtrip32", (img, out), batch,
+            lambda lib, src, dst, n: lib.sdct_roundtrip32(
+                src, dst, q.ctypes.data, qi.ctypes.data, n, h2, w, h * w,
+                _stream(img)))
     return out
 
 
@@ -244,7 +266,7 @@ def encode_quantize(img: torch.Tensor, lut, start_y: int = 0,
                     legacy_range: bool = False) -> torch.Tensor:
     """Enc-quant encode of the TOP view of a (H, W) or (B, H, W) dual-view
     image -> (H/2*W,) or (B, H/2*W) u8 records in ``layout``; one launch
-    per batch."""
+    per 65,535 frames."""
     _check_tensor(img, "img", (2, 3))
     h, w = img.shape[-2:]
     if layout not in _LAYOUT_CODE:
@@ -262,15 +284,11 @@ def encode_quantize(img: torch.Tensor, lut, start_y: int = 0,
     if out.numel() == 0:
         return out
     q, _ = _host_scales(lut)
-    lib = _build.load()
-    with _on_device_of(img):
-        rc = lib.sdct_encq(img.data_ptr(), out.data_ptr(), q.ctypes.data,
-                           batch, h2, w, h * w, _clamp_i32(start_y),
-                           _clamp_i32(end_y), int(legacy_range),
-                           _ROUNDING_CODE[rounding], _LAYOUT_CODE[layout],
-                           _stream(img))
-        LAUNCHES["encq"] += 1
-    _build.check(lib, rc, "encq")
+    _launch("encq", (img, out), batch,
+            lambda lib, src, dst, n: lib.sdct_encq(
+                src, dst, q.ctypes.data, n, h2, w, h * w,
+                _clamp_i32(start_y), _clamp_i32(end_y), int(legacy_range),
+                _ROUNDING_CODE[rounding], _LAYOUT_CODE[layout], _stream(img)))
     return out
 
 
@@ -295,13 +313,10 @@ def decode_quantize(data: torch.Tensor, lut, size_x: int, size_y: int,
     if out.numel() == 0:
         return out
     _, qi = _host_scales(lut)
-    lib = _build.load()
-    with _on_device_of(data):
-        rc = lib.sdct_decq(data.data_ptr(), out.data_ptr(), qi.ctypes.data,
-                           batch, h2, size_x, _LAYOUT_CODE[layout],
-                           _stream(data))
-        LAUNCHES["decq"] += 1
-    _build.check(lib, rc, "decq")
+    _launch("decq", (data, out), batch,
+            lambda lib, src, dst, n: lib.sdct_decq(
+                src, dst, qi.ctypes.data, n, h2, size_x, _LAYOUT_CODE[layout],
+                _stream(data)))
     return out
 
 
@@ -311,7 +326,7 @@ def encode_quantize_stereo(img: torch.Tensor, lut, start_y: int = 0,
     """Stereo encode of both views of a (H, W) or (B, H, W) dual-view image
     -> records in ``view_layout``: (..., H*W) interleaved,
     (..., 2, 64, H/16, W/8) planar or (..., 2, 64, H/16, BWP) native u8;
-    one launch per batch."""
+    one launch per 65,535 frames."""
     _check_tensor(img, "img", (2, 3))
     h, w = img.shape[-2:]
     frame = L_stereo.record_shape(view_layout, h, w)
@@ -327,15 +342,12 @@ def encode_quantize_stereo(img: torch.Tensor, lut, start_y: int = 0,
     if out.numel() == 0:
         return out
     q, _ = _host_scales(lut)
-    lib = _build.load()
-    with _on_device_of(img):
-        rc = lib.sdct_enc_stereo(img.data_ptr(), out.data_ptr(), q.ctypes.data,
-                                 batch, h, w, L_stereo.native_stereo_bwp(w),
-                                 _clamp_i32(start_y), _clamp_i32(end_y),
-                                 _ROUNDING_CODE[rounding],
-                                 _VIEW_LAYOUT_CODE[view_layout], _stream(img))
-        LAUNCHES["enc_stereo"] += 1
-    _build.check(lib, rc, "enc_stereo")
+    _launch("enc_stereo", (img, out), batch,
+            lambda lib, src, dst, n: lib.sdct_enc_stereo(
+                src, dst, q.ctypes.data, n, h, w,
+                L_stereo.native_stereo_bwp(w), _clamp_i32(start_y),
+                _clamp_i32(end_y), _ROUNDING_CODE[rounding],
+                _VIEW_LAYOUT_CODE[view_layout], _stream(img)))
     return out
 
 
@@ -360,14 +372,11 @@ def decode_quantize_stereo(data: torch.Tensor, lut, size_x: int, size_y: int,
     if out.numel() == 0:
         return out
     _, qi = _host_scales(lut)
-    lib = _build.load()
-    with _on_device_of(data):
-        rc = lib.sdct_dec_stereo(data.data_ptr(), out.data_ptr(),
-                                 qi.ctypes.data, batch, size_y, size_x,
-                                 L_stereo.native_stereo_bwp(size_x),
-                                 _VIEW_LAYOUT_CODE[view_layout], _stream(data))
-        LAUNCHES["dec_stereo"] += 1
-    _build.check(lib, rc, "dec_stereo")
+    _launch("dec_stereo", (data, out), batch,
+            lambda lib, src, dst, n: lib.sdct_dec_stereo(
+                src, dst, qi.ctypes.data, n, size_y, size_x,
+                L_stereo.native_stereo_bwp(size_x),
+                _VIEW_LAYOUT_CODE[view_layout], _stream(data)))
     return out
 
 
@@ -382,7 +391,8 @@ def encode_quantize32_ycbcr(planes: torch.Tensor, luma, chroma,
                             rounding: str = "rne") -> torch.Tensor:
     """Colour mode32 encode of the TOP view of a (3, H, W) or (B, 3, H, W)
     planar RGB dual-view image -> (3, H/2*W) or (B, 3, H/2*W) u8 records
-    (Y with ``luma``, Cb and Cr with ``chroma``); one launch per batch."""
+    (Y with ``luma``, Cb and Cr with ``chroma``); one launch per 65,535
+    frames."""
     _check_planes(planes, "planes")
     h, w = planes.shape[-2:]
     _check_geometry("enc_quant32_ycbcr", h, w)
@@ -398,14 +408,11 @@ def encode_quantize32_ycbcr(planes: torch.Tensor, luma, chroma,
         return out
     ql, _ = _host_scales(luma)
     qc, _ = _host_scales(chroma)
-    lib = _build.load()
-    with _on_device_of(planes):
-        rc = lib.sdct_enc32_rgb(planes.data_ptr(), out.data_ptr(),
-                                ql.ctypes.data, qc.ctypes.data,
-                                _COLOR_MIX.ctypes.data, batch, h2, w, h * w,
-                                _ROUNDING_CODE[rounding], _stream(planes))
-        LAUNCHES["enc32_rgb"] += 1
-    _build.check(lib, rc, "enc32_rgb")
+    _launch("enc32_rgb", (planes, out), batch,
+            lambda lib, src, dst, n: lib.sdct_enc32_rgb(
+                src, dst, ql.ctypes.data, qc.ctypes.data,
+                _COLOR_MIX.ctypes.data, n, h2, w, h * w,
+                _ROUNDING_CODE[rounding], _stream(planes)))
     return out
 
 
@@ -428,14 +435,10 @@ def decode_quantize32_ycbcr(data: torch.Tensor, luma, chroma, size_x: int,
         return out
     _, qil = _host_scales(luma)
     _, qic = _host_scales(chroma)
-    lib = _build.load()
-    with _on_device_of(data):
-        rc = lib.sdct_dec32_rgb(data.data_ptr(), out.data_ptr(),
-                                qil.ctypes.data, qic.ctypes.data,
-                                _COLOR_MIX.ctypes.data, batch, h2, size_x,
-                                _stream(data))
-        LAUNCHES["dec32_rgb"] += 1
-    _build.check(lib, rc, "dec32_rgb")
+    _launch("dec32_rgb", (data, out), batch,
+            lambda lib, src, dst, n: lib.sdct_dec32_rgb(
+                src, dst, qil.ctypes.data, qic.ctypes.data,
+                _COLOR_MIX.ctypes.data, n, h2, size_x, _stream(data)))
     return out
 
 
@@ -456,15 +459,11 @@ def roundtrip_quantize32_ycbcr(planes: torch.Tensor, luma,
         return out
     ql, qil = _host_scales(luma)
     qc, qic = _host_scales(chroma)
-    lib = _build.load()
-    with _on_device_of(planes):
-        rc = lib.sdct_roundtrip32_rgb(planes.data_ptr(), out.data_ptr(),
-                                      ql.ctypes.data, qc.ctypes.data,
-                                      qil.ctypes.data, qic.ctypes.data,
-                                      _COLOR_MIX.ctypes.data, batch, h2, w,
-                                      h * w, _stream(planes))
-        LAUNCHES["roundtrip32_rgb"] += 1
-    _build.check(lib, rc, "roundtrip32_rgb")
+    _launch("roundtrip32_rgb", (planes, out), batch,
+            lambda lib, src, dst, n: lib.sdct_roundtrip32_rgb(
+                src, dst, ql.ctypes.data, qc.ctypes.data, qil.ctypes.data,
+                qic.ctypes.data, _COLOR_MIX.ctypes.data, n, h2, w, h * w,
+                _stream(planes)))
     return out
 
 
@@ -473,7 +472,7 @@ def encode_quantize32_ycbcr420(planes: torch.Tensor, luma, chroma,
     """Colour 4:2:0 encode of the TOP view of a (3, H, W) or (B, 3, H, W)
     planar RGB dual-view image -> (1.5*H/2*W,) or (B, 1.5*H/2*W) u8 streams
     [Y | Cb | Cr] (Y with ``luma``, the 2x2-pooled Cb and Cr with
-    ``chroma``); one launch per batch."""
+    ``chroma``); one launch per 65,535 frames."""
     _check_planes(planes, "planes")
     h, w = planes.shape[-2:]
     _check_geometry("enc_quant32_ycbcr420", h, w)
@@ -489,14 +488,11 @@ def encode_quantize32_ycbcr420(planes: torch.Tensor, luma, chroma,
         return out
     ql, _ = _host_scales(luma)
     qc, _ = _host_scales(chroma)
-    lib = _build.load()
-    with _on_device_of(planes):
-        rc = lib.sdct_enc420_rgb(planes.data_ptr(), out.data_ptr(),
-                                 ql.ctypes.data, qc.ctypes.data,
-                                 _COLOR_MIX.ctypes.data, batch, h2, w, h * w,
-                                 _ROUNDING_CODE[rounding], _stream(planes))
-        LAUNCHES["enc420_rgb"] += 1
-    _build.check(lib, rc, "enc420_rgb")
+    _launch("enc420_rgb", (planes, out), batch,
+            lambda lib, src, dst, n: lib.sdct_enc420_rgb(
+                src, dst, ql.ctypes.data, qc.ctypes.data,
+                _COLOR_MIX.ctypes.data, n, h2, w, h * w,
+                _ROUNDING_CODE[rounding], _stream(planes)))
     return out
 
 
@@ -521,14 +517,95 @@ def decode_quantize32_ycbcr420(data: torch.Tensor, luma, chroma, size_x: int,
         return out
     _, qil = _host_scales(luma)
     _, qic = _host_scales(chroma)
-    lib = _build.load()
-    with _on_device_of(data):
-        rc = lib.sdct_dec420_rgb(data.data_ptr(), out.data_ptr(),
-                                 qil.ctypes.data, qic.ctypes.data,
-                                 _COLOR_MIX.ctypes.data, batch, h2, size_x,
-                                 _stream(data))
-        LAUNCHES["dec420_rgb"] += 1
-    _build.check(lib, rc, "dec420_rgb")
+    _launch("dec420_rgb", (data, out), batch,
+            lambda lib, src, dst, n: lib.sdct_dec420_rgb(
+                src, dst, qil.ctypes.data, qic.ctypes.data,
+                _COLOR_MIX.ctypes.data, n, h2, size_x, _stream(data)))
+    return out
+
+
+def _host_f32(scales, n: int = 64) -> np.ndarray:
+    """``n`` scales (array-like, or a tensor on any device) as contiguous
+    host f32, the form the kernels take by value."""
+    if isinstance(scales, torch.Tensor):
+        scales = scales.detach().cpu().numpy()
+    arr = np.ascontiguousarray(np.asarray(scales, np.float32).reshape(-1))
+    if arr.size != n:
+        raise ValueError(f"expected {n} scales, got {arr.size}")
+    return arr
+
+
+def _check_tile_options(orientation: str, rounding: str = "rne") -> None:
+    L_reorder.check_orientation(orientation)
+    if rounding not in ROUNDING_MODES:
+        raise ValueError(f"rounding must be one of {ROUNDING_MODES}")
+
+
+def _check_tile_geometry(h2: int, w: int) -> None:
+    if not _panel.supports(h2, w):
+        raise ValueError(f"tiles need H2 % 128 == 0 and W % 128 == 0, got "
+                         f"H2={h2}, W={w}")
+
+
+def tiles_panels(view: torch.Tensor, scales, *, normalize: bool,
+                 rounding: str, orientation: str) -> torch.Tensor:
+    """The tile kernel: a (..., H2, W) u8 view (no more than two leading
+    axes, e.g. a batch of frames, each holding both stereo views) ->
+    (..., P, 128, NJ, 128) u8 quantized coefficient tiles in the panel
+    engine's natural Z layout (``kernels/panel.py``).  ``scales``: the 64
+    quant scales in the orientation's buffer order
+    (``core.quantize.quant_scales`` of the LUT), as ``_tiles_panels``
+    takes them; host arrays are best, since scales on the card are copied
+    to the host first (a synchronisation).  One launch per 65,535
+    frames."""
+    _check_tensor(view, "view", (2, 3, 4))
+    h2, w = view.shape[-2:]
+    _check_tile_geometry(h2, w)
+    _check_tile_options(orientation, rounding)
+    q = _host_f32(scales)
+    if view.device.type == "cpu":
+        return _panel.forward_tiles(view, q, normalize=normalize,
+                                    orientation=orientation,
+                                    rounding=rounding)
+    p, nj = h2 // _panel.TILE, w // _panel.TILE
+    out = torch.empty(view.shape[:-2] + (p, _panel.TILE, nj, _panel.TILE),
+                      dtype=torch.uint8, device=view.device)
+    if out.numel() == 0:
+        return out
+    _launch("tiles", (view, out), view.numel() // (h2 * w),
+            lambda lib, src, dst, n: lib.sdct_tiles(
+                src, dst, q.ctypes.data, n, h2, w, int(bool(normalize)),
+                _ORIENTATION_CODE[orientation], _ROUNDING_CODE[rounding],
+                _stream(view)))
+    return out
+
+
+def detile_panels(tiles: torch.Tensor, inv_scales, *, normalize: bool,
+                  orientation: str) -> torch.Tensor:
+    """The detile kernel, the inverse of ``tiles_panels``:
+    (..., P, 128, NJ, 128) u8 tiles -> (..., H2, W) u8 pixels.
+    ``inv_scales``: the 64 dequant scales in the orientation's buffer order
+    (``core.quantize.dequant_scales``).  One launch per 65,535 frames."""
+    _check_tensor(tiles, "tiles", (4, 5, 6))
+    p, rows, nj, cols = tiles.shape[-4:]
+    if rows != _panel.TILE or cols != _panel.TILE:
+        raise ValueError(f"expected (..., P, 128, NJ, 128) tiles, got "
+                         f"{tuple(tiles.shape)}")
+    h2, w = p * _panel.TILE, nj * _panel.TILE
+    _check_tile_geometry(h2, w)
+    _check_tile_options(orientation)
+    qi = _host_f32(inv_scales)
+    if tiles.device.type == "cpu":
+        return _panel.inverse_tiles(tiles, qi, normalize=normalize,
+                                    orientation=orientation)
+    out = torch.empty(tiles.shape[:-4] + (h2, w), dtype=torch.uint8,
+                      device=tiles.device)
+    if out.numel() == 0:
+        return out
+    _launch("detile", (tiles, out), tiles.numel() // (h2 * w),
+            lambda lib, src, dst, n: lib.sdct_detile(
+                src, dst, qi.ctypes.data, n, h2, w, int(bool(normalize)),
+                _ORIENTATION_CODE[orientation], _stream(tiles)))
     return out
 
 

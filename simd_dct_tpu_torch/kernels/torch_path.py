@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ..core.dct import dct8x8, idct8x8
-from ..core.quantize import (dequant_scales, dequantize_from_u8,
+from ..core.quantize import (INV_255, dequant_scales, dequantize_from_u8,
                              quant_scales, quantize_to_u8)
 from ..layout import blocks as L_blocks
 from ..layout import color as L_color
@@ -51,9 +51,6 @@ def _apply_mask(flat: torch.Tensor, mask: np.ndarray,
                                             device=flat.device))
 
 
-_INV_255 = np.float32(1.0 / 255.0)    # golden.py:184, xla_path.py:43
-
-
 def _dct_buffers(blocks: torch.Tensor,
                  orientation: str = "fy") -> torch.Tensor:
     """(..., S, BW, 8, 8) f32 blocks -> (..., S, BW, 64) f32 coefficient
@@ -68,7 +65,7 @@ def _coeff_buffers(view_u8: torch.Tensor, normalize: bool = False,
     enc-quant domain); mode32 keeps the raw 0..255 domain."""
     x = L_blocks.blockize(view_u8).to(torch.float32)
     if normalize:
-        x = x * torch.tensor(_INV_255, device=x.device)
+        x = x * torch.tensor(INV_255, device=x.device)
     return _dct_buffers(x, orientation)
 
 

@@ -27,7 +27,7 @@ import torch
 ORIENTATIONS = ("fy", "fx")
 
 
-def _check_orientation(orientation: str) -> None:
+def check_orientation(orientation: str) -> None:
     if orientation not in ORIENTATIONS:
         raise ValueError(
             f"orientation must be 'fx' or 'fy', got {orientation!r}")
@@ -36,7 +36,7 @@ def _check_orientation(orientation: str) -> None:
 def coeffs_to_buffer(coeffs: torch.Tensor,
                      orientation: str = "fy") -> torch.Tensor:
     """(..., 8, 8) (fy, fx)-indexed coefficients -> (..., 64) buffer order."""
-    _check_orientation(orientation)
+    check_orientation(orientation)
     if orientation == "fx":
         coeffs = coeffs.transpose(-1, -2)
     return coeffs.reshape(*coeffs.shape[:-2], 64)
@@ -45,7 +45,7 @@ def coeffs_to_buffer(coeffs: torch.Tensor,
 def buffer_to_coeffs(buf: torch.Tensor,
                      orientation: str = "fy") -> torch.Tensor:
     """(..., 64) buffer order -> (..., 8, 8) (fy, fx)-indexed coefficients."""
-    _check_orientation(orientation)
+    check_orientation(orientation)
     c = buf.reshape(*buf.shape[:-1], 8, 8)
     return c.transpose(-1, -2) if orientation == "fx" else c
 

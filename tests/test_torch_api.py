@@ -115,11 +115,22 @@ def test_try_encode_quantize32_codes_and_partial_write():
 
 
 def test_compat_raises_not_supported():
-    with pytest.raises(T.NotSupportedError, match="ROADMAP"):
-        T.encode_quantize32(_img(32, 128), LUT, compat=True, **CPU)
-    with pytest.raises(T.NotSupportedError, match="ROADMAP"):
-        T.decode_quantize32(np.zeros(16 * 128, np.uint8), LUT, 128, 32,
-                            compat=True, **CPU)
+    """compat=True no longer raises: mode32 encode and decode route to the
+    strict-IEEE tier and equal it, and the C++ oracle, byte for byte."""
+    from simd_dct_tpu import native
+    from simd_dct_tpu_torch.kernels import compat as TC
+    img = _img(32, 128)
+    rec = T.encode_quantize32(img, LUT, compat=True, **CPU)
+    assert rec.device.type == "cpu"
+    np.testing.assert_array_equal(
+        rec.numpy(), TC.encode_quantize32(torch.from_numpy(img), LUT).numpy())
+    np.testing.assert_array_equal(rec.numpy(),
+                                  native.encode_quantize32(img, LUT))
+    dec = T.decode_quantize32(rec.numpy(), LUT, 128, 32, compat=True, **CPU)
+    np.testing.assert_array_equal(dec.numpy(),
+                                  TC.decode_quantize32(rec, LUT, 128, 32))
+    np.testing.assert_array_equal(
+        dec.numpy(), native.decode_quantize32(rec.numpy(), LUT, 128, 32))
 
 
 def test_cuda_backend_raises_without_gpu():
@@ -225,6 +236,64 @@ def test_probe_raises_instead_of_degrading(monkeypatch, tmp_path):
         C.probe.cache_clear()
 
 
+def test_build_falls_back_to_the_user_cache(monkeypatch, tmp_path):
+    """An installed package whose directory cannot be written builds under
+    $XDG_CACHE_HOME (else ~/.cache)/simd_dct_tpu_torch."""
+    assert _build.build_root() == _build.BUILD_ROOT
+    monkeypatch.setattr(_build, "_writable", lambda path: False)
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "xdg"))
+    assert _build.build_root() == str(tmp_path / "xdg" / "simd_dct_tpu_torch")
+    monkeypatch.delenv("XDG_CACHE_HOME")
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    assert _build.build_root() == str(tmp_path / "home" / ".cache"
+                                      / "simd_dct_tpu_torch")
+
+
+def test_writable_checks_the_nearest_existing_directory(monkeypatch,
+                                                        tmp_path):
+    assert _build._writable(str(tmp_path / "not" / "yet"))
+    monkeypatch.setattr(os, "access", lambda path, mode: False)
+    assert not _build._writable(str(tmp_path / "not" / "yet"))
+
+
+def test_package_data_ships_every_included_source():
+    """Every file a CUDA source includes by quotes, and every source, matches
+    a package-data glob of pyproject.toml, so a wheel can build them."""
+    import fnmatch
+    import re
+    import tomllib
+    cfg = tomllib.loads((REPO / "pyproject.toml").read_text())
+    globs = cfg["tool"]["setuptools"]["package-data"]["simd_dct_tpu_torch"]
+    assert "torch" in cfg["project"]["optional-dependencies"]["torch"]
+    assert not any(d.startswith("torch")
+                   for d in cfg["project"]["dependencies"])
+    csrc = REPO / "simd_dct_tpu_torch" / "csrc"
+    needed = {f"csrc/{p.name}" for p in csrc.iterdir()}
+    for src in csrc.iterdir():
+        needed |= {f"csrc/{name}" for name in re.findall(
+            r'#include\s+"([^"]+)"', src.read_text())}
+    assert "csrc/dct_common.cuh" in needed and "csrc/tiles.cu" in needed
+    missing = {n for n in needed
+               if not any(fnmatch.fnmatch(n, g) for g in globs)}
+    assert not missing, missing
+
+
+@pytest.mark.parametrize("batch", [0, 1, 4, 5, 9, 13])
+def test_batch_slices_cover_the_batch_once(monkeypatch, batch):
+    """With the per-launch limit patched to 4 frames, the launches of a
+    batch hold at most 4 frames each and cover every frame exactly once,
+    in order; at the real limit 65,536 frames take two launches."""
+    monkeypatch.setattr(K, "_MAX_BATCH", 4)
+    slices = K.batch_slices(batch)
+    assert all(0 < n <= 4 for _, n in slices)
+    covered = [f for lo, n in slices for f in range(lo, lo + n)]
+    assert covered == list(range(batch))
+    assert len(slices) == -(-batch // 4)
+    monkeypatch.undo()
+    assert K.batch_slices(65536) == [(0, 65535), (65535, 1)]
+    assert K.batch_slices(65535) == [(0, 65535)]
+
+
 def test_nvcc_flags():
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
@@ -319,6 +388,8 @@ def test_import_pulls_in_no_jax():
             "simd_dct_tpu_torch.layout.color, "
             "simd_dct_tpu_torch.layout.color420, "
             "simd_dct_tpu_torch.kernels.torch_path, "
+            "simd_dct_tpu_torch.kernels.panel, "
+            "simd_dct_tpu_torch.kernels.compat, "
             "simd_dct_tpu_torch.utils.debug, simd_dct_tpu_torch.utils.metrics; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'simd_dct_tpu.')) or m == 'simd_dct_tpu']; "

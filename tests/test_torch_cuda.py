@@ -1,4 +1,5 @@
-"""The CUDA kernels against the plain version, on the card.
+"""The CUDA kernels against the plain version, and the compat tier, on the
+card.
 
 Marked ``cuda``; every test skips where ``torch.cuda.is_available()`` is
 false.  The test configuration of this directory imports jax, which the
@@ -324,3 +325,136 @@ def test_color420_api_launches_kernels(gen):
     assert pix.shape == (2, 3, 128, 384) and one.shape == (1, 3, 128, 384)
     assert torch.equal(one[0], pix[0])
     assert K.LAUNCHES["enc420_rgb"] == 1 and K.LAUNCHES["dec420_rgb"] == 2
+
+
+# -- the panel engine's tiles ------------------------------------------------
+
+LUT_Q = default_quant_lut(50)          # the 1/255 domain of enc-quant, stereo
+TILE_CONFIGS = [(False, "fy", LUT), (True, "fx", LUT_Q), (True, "fy", LUT_Q)]
+
+
+def _tile_scales(lut):
+    from simd_dct_tpu_torch.core.quantize import dequant_scales, quant_scales
+    return quant_scales(lut), dequant_scales(lut)
+
+
+@pytest.mark.parametrize("shape", [(256, 384), (2, 128, 128)])
+@pytest.mark.parametrize("cfg", range(len(TILE_CONFIGS)))
+@pytest.mark.parametrize("rounding", ["rne", "scalar", "clamp_first"])
+def test_tiles_and_detile_against_plain(gen, shape, cfg, rounding):
+    from simd_dct_tpu_torch.kernels import panel
+    normalize, orientation, lut = TILE_CONFIGS[cfg]
+    q, qi = _tile_scales(lut)
+    view = _img(gen, *shape)
+    tiles = K.tiles_panels(view, q, normalize=normalize, rounding=rounding,
+                           orientation=orientation)
+    _ok(tiles, panel.forward_tiles(view, q, normalize=normalize,
+                                   orientation=orientation,
+                                   rounding=rounding))
+    _ok(K.detile_panels(tiles, qi, normalize=normalize,
+                        orientation=orientation),
+        panel.inverse_tiles(tiles, qi, normalize=normalize,
+                            orientation=orientation))
+
+
+@pytest.mark.parametrize("rounding", ["rne", "scalar", "clamp_first"])
+def test_tile_records_equal_the_mode_kernels(gen, rounding):
+    """tiles + converter == the mode's own kernel, byte for byte, and the
+    detile of the converted records == the mode's decode."""
+    from simd_dct_tpu_torch.kernels import panel
+    img = _img(gen, 2, 512, 384)
+    top = img[:, :256].contiguous()
+    q, qi = _tile_scales(LUT)
+    t32 = K.tiles_panels(top, q, normalize=False, rounding=rounding,
+                         orientation="fy")
+    rec = K.encode_quantize32(img, LUT, rounding=rounding)
+    assert torch.equal(panel.tiles_to_group8(t32), rec)
+    assert torch.equal(
+        K.detile_panels(panel.group8_to_tiles(rec, 256, 384), qi,
+                        normalize=False, orientation="fy"),
+        K.decode_quantize32(rec, LUT, 384, 512))
+    q, qi = _tile_scales(LUT_Q)
+    tq = K.tiles_panels(top, q, normalize=True, rounding=rounding,
+                        orientation="fx")
+    for layout, conv in (("scalar", panel.tiles_to_block_contiguous),
+                         ("pair", panel.tiles_to_pair)):
+        rec = K.encode_quantize(img, LUT_Q, rounding=rounding, layout=layout)
+        assert torch.equal(conv(tq), rec)
+        back = (panel.block_contiguous_to_tiles if layout == "scalar"
+                else panel.pair_to_tiles)(rec, 256, 384)
+        assert torch.equal(
+            K.detile_panels(back, qi, normalize=True, orientation="fx"),
+            K.decode_quantize(rec, LUT_Q, 384, 512, layout))
+    ts = K.tiles_panels(img.view(2, 2, 256, 384), q, normalize=True,
+                        rounding=rounding, orientation="fy")
+    rec = K.encode_quantize_stereo(img, LUT_Q, rounding=rounding)
+    assert torch.equal(panel.tiles_to_planar(ts), rec)
+    px = K.detile_panels(panel.planar_to_tiles(rec, 256, 384), qi,
+                         normalize=True, orientation="fy")
+    assert torch.equal(px.view(2, 512, 384),
+                       K.decode_quantize_stereo(rec, LUT_Q, 384, 512))
+
+
+# -- batches longer than one launch takes -------------------------------------
+
+def test_batches_split_across_launches(gen, monkeypatch):
+    """With the per-launch limit patched to 3 frames, a 7-frame batch goes
+    out in 3 launches per kernel and equals the frames run one by one."""
+    q, qi = _tile_scales(LUT)
+    img = _img(gen, 7, 256, 128)
+    want = {"enc32": K.encode_quantize32(img, LUT),
+            "encq": K.encode_quantize(img, LUT_Q, layout="pair"),
+            "enc_stereo": K.encode_quantize_stereo(img, LUT_Q,
+                                                   view_layout="native"),
+            "tiles": K.tiles_panels(img, q, normalize=False, rounding="rne",
+                                    orientation="fy")}
+    monkeypatch.setattr(K, "_MAX_BATCH", 3)
+    K.reset_launch_counts()
+    got = {"enc32": K.encode_quantize32(img, LUT),
+           "encq": K.encode_quantize(img, LUT_Q, layout="pair"),
+           "enc_stereo": K.encode_quantize_stereo(img, LUT_Q,
+                                                  view_layout="native"),
+           "tiles": K.tiles_panels(img, q, normalize=False, rounding="rne",
+                                   orientation="fy")}
+    dec = K.detile_panels(got["tiles"], qi, normalize=False, orientation="fy")
+    torch.cuda.synchronize()
+    for name in got:
+        assert torch.equal(got[name], want[name]), name
+        assert K.LAUNCHES[name] == 3, name
+    assert K.LAUNCHES["detile"] == 3
+    for i in range(7):
+        assert torch.equal(got["enc32"][i], K.encode_quantize32(img[i], LUT))
+        assert torch.equal(dec[i], K.detile_panels(
+            got["tiles"][i], qi, normalize=False, orientation="fy"))
+
+
+# -- the compat tier on the card ---------------------------------------------
+
+@pytest.mark.parametrize("mode", ["enc_quant", "enc_quant32", "stereo"])
+@pytest.mark.parametrize("rounding", ["rne", "scalar", "clamp_first"])
+def test_compat_on_the_card_equals_the_cpu(gen, mode, rounding):
+    """The compat tier's eager ops give the same bytes on the card as on
+    the CPU (which the CPU tests hold to the C++ oracle), both ways."""
+    enc, dec, lut = {
+        "enc_quant": (sd.encode_quantize, sd.decode_quantize, LUT_Q),
+        "enc_quant32": (sd.encode_quantize32, sd.decode_quantize32, LUT),
+        "stereo": (sd.encode_quantize_stereo, sd.decode_quantize_stereo,
+                   LUT_Q)}[mode]
+    img = _img(gen, 2, 256, 384)
+    rec = enc(img, lut, rounding=rounding, compat=True)
+    assert rec.device.type == "cuda"
+    assert torch.equal(rec.cpu(), enc(img.cpu(), lut, rounding=rounding,
+                                      compat=True))
+    px = dec(rec, lut, 384, 256, compat=True)
+    assert torch.equal(px.cpu(), dec(rec.cpu(), lut, 384, 256, compat=True))
+    _ok(rec, enc(img, lut, rounding=rounding))
+
+
+def test_scales_on_the_card_equal_the_host(gen):
+    """The scales are computed on the host, then moved: on the card PyTorch
+    divides by a scalar as a multiply by its reciprocal."""
+    from simd_dct_tpu_torch.core.quantize import dequant_scales, quant_scales
+    for lut in (LUT, LUT_Q, CHROMA):
+        assert torch.equal(quant_scales(lut, "cuda").cpu(), quant_scales(lut))
+        assert torch.equal(dequant_scales(lut, "cuda").cpu(),
+                           dequant_scales(lut))

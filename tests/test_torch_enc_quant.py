@@ -350,11 +350,23 @@ def test_typed_errors_match_jax(case):
 
 
 def test_compat_raises_until_ported():
-    with pytest.raises(T.NotSupportedError, match="ROADMAP"):
-        T.encode_quantize(_img(32, 64), _lut(), compat=True, **CPU)
-    with pytest.raises(T.NotSupportedError, match="ROADMAP"):
-        T.decode_quantize(np.zeros(16 * 64, np.uint8), _lut(), 64, 32,
-                          compat=True, **CPU)
+    """compat is ported: enc-quant encode and decode with compat=True route
+    to the strict-IEEE tier and equal it, the JAX compat tier and the C++
+    oracle byte for byte."""
+    from simd_dct_tpu import native
+    from simd_dct_tpu_torch.kernels import compat as TC
+    img = _img(32, 64)
+    rec = T.encode_quantize(img, _lut(), layout="pair", compat=True, **CPU)
+    np.testing.assert_array_equal(rec.numpy(), TC.encode_quantize(
+        torch.from_numpy(img), _lut(), layout="pair").numpy())
+    np.testing.assert_array_equal(rec.numpy(), np.asarray(J.encode_quantize(
+        img, _lut(), layout="pair", compat=True, backend="xla")))
+    np.testing.assert_array_equal(
+        rec.numpy(), native.encode_quantize(img, _lut(), layout="pair"))
+    dec = T.decode_quantize(rec.numpy(), _lut(), 64, 32, layout="pair",
+                            compat=True, **CPU)
+    np.testing.assert_array_equal(dec.numpy(), native.decode_quantize(
+        rec.numpy(), _lut(), 64, 32, layout="pair"))
 
 
 def test_wrappers_on_cpu_take_the_plain_version():

@@ -379,11 +379,23 @@ def test_typed_errors_match_jax(case):
 
 
 def test_compat_and_device_rule(monkeypatch):
-    with pytest.raises(T.NotSupportedError, match="ROADMAP"):
-        T.encode_quantize_stereo(_img(32, 64), _lut(), compat=True, **CPU)
-    with pytest.raises(T.NotSupportedError, match="ROADMAP"):
-        T.decode_quantize_stereo(_planar_zeros(32, 64), _lut(), 64, 32,
-                                 view_layout="planar", compat=True, **CPU)
+    """compat=True routes stereo encode and decode, planar form included,
+    to the strict-IEEE tier and equals it and the JAX compat tier byte for
+    byte; and numpy input with no device needs the card."""
+    from simd_dct_tpu_torch.kernels import compat as TC
+    img = _img(32, 64)
+    rec = T.encode_quantize_stereo(img, _lut(), compat=True,
+                                   view_layout="planar", **CPU)
+    np.testing.assert_array_equal(rec.numpy(), TC.encode_quantize_stereo(
+        torch.from_numpy(img), _lut(), view_layout="planar").numpy())
+    np.testing.assert_array_equal(rec.numpy(), np.asarray(
+        J.encode_quantize_stereo(img, _lut(), compat=True, backend="xla",
+                                 view_layout="planar")))
+    dec = T.decode_quantize_stereo(rec.numpy(), _lut(), 64, 32,
+                                   view_layout="planar", compat=True, **CPU)
+    np.testing.assert_array_equal(dec.numpy(), np.asarray(
+        J.decode_quantize_stereo(rec.numpy(), _lut(), 64, 32, compat=True,
+                                 backend="xla", view_layout="planar")))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = {
         "encode": lambda **kw: T.encode_quantize_stereo(_img(32, 64), _lut(),
