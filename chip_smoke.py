@@ -99,7 +99,7 @@ result line):
       one launch) on the 4096x3840 dual view, and a 64-frame 1024x1920
       mode32 batch each way; both tile kernels must have launched and the
       results lie on the card;
-  17. the compat tier on the card: the three encodes at 4096x3840 (rne)
+  17. the compat tier on the card: the three encodes at 1024x3840 (rne)
       and at 256x384 in every rounding, layout, strip range and view
       layout, and the three decodes, each byte-identical to the same call
       on CPU tensors and within +-1 on at most 0.2% of the fast kernels;
@@ -108,9 +108,32 @@ result line):
       takes) through encode_quantize32 / decode_quantize32,
       encode_quantize (scalar) and encode_quantize_stereo: each equals its
       two halves run apart, and the launch counters show 2 launches.
-Phase 10 runs last, after phase 18.  The line before the last is a JSON
-object with one entry per kernel (its time, its bound and its share of the
-copy); the last line is
+  19. the dist kernels against their plain versions on four shards of
+      card 0: the plane gather (``ring_gather_kernel``) of the 4K dual
+      view's stereo segments in the interleaved and native layouts, and
+      over the 'chip' axis of a (2, 2) mesh with 16-byte and byte-wide
+      rows, each replica equal to the plain ring and to a torch.cat byte for
+      byte; the self-ring (``selfring_kernel``) equal to its plain version
+      and ``remote_dma_selfring_smoke()`` True; an arrival that cannot come
+      (the host expects one more) raises ``SimdDctError`` after its 0.05 s
+      spin bound, from the next gather and from ``check_workspace``, and
+      the gather after it works; a gather behind 200 ms of work on the last
+      shard's card, with a 0.05 s bound, is exact and raises nothing;
+  20. the dist main path, counters set to 0 just before: the 4096x3840
+      dual view through the sharded mode32 encode and decode and the stereo
+      encode with ``gather=True`` in both layouts with its decode; the
+      (3, 4096, 3840) RGB through both colour pairs; the 64-frame 1088x1920
+      ``roundtrip_quantize32_batch`` (BASELINE config 4); 8 frames of
+      1088x1920 through the 2-D batch on the (2, 2) mesh; and the self-ring
+      preflight.  Every kernel of the path launched (``ring_gather``
+      once a card for each gather), and each result equals the unsharded
+      api call on the card byte for byte.
+Phase 10 runs last, after phase 20; it also times the gather kernel on
+the 4K stereo segments of four shards against four torch.cats (its
+library call) and the bound, the self-ring call, and the 4-shard stereo
+encode against the one-launch call.  Each phase logs its seconds.  The
+line before the last is a JSON object with one entry per kernel (its
+time, its bound and its share of the copy); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -129,6 +152,8 @@ import numpy as np
 import torch
 
 from simd_dct_tpu_torch import api as sd
+from simd_dct_tpu_torch import dist
+from simd_dct_tpu_torch.dist import collectives
 from simd_dct_tpu_torch.core.dct import dct_basis_np
 from simd_dct_tpu_torch.core.quantize import VR, default_quant_lut
 from simd_dct_tpu_torch.dispatch import capability
@@ -144,6 +169,7 @@ STEREO = "simd_dct_tpu_torch/csrc/stereo.cu"
 COLOR = "simd_dct_tpu_torch/csrc/color32.cu"
 COLOR420 = "simd_dct_tpu_torch/csrc/color420.cu"
 TILES = "simd_dct_tpu_torch/csrc/tiles.cu"
+COLLECTIVES = "simd_dct_tpu_torch/csrc/collectives.cu"
 PALLAS = "simd_dct_tpu/kernels/pallas_dct.py"
 COLOR32 = "simd_dct_tpu/kernels/color32.py"
 C420 = "simd_dct_tpu/kernels/color420.py"
@@ -164,6 +190,10 @@ KERNELS = {
     "dec420_rgb": (COLOR420, f"{C420}:260", "colour 4:2:0"),
     "tiles": (TILES, f"{PALLAS}:267", "tiles"),
     "detile": (TILES, f"{PALLAS}:331", "tiles"),
+    "ring_gather": (COLLECTIVES, "simd_dct_tpu/dist/collectives.py:215",
+                    "dist"),
+    "selfring": (COLLECTIVES, "simd_dct_tpu/dist/collectives.py:310",
+                 "dist"),
 }
 # (H, W, frames) of the dual-view images the comparisons run on
 GEOMETRIES = [(4096, 3840, 1), (1088, 1920, 1), (256, 192, 1), (1088, 1920, 8)]
@@ -182,6 +212,9 @@ VIEW_LAYOUTS = ("interleaved", "planar", "native")
 ROUNDINGS = ("rne", "scalar", "clamp_first")
 DEV = "cuda"
 REPS = 25
+# the plain versions' walls, logged beside their profiler times (which the
+# rows use): a few milliseconds a call, so fewer repetitions
+PLAIN_WALL_REPS = 5
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FMA/s on the CUDA
 # cores (67 TFLOP/s)
 PEAK_BYTES_S = 3.35e12
@@ -208,7 +241,8 @@ FMA_PER_PX = {"enc32": PASS_FMA_PER_PX, "dec32": PASS_FMA_PER_PX,
               "enc420_rgb": (1.5 * PASS_FMA_PER_PX + 3 * MIX_FMA_PER_PX
                              + 2 * POOL_FMA_PER_PX),
               "dec420_rgb": 1.5 * PASS_FMA_PER_PX + 3 * MIX_FMA_PER_PX,
-              "tiles": PASS_FMA_PER_PX, "detile": PASS_FMA_PER_PX}
+              "tiles": PASS_FMA_PER_PX, "detile": PASS_FMA_PER_PX,
+              "ring_gather": 0, "selfring": 0}
 
 
 def log(*args):
@@ -974,6 +1008,7 @@ def compat_equal(name: str, call, args, kw, fast=None) -> torch.Tensor:
 
 def phase_compat(gen, lut, lut_q):
     log("phase 17: the compat tier on the card (strict IEEE, eager ops)")
+    t_phase = time.perf_counter()
     img = random_images(gen, 4096, 3840, 1)
     stats = {}
     encodes = {
@@ -983,12 +1018,16 @@ def phase_compat(gen, lut, lut_q):
     decodes = {"encode_quantize32": sd.decode_quantize32,
                "encode_quantize": sd.decode_quantize,
                "encode_quantize_stereo": sd.decode_quantize_stereo}
+    # the card against the CPU on the top 1024 rows (the CPU's eager ops
+    # at 4K took most of this phase), the walls at 4K
+    part = img[:1024].contiguous()
     for name, (enc, l) in encodes.items():
-        rec = compat_equal(f"{name} 4096x3840", enc, (img, l), {},
-                           fast=enc(img, l))
+        rec = compat_equal(f"{name} 1024x3840", enc, (part, l), {},
+                           fast=enc(part, l))
         dec = decodes[name]
-        compat_equal(f"{dec.__name__} 4096x3840", dec, (rec, l, 3840, 4096),
-                     {}, fast=dec(rec, l, 3840, 4096))
+        compat_equal(f"{dec.__name__} 1024x3840", dec, (rec, l, 3840, 1024),
+                     {}, fast=dec(rec, l, 3840, 1024))
+        rec = enc(img, l, compat=True)
         for label, fn in ((name, lambda: enc(img, l, compat=True)),
                           (dec.__name__,
                            lambda: dec(rec, l, 3840, 4096, compat=True))):
@@ -1005,6 +1044,7 @@ def phase_compat(gen, lut, lut_q):
             stats[label] = {"wall_ms": wall, "cuda_kernels": n}
             log(f"  compat {label} 4096x3840: wall {wall:.3f} ms (median of "
                 f"5), {n} CUDA kernels (profiler)")
+    log(f"  [the 4K part: {time.perf_counter() - t_phase:.2f} s]")
     small = random_images(gen, 256, 384, 2)
     for rounding in ROUNDINGS:
         for layout in LAYOUTS:
@@ -1049,6 +1089,188 @@ def phase_compat(gen, lut, lut_q):
                      fast=sd.decode_quantize_stereo(rec, lut_q, 384, 256,
                                                     view_layout=vl))
     return stats
+
+
+# -- the dist path: shards on one card and the plane gather ------------------
+
+# the dist phases' four shards: all on card 0, or one a card (--cards 4)
+DIST_DEVICES = [f"{DEV}:0"] * 4
+
+
+def dist_meshes():
+    """The four shards as one ring and as a (2, 2) mesh."""
+    return (dist.make_mesh(4, devices=DIST_DEVICES),
+            dist.make_mesh_2d((2, 2), devices=DIST_DEVICES))
+
+
+def gather_equal(name: str, seg, mesh, errs: dict, **kw) -> None:
+    """The gather kernel against its plain version (the ring) and against a
+    torch.cat per rank, replica by replica: byte for byte."""
+    got = collectives.gather_planes_remote(seg, mesh, **kw)
+    ring = collectives.gather_planes_ring(seg, mesh, **kw)
+    cat = collectives.gather_planes_allgather(seg, mesh, **kw)
+    worst = max(int((a.to(torch.int16) - b.to(torch.int16)).abs().max())
+                for a, b in zip(got.shards, ring.shards))
+    errs["ring_gather"] = max(errs.get("ring_gather", 0), worst)
+    same = all(torch.equal(a, b) and torch.equal(a, c)
+               for a, b, c in zip(got.shards, ring.shards, cat.shards))
+    log(f"  ring_gather {name}: replicas {len(got.shards)} of "
+        f"{tuple(got.shards[0].shape)}, max_abs_diff={worst} exact={same}")
+    require(same, f"ring_gather {name} == the ring and torch.cat, exactly")
+
+
+def phase_compare_dist(gen, lut_q, errs):
+    log("phase 19: the dist kernels against their plain versions on the "
+        f"card (four shards on {DIST_DEVICES})")
+    mesh, mesh2 = dist_meshes()
+    img = random_images(gen, 4096, 3840, 1)
+    for vl in ("native", "interleaved"):
+        stereo = dist.encode_quantize_stereo_sharded(img, lut_q, mesh,
+                                                     view_layout=vl)
+        gather_equal(f"4K {vl} {tuple(stereo.shards[0].shape)}", stereo,
+                     mesh, errs)
+    # one ring per row of the (2, 2) mesh; a 16-byte row and a byte-wide one
+    for shape in [(64, 68, 480), (64, 16, 15)]:
+        seg = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8,
+                            device=DEV)
+        gather_equal(f"(2, 2) 'chip' {shape}", seg, mesh2, errs,
+                     axis_name="chip")
+    x = torch.randint(0, 256, (8, 8, 128), generator=gen, dtype=torch.uint8,
+                      device=DEV)
+    same = torch.equal(collectives.selfring(x), collectives.selfring_plain(x))
+    errs["selfring"] = 0 if same else 255
+    require(same, "selfring == its plain version, exactly")
+    require(collectives.remote_dma_selfring_smoke() is True,
+            "remote_dma_selfring_smoke() is True")
+    log("  selfring (8, 8, 128) exact; remote_dma_selfring_smoke() True")
+    seg = stereo        # the 4K interleaved segments
+    # a hang becomes an error: the host expects one arrival more than will
+    # come, so rank 0 spins out; the gather does not wait, so the next
+    # gather on the mesh raises once the word shows it, and check_workspace
+    # after waiting for the cards
+    for how in ("the next gather", "check_workspace"):
+        collectives.gather_planes_remote(seg, mesh)
+        mesh._collective_workspace.arr[0] += 1
+        t0 = time.perf_counter()
+        try:
+            collectives.gather_planes_remote(seg, mesh, timeout_s=0.05)
+            if how == "the next gather":
+                torch.cuda.synchronize()
+                collectives.gather_planes_remote(seg, mesh)
+            else:
+                collectives.check_workspace(mesh)
+            raised = None
+        except sd.SimdDctError as e:
+            raised = str(e)
+        log(f"  an arrival that cannot come, reported by {how}: {raised!r} "
+            f"after {time.perf_counter() - t0:.3f} s")
+        require(raised is not None and mesh._collective_workspace is None,
+                f"a timed-out spin raises SimdDctError from {how} and drops "
+                "the workspace")
+        gather_equal(f"4K interleaved after the error ({how}), a new "
+                     "workspace", seg, mesh, errs)
+    # a card whose stream is busy for 4 spin bounds: the other cards' streams
+    # wait for it, not their kernels
+    lag_ms = 200
+    torch.cuda.synchronize()
+    with torch.cuda.device(DIST_DEVICES[-1]):
+        torch.cuda._sleep(int(lag_ms * sleep_cycles_per_ms()))
+    got = collectives.gather_planes_remote(seg, mesh, timeout_s=0.05)
+    collectives.check_workspace(mesh)
+    require(all(torch.equal(r.cpu(), seg.full().cpu()) for r in got.shards),
+            "a gather behind a busy card is exact")
+    log(f"  a gather behind {lag_ms} ms of work on {DIST_DEVICES[-1]} with a "
+        "0.05 s spin bound: no error, every replica exact")
+
+
+def phase_main_path_dist(gen, lut, lut_q, luma, chroma):
+    log(f"phase 20: the dist main path (four shards on {DIST_DEVICES}, and "
+        "a (2, 2) mesh for the 2-D batch)")
+    mesh, mesh2 = dist_meshes()
+    img = random_images(gen, 4096, 3840, 1)
+    rgb = random_rgb(gen, 4096, 3840, 1)
+    video = random_images(gen, 1088, 1920, 64)
+    torch.cuda.synchronize()
+    cuda_dct.reset_launch_counts()
+    rec = dist.encode_quantize32_sharded(img, lut, mesh)
+    pix = dist.decode_quantize32_sharded(rec, lut, 3840, 4096, mesh)
+    planes = {vl: dist.encode_quantize_stereo_sharded(
+        img, lut_q, mesh, gather=True, view_layout=vl)
+        for vl in ("interleaved", "native")}
+    views = {vl: dist.decode_quantize_stereo_sharded(
+        planes[vl], lut_q, 3840, 4096, mesh, view_layout=vl)
+        for vl in planes}
+    crec = dist.encode_quantize32_ycbcr_sharded(rgb, luma, chroma, mesh)
+    cpix = dist.decode_quantize32_ycbcr_sharded(crec, luma, chroma, 3840,
+                                                4096, mesh)
+    y420, c420 = dist.encode_quantize32_ycbcr420_sharded(rgb, luma, chroma,
+                                                         mesh)
+    pix420 = dist.decode_quantize32_ycbcr420_sharded(y420, c420, luma, chroma,
+                                                     3840, 4096, mesh)
+    vid = dist.roundtrip_quantize32_batch(video, lut, mesh)
+    rec2d = dist.encode_quantize32_batch_2d(video[:8], lut, mesh2)
+    smoke = collectives.remote_dma_selfring_smoke()
+    torch.cuda.synchronize()
+    counts = dict(cuda_dct.LAUNCHES)
+    log(f"  launches: {counts}")
+    for name in ("enc32", "dec32", "roundtrip32", "enc_stereo", "dec_stereo",
+                 "enc32_rgb", "dec32_rgb", "enc420_rgb", "dec420_rgb",
+                 "ring_gather", "selfring"):
+        require(counts[name] > 0, f"{name} launched on the dist path")
+    cards = len(set(DIST_DEVICES))
+    require(counts["ring_gather"] == 2 * cards,
+            "one gather launch per card for each gather=True")
+    require(smoke is True, "remote_dma_selfring_smoke() is True")
+    results = [rec, pix, *planes.values(), *views.values(), crec, cpix, y420,
+               c420, pix420, vid, rec2d]
+    require(all(t.device.type == DEV for r in results for t in r.shards),
+            "every shard lies on the card")
+    # every result equals the unsharded api call on the card, byte for byte
+    s420 = torch.cat([y420.full().reshape(-1), c420.full().reshape(-1)])
+    checks = {
+        "encode_quantize32_sharded": (
+            rec.full().reshape(-1), sd.encode_quantize32(img, lut)),
+        "decode_quantize32_sharded": (
+            pix.full(), sd.decode_quantize32(rec.full().reshape(-1), lut,
+                                             3840, 4096)),
+        "encode_quantize_stereo_sharded interleaved": (
+            planes["interleaved"].full().reshape(-1),
+            sd.encode_quantize_stereo(img, lut_q)),
+        "encode_quantize_stereo_sharded native": (
+            planes["native"].full(),
+            sd.encode_quantize_stereo(img, lut_q, view_layout="native")),
+        "decode_quantize_stereo_sharded interleaved": (
+            views["interleaved"].full(),
+            sd.decode_quantize_stereo(sd.encode_quantize_stereo(img, lut_q),
+                                      lut_q, 3840, 4096)),
+        "decode_quantize_stereo_sharded native": (
+            views["native"].full(), views["interleaved"].full()),
+        "encode_quantize32_ycbcr_sharded": (
+            crec.full().reshape(3, -1),
+            sd.encode_quantize32_ycbcr(rgb, luma, chroma)),
+        "decode_quantize32_ycbcr_sharded": (
+            cpix.full(), sd.decode_quantize32_ycbcr(
+                crec.full().reshape(3, -1), luma, chroma, 3840, 4096)),
+        "encode_quantize32_ycbcr420_sharded": (
+            s420, sd.encode_quantize32_ycbcr420(rgb, luma, chroma)),
+        "decode_quantize32_ycbcr420_sharded": (
+            pix420.full(), sd.decode_quantize32_ycbcr420(s420, luma, chroma,
+                                                         3840, 4096)),
+        "roundtrip_quantize32_batch": (
+            vid.full(), sd.roundtrip_quantize32(video, lut)),
+        "encode_quantize32_batch_2d": (
+            rec2d.full().reshape(8, -1), sd.encode_quantize32(video[:8], lut)),
+    }
+    for name, (got, want) in checks.items():
+        same = got.shape == want.shape and torch.equal(got, want)
+        log(f"  {name}: {tuple(got.shape)} == unsharded api: {same}")
+        require(same, f"{name} equals the unsharded api byte for byte")
+    for vl, g in planes.items():
+        require(g.is_fully_replicated and all(
+            torch.equal(r.to(g.shards[0].device), g.shards[0])
+            for r in g.shards),
+            f"gather=True ({vl}) leaves one identical replica per shard")
+    return counts
 
 
 # -- a batch longer than one launch takes -------------------------------------
@@ -1162,11 +1384,12 @@ def queued_ms(fn, inputs, reps, cycles_per_ms):
     return statistics.median(per_call)
 
 
-def profiled_us(fn, inputs, tries=3):
+def profiled_us(fn, inputs, tries=3, match=None):
     """Device time per call (us) from torch.profiler: for each GPU activity
-    it records, its mean time times its launches per call (robust to
-    dropped records).  (None, []) when ``tries`` profiles in a row record
-    no device activity.  Also the names of the kernels it ran."""
+    it records (whose name holds ``match``, if given), its mean time times
+    its launches per call (robust to dropped records).  (None, []) when
+    ``tries`` profiles in a row record no such activity.  Also the names
+    of the kernels it ran."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(tries):
         for x in inputs[:2]:
@@ -1178,7 +1401,8 @@ def profiled_us(fn, inputs, tries=3):
             torch.cuda.synchronize()
         evts = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA
-                and e.count > 0 and e.self_device_time_total > 0]
+                and e.count > 0 and e.self_device_time_total > 0
+                and (match is None or match in e.key)]
         if evts:
             us = sum(e.self_device_time_total / e.count
                      * max(1, round(e.count / len(inputs))) for e in evts)
@@ -1352,7 +1576,7 @@ def phase_timing(gen, lut, lut_q, chroma, reps):
             k_prof, k_names = profiled_us(kern, inputs)
             k_wall = wall_ms(kern, inputs, reps) * 1e3
             p_prof, p_names = profiled_us(plain, inputs)
-            p_wall = wall_ms(plain, inputs, reps) * 1e3
+            p_wall = wall_ms(plain, inputs, PLAIN_WALL_REPS) * 1e3
             p_us = p_prof if p_prof is not None else p_wall
             # the kernel a job times: the longest KERNELS name it starts with
             kernel = max((k for k in KERNELS if name.startswith(k)), key=len)
@@ -1386,8 +1610,96 @@ def phase_timing(gen, lut, lut_q, chroma, reps):
         wall_ms(torch_path.probe_trial, xs, reps) * 1e3
     rows["probe"] = (k_us / 1e3, p_us / 1e3, None, 2 * 8 * 128, 8 * 128)
     log(f"  probe (8,128): kernel {k_us:.3f} us  plain {p_us:.3f} us")
+    library = timing_dist(gen, lut_q, reps, cycles_per_ms, rows, table)
     log("timing_table " + json.dumps(table))
-    return rows
+    return rows, library
+
+
+def four_cats(seg):
+    """The library call for the gather in one process: a torch.cat of the
+    ring's segments onto each of its ranks' devices."""
+    return [torch.cat([s.to(x.device) for s in seg.shards], dim=1)
+            for x in seg.shards]
+
+
+def timing_dist(gen, lut_q, reps, cycles_per_ms, rows, table):
+    """The gather kernel on the 4K dual view's stereo segments over four
+    shards of card 0 (queued events, profiler beside), against four
+    torch.cats and the bound; the self-ring call; and the 4-shard stereo
+    encode against the one-launch call.  Adds rows; returns library ms."""
+    mesh, _ = dist_meshes()
+    imgs = [random_images(gen, 4096, 3840, 1) for _ in range(4)]
+    segs = [dist.encode_quantize_stereo_sharded(x, lut_q, mesh) for x in imgs]
+    n = len(segs[0].shards)
+    seg_bytes = segs[0].shards[0].numel()
+    n_bytes = n * seg_bytes + n * n * seg_bytes   # read once, write n times
+
+    def kern(seg):
+        return collectives.gather_planes_remote(seg, mesh)
+
+    def plain(seg):
+        return collectives.gather_planes_ring(seg, mesh)
+
+    k_us = queued_ms(kern, segs, reps, cycles_per_ms) * 1e3
+    collectives.check_workspace(mesh)
+    k_prof, k_names = profiled_us(kern, segs, match="ring_gather")
+    collectives.check_workspace(mesh)
+    k_wall = wall_ms(kern, segs, reps) * 1e3
+    collectives.check_workspace(mesh)
+    lib_us = queued_ms(four_cats, segs, reps, cycles_per_ms) * 1e3
+    lib_prof, _ = profiled_us(four_cats, segs)
+    p_prof, _ = profiled_us(plain, segs)
+    p_wall = wall_ms(plain, segs, PLAIN_WALL_REPS) * 1e3
+    p_us = p_prof if p_prof is not None else p_wall
+    bound, _ = bound_ms("ring_gather", n_bytes, 0)
+    rows["ring_gather"] = (k_us / 1e3, p_us / 1e3, None, n_bytes, 0)
+    table.append({"kernel": "ring_gather", "kernel_us": k_us,
+                  "shape": f"4 x {tuple(segs[0].shards[0].shape)}",
+                  "kernel_profiler_us": k_prof, "kernel_wall_us": k_wall,
+                  "plain_us": p_us, "plain_wall_us": p_wall,
+                  "library_us": lib_us, "library_profiler_us": lib_prof,
+                  "bytes": n_bytes, "bound_us": bound * 1e3,
+                  "kernel_gbps": n_bytes / (k_us * 1e3),
+                  "frac_of_bound": bound * 1e3 / k_us,
+                  "kernel_names": k_names})
+    log(f"  ring_gather 4 x {tuple(segs[0].shards[0].shape)}: kernel "
+        f"{k_us:.3f} us (profiler {k_prof}, wall {k_wall:.2f})  four "
+        f"torch.cat {lib_us:.3f} us (profiler {lib_prof})  plain ring "
+        f"{p_us:.2f} us (wall {p_wall:.2f})  bound {bound * 1e3:.3f} us  "
+        f"{n_bytes / (k_us * 1e3):.1f} GB/s  {bound * 1e3 / k_us:.3f} of "
+        "bound")
+    # the self-ring: a check (a synchronisation) every call, so wall time;
+    # the kernel by profiler
+    xs = [torch.randint(0, 256, (8, 8, 128), generator=gen,
+                        dtype=torch.uint8, device=DEV) for _ in range(4)]
+    s_wall = wall_ms(collectives.selfring, xs, reps) * 1e3
+    s_prof, s_names = profiled_us(collectives.selfring, xs, match="selfring")
+    sp_prof, _ = profiled_us(collectives.selfring_plain, xs)
+    sp_us = sp_prof if sp_prof is not None else \
+        wall_ms(collectives.selfring_plain, xs, reps) * 1e3
+    s_lib = queued_ms(lambda x: torch.cat([x, x], dim=1), xs, reps,
+                      cycles_per_ms) * 1e3
+    s_us = s_prof if s_prof is not None else s_wall
+    rows["selfring"] = (s_us / 1e3, sp_us / 1e3, None, 3 * 8 * 8 * 128, 0)
+    log(f"  selfring (8, 8, 128): profiler {s_prof} us ({s_names}), call "
+        f"wall {s_wall:.2f} us (a synchronisation each)  plain "
+        f"{sp_us:.2f} us  torch.cat {s_lib:.3f} us")
+    # four shards, a launch each, against one launch on the whole image
+    sharded = queued_ms(lambda x: dist.encode_quantize_stereo_sharded(
+        x, lut_q, mesh), imgs, reps, cycles_per_ms) * 1e3
+    single = queued_ms(lambda x: cuda_dct.encode_quantize_stereo(x, lut_q),
+                       imgs, reps, cycles_per_ms) * 1e3
+    sh_wall = wall_ms(lambda x: dist.encode_quantize_stereo_sharded(
+        x, lut_q, mesh), imgs, reps) * 1e3
+    si_wall = wall_ms(lambda x: cuda_dct.encode_quantize_stereo(x, lut_q),
+                      imgs, reps) * 1e3
+    table.append({"kernel": "enc_stereo_4_shards", "kernel_us": sharded,
+                  "single_us": single, "kernel_wall_us": sh_wall,
+                  "single_wall_us": si_wall, "shape": "4096x3840 image"})
+    log(f"  stereo encode of the 4K dual view: 4 shards {sharded:.3f} us "
+        f"(wall {sh_wall:.2f}), one call {single:.3f} us (wall "
+        f"{si_wall:.2f})")
+    return {"ring_gather": lib_us / 1e3, "selfring": s_lib / 1e3}
 
 
 def bound_ms(name: str, n_bytes: int, n_px: int) -> tuple[float, str]:
@@ -1401,7 +1713,7 @@ def bound_ms(name: str, n_bytes: int, n_px: int) -> tuple[float, str]:
                                                            "operations")
 
 
-def kernel_rows(launches, errs, times):
+def kernel_rows(launches, errs, times, library):
     """One entry per kernel: the 4K-view times of this run (the scalar
     layout for encq / decq and the interleaved form for the stereo
     kernels, the other layouts beside it), the bound, the share of a
@@ -1414,7 +1726,8 @@ def kernel_rows(launches, errs, times):
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": launches[path][name],
                "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
-               "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+               "bound_ms": bound, "bound_by": bound_by,
+               "library_ms": library.get(name),
                "us": ms * 1e3, "gbps": n_bytes / (ms * 1e6),
                "frac_of_copy": None if copy is None else copy / ms,
                "frac_of_bound": bound / ms}
@@ -1438,7 +1751,8 @@ def log_ptxas(lines) -> None:
             k = re.search(r"(enc420_rgb|dec420_rgb|enc32_rgb|dec32_rgb"
                           r"|roundtrip32_rgb|enc32|dec32"
                           r"|roundtrip32|probe|encq|decq|enc_stereo"
-                          r"|dec_stereo|tiles|detile)_kernel"
+                          r"|dec_stereo|tiles|detile|ring_gather|selfring)"
+                          r"_kernel"
                           r"(?:I((?:L[ib]\d+E)+)E)?", m.group(1))
             name = f"{k.group(1)}_kernel" if k else m.group(1)
             if k and k.group(2):
@@ -1447,9 +1761,49 @@ def log_ptxas(lines) -> None:
             log(f"  ptxas {name}: {line.split(':', 1)[-1].strip()}")
 
 
+def main_cards(gen, kind, t_start) -> int:
+    """The dist phases with one shard on each of four cards: the gather's
+    peer stores, its flags across cards and the sharded entry points."""
+    require(torch.cuda.device_count() >= 4, "--cards 4 needs four cards")
+    DIST_DEVICES[:] = [f"{DEV}:{i}" for i in range(4)]
+    mesh = dist.make_mesh(4)
+    require([str(d) for d in mesh.devices.flat] == DIST_DEVICES,
+            "make_mesh(4) takes the four cards")
+    lut100 = default_quant_lut(100) * np.float32(255.0)
+    lut_q = default_quant_lut(50)
+    chroma100 = BASE_CHROMA_QUANT_TABLE * np.float32(100 * 255)
+    errs: dict[str, int] = {}
+    timed(phase_compare_dist, gen, lut_q, errs)
+    counts = timed(phase_main_path_dist, gen, lut100, lut_q, lut100,
+                   chroma100)
+    rows, table = {}, []
+    library = timed(timing_dist, gen, lut_q, REPS, sleep_cycles_per_ms(),
+                    rows, table)
+    log(f"chip_smoke --cards 4: every phase passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"cards": DIST_DEVICES, "errs": errs, "launches": {
+        k: counts[k] for k in ("ring_gather", "selfring")},
+        "library_ms": library, "timing": table}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def timed(phase, *args):
+    """Run one phase and log its seconds."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    log(f"  [{phase.__name__}: {time.perf_counter() - t0:.2f} s]")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--cards", type=int, choices=(1, 4), default=1,
+                    help="4: one dist shard on each of four cards, and only "
+                    "the build and the dist phases")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1476,38 +1830,43 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=DEV).manual_seed(args.seed)
+    if args.cards == 4:
+        return main_cards(gen, kind, t_start)
     lut = default_quant_lut(50) * np.float32(255.0)
     errs: dict[str, int] = {}
-    phase_compare(gen, lut, errs)
+    timed(phase_compare, gen, lut, errs)
     # quality 100 is the BASELINE ladder's LUT; at 50 the DC term clips
     lut100 = default_quant_lut(100) * np.float32(255.0)
-    phase_psnr(gen, lut100)
-    counts = phase_main_path(gen, lut100)
+    timed(phase_psnr, gen, lut100)
+    counts = timed(phase_main_path, gen, lut100)
     # enc-quant works in the 1/255 domain: the LUT is 255x cooler
     lut_q = default_quant_lut(50)
-    phase_compare_encq(gen, lut_q, errs)
-    counts_q = phase_main_path_encq(gen, lut_q)
-    phase_compare_stereo(gen, lut_q, errs)
-    counts_s = phase_main_path_stereo(gen, lut_q)
+    timed(phase_compare_encq, gen, lut_q, errs)
+    counts_q = timed(phase_main_path_encq, gen, lut_q)
+    timed(phase_compare_stereo, gen, lut_q, errs)
+    counts_s = timed(phase_main_path_stereo, gen, lut_q)
     # colour: the mode32 raw domain, the JPEG chroma table at quality 100
     chroma100 = BASE_CHROMA_QUANT_TABLE * np.float32(100 * 255)
-    phase_compare_color(gen, lut100, chroma100, errs)
-    counts_c = phase_main_path_color(gen, lut100, chroma100)
-    phase_compare_color420(gen, lut100, chroma100, errs)
-    counts_420 = phase_main_path_color420(gen, lut100, chroma100)
+    timed(phase_compare_color, gen, lut100, chroma100, errs)
+    counts_c = timed(phase_main_path_color, gen, lut100, chroma100)
+    timed(phase_compare_color420, gen, lut100, chroma100, errs)
+    counts_420 = timed(phase_main_path_color420, gen, lut100, chroma100)
     luts = {"raw": lut100, "q": lut_q}
-    identities = phase_compare_tiles(gen, luts, errs)
-    counts_t = phase_main_path_tiles(gen, luts)
-    compat_stats = phase_compat(gen, lut100, lut_q)
-    phase_large_batch(gen, lut100, lut_q)
-    times = phase_timing(gen, lut100, lut_q, chroma100, REPS)
+    identities = timed(phase_compare_tiles, gen, luts, errs)
+    counts_t = timed(phase_main_path_tiles, gen, luts)
+    compat_stats = timed(phase_compat, gen, lut100, lut_q)
+    timed(phase_large_batch, gen, lut100, lut_q)
+    timed(phase_compare_dist, gen, lut_q, errs)
+    counts_d = timed(phase_main_path_dist, gen, lut100, lut_q, lut100,
+                     chroma100)
+    times, library = timed(phase_timing, gen, lut100, lut_q, chroma100, REPS)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     launches = {"mode32": counts, "enc-quant": counts_q, "stereo": counts_s,
                 "colour": counts_c, "colour 4:2:0": counts_420,
-                "tiles": counts_t}
+                "tiles": counts_t, "dist": counts_d}
     log("compat " + json.dumps(compat_stats))
-    rows = kernel_rows(launches, errs, times)
+    rows = kernel_rows(launches, errs, times, library)
     for row in rows:
         if row["name"] in ("tiles", "detile"):
             row["identity_mismatches"] = sum(

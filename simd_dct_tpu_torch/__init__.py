@@ -14,6 +14,8 @@ against; this package never imports jax.  Layer map:
   wrappers (``cuda_dct``) and the nvcc build (``_build``)
 * ``dispatch`` -- tiers ``cuda`` / ``torch`` and the capability probe
 * ``api``      -- validated public entry points
+* ``dist``     -- meshes of devices, strip- and frame-sharded entry points
+  and the plane all-gather kernel (``csrc/collectives.cu``)
 * ``convert``  -- LUT scales and record streams shared with the JAX package
 """
 
@@ -23,6 +25,7 @@ from . import core
 from . import layout
 from . import dispatch
 from . import api
+from . import dist
 from .api import (
     SimdDctResult, SimdDctError, InvalidParameterError, NotSupportedError,
     encode_quantize, decode_quantize, try_encode_quantize,
@@ -36,7 +39,7 @@ from .api import (
 from .core.quantize import default_quant_lut
 
 __all__ = [
-    "core", "layout", "dispatch", "api", "__version__",
+    "core", "layout", "dispatch", "api", "dist", "__version__",
     "SimdDctResult", "SimdDctError", "InvalidParameterError",
     "NotSupportedError",
     "encode_quantize", "decode_quantize", "try_encode_quantize",

@@ -76,7 +76,7 @@ __device__ __forceinline__ long long frame_bytes(int h, int w, int bwp) {
 template <int R, int V>
 __global__ void __launch_bounds__(kRun)
 enc_stereo_kernel(const uint8_t* __restrict__ img, uint8_t* __restrict__ out, Scales q, int h,
-                  int w, int bwp, int start_y, int end_y) {
+                  int w, int bwp, int start_y, int end_y, long long view_stride) {
   __shared__ __align__(16) uint8_t planes[64 * kRun];  // row p: plane p's segment
   const int bw = w >> 3, s_n = h >> 4;
   const int row_len = V == kNative ? bwp : bw;  // block columns a plane row stores
@@ -89,7 +89,7 @@ enc_stereo_kernel(const uint8_t* __restrict__ img, uint8_t* __restrict__ out, Sc
   uint32_t wd[16];
   if (inc && bx < bw) {
     float x[64];
-    load_block(img + frame * h * w + ((long long)v * (h >> 1) + 8 * s) * w + 8 * bx, w, x);
+    load_block(img + frame * h * w + v * view_stride + 8 * s * w + 8 * bx, w, x);
 #pragma unroll
     for (int p = 0; p < 64; ++p) x[p] = __fmul_rn(x[p], kInv255);
     dct2d(x);  // x[u*8 + v] = C[u][v], the fy buffer order
@@ -181,19 +181,22 @@ bool geometry_ok(int batch, int h, int w, int bwp, int layout) {
 
 template <int R>
 int launch_enc(int layout, cudaStream_t st, const uint8_t* in, uint8_t* o, const Scales& q,
-               int batch, int h, int w, int bwp, int start_y, int end_y) {
+               int batch, int h, int w, int bwp, int start_y, int end_y,
+               long long view_stride) {
   const int row = layout == kNative ? bwp : w / 8;
   const dim3 grid((row + kRun - 1) / kRun, h / 16 * 2, batch);
   switch (layout) {
     case kInterleaved:
       enc_stereo_kernel<R, kInterleaved><<<grid, kRun, 0, st>>>(in, o, q, h, w, bwp, start_y,
-                                                                end_y);
+                                                                end_y, view_stride);
       break;
     case kPlanar:
-      enc_stereo_kernel<R, kPlanar><<<grid, kRun, 0, st>>>(in, o, q, h, w, bwp, start_y, end_y);
+      enc_stereo_kernel<R, kPlanar><<<grid, kRun, 0, st>>>(in, o, q, h, w, bwp, start_y, end_y,
+                                                           view_stride);
       break;
     case kNative:
-      enc_stereo_kernel<R, kNative><<<grid, kRun, 0, st>>>(in, o, q, h, w, bwp, start_y, end_y);
+      enc_stereo_kernel<R, kNative><<<grid, kRun, 0, st>>>(in, o, q, h, w, bwp, start_y, end_y,
+                                                           view_stride);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -205,23 +208,32 @@ int launch_enc(int layout, cudaStream_t st, const uint8_t* in, uint8_t* o, const
 
 extern "C" {
 
-// img: (batch, h, w) u8 dual-view frames, contiguous.  out: batch frames of
-// records in the layout's form (h*w bytes each, or 2*64*(h/16)*bwp native).
-// q: 64 host f32 in buffer order.  layout: 0 interleaved, 1 planar, 2 native.
+// img: (batch, h, w) u8 dual-view frames, each view's h/2 rows contiguous,
+// the bottom view view_stride bytes after the top one (h/2*w in a whole
+// image; more for a shard's row range of both views, then batch == 1),
+// frames h*w bytes apart.  out: batch frames of records in the layout's form
+// (h*w bytes each, or 2*64*(h/16)*bwp native).  q: 64 host f32 in buffer
+// order.  layout: 0 interleaved, 1 planar, 2 native.
 int sdct_enc_stereo(const void* img, void* out, const float* q, int batch, int h, int w,
-                    int bwp, int start_y, int end_y, int rounding, int layout, void* stream) {
-  if (!geometry_ok(batch, h, w, bwp, layout)) return (int)cudaErrorInvalidValue;
+                    int bwp, int start_y, int end_y, int rounding, int layout,
+                    long long view_stride, void* stream) {
+  if (!geometry_ok(batch, h, w, bwp, layout) || view_stride < (long long)(h / 2) * w ||
+      view_stride % 16)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const uint8_t* in = (const uint8_t*)img;
   uint8_t* o = (uint8_t*)out;
   const Scales s = to_scales(q);
   switch (rounding) {
     case kRne:
-      return launch_enc<kRne>(layout, st, in, o, s, batch, h, w, bwp, start_y, end_y);
+      return launch_enc<kRne>(layout, st, in, o, s, batch, h, w, bwp, start_y, end_y,
+                                view_stride);
     case kScalar:
-      return launch_enc<kScalar>(layout, st, in, o, s, batch, h, w, bwp, start_y, end_y);
+      return launch_enc<kScalar>(layout, st, in, o, s, batch, h, w, bwp, start_y, end_y,
+                                view_stride);
     case kClampFirst:
-      return launch_enc<kClampFirst>(layout, st, in, o, s, batch, h, w, bwp, start_y, end_y);
+      return launch_enc<kClampFirst>(layout, st, in, o, s, batch, h, w, bwp, start_y, end_y,
+                                view_stride);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -136,6 +136,7 @@ def build() -> str:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    ull = ctypes.c_ulonglong
     lib.sdct_enc32.argtypes = [p, p, p, i, i, i, ll, i, i, i, p]
     lib.sdct_enc32.restype = i
     lib.sdct_dec32.argtypes = [p, p, p, i, i, i, p]
@@ -146,7 +147,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sdct_encq.restype = i
     lib.sdct_decq.argtypes = [p, p, p, i, i, i, i, p]
     lib.sdct_decq.restype = i
-    lib.sdct_enc_stereo.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.sdct_enc_stereo.argtypes = [p, p, p, i, i, i, i, i, i, i, i, ll, p]
     lib.sdct_enc_stereo.restype = i
     lib.sdct_dec_stereo.argtypes = [p, p, p, i, i, i, i, i, p]
     lib.sdct_dec_stereo.restype = i
@@ -164,6 +165,16 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sdct_tiles.restype = i
     lib.sdct_detile.argtypes = [p, p, p, i, i, i, i, i, p]
     lib.sdct_detile.restype = i
+    lib.sdct_ring_gather.argtypes = [p, i, i, ll, ll, ll, i, p, ull, p]
+    lib.sdct_ring_gather.restype = i
+    lib.sdct_selfring.argtypes = [p, i, ll, ll, ll, i, p, ull, p]
+    lib.sdct_selfring.restype = i
+    lib.sdct_gather_capacity.argtypes = [p]
+    lib.sdct_gather_capacity.restype = i
+    lib.sdct_enable_peer.argtypes = [i, i]
+    lib.sdct_enable_peer.restype = i
+    lib.sdct_host_words.argtypes = [i, ctypes.POINTER(ctypes.c_void_p)]
+    lib.sdct_host_words.restype = i
     lib.sdct_probe.argtypes = [p, p, i, p]
     lib.sdct_probe.restype = i
     lib.sdct_error_string.argtypes = [i]

@@ -1,7 +1,9 @@
 """Wrappers around the hand-written CUDA kernels: mode32 (``csrc/dct32.cu``),
 enc-quant (``csrc/encq.cu``), stereo (``csrc/stereo.cu``), YCbCr 4:4:4
 colour (``csrc/color32.cu``), YCbCr 4:2:0 colour (``csrc/color420.cu``) and
-the panel engine's tiles (``csrc/tiles.cu``).
+the panel engine's tiles (``csrc/tiles.cu``), with view-level forms of the
+mode32 and colour encodes for the shards of ``dist`` (whose plane gather
+launches through ``dist/collectives.py`` and counts here).
 
 Counterpart of ``simd_dct_tpu/kernels/pallas_dct.py`` (``encode_quantize32``
 / ``decode_quantize32`` / ``roundtrip_quantize32``, ``encode_quantize`` /
@@ -48,7 +50,8 @@ from . import torch_path as _tp
 LAUNCHES = {"enc32": 0, "dec32": 0, "roundtrip32": 0, "probe": 0,
             "encq": 0, "decq": 0, "enc_stereo": 0, "dec_stereo": 0,
             "enc32_rgb": 0, "dec32_rgb": 0, "roundtrip32_rgb": 0,
-            "enc420_rgb": 0, "dec420_rgb": 0, "tiles": 0, "detile": 0}
+            "enc420_rgb": 0, "dec420_rgb": 0, "tiles": 0, "detile": 0,
+            "ring_gather": 0, "selfring": 0}
 
 _ROUNDING_CODE = {"rne": 0, "scalar": 1, "clamp_first": 2}
 _LAYOUT_CODE = {"scalar": 0, "pair": 1, "pair_as_written": 2}
@@ -93,7 +96,13 @@ def supports_mode(mode: str, h: int, w: int, layout: str = "scalar") -> bool:
     return False
 
 
-def _check_tensor(t, name: str, ndims: tuple[int, ...]) -> None:
+def _check_tensor(t, name: str, ndims: tuple[int, ...],
+                  strided_lead: bool = False) -> None:
+    """Device, dtype, dims, contiguity and alignment.  ``strided_lead``
+    takes a view whose rows are contiguous but whose leading axis may be
+    strided, as a row range of a larger image is (the view-level kernels
+    take that frame or plane stride: a whole number of 16-byte units, no
+    smaller than one view)."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
     if t.device.type not in ("cpu", "cuda"):
@@ -104,7 +113,15 @@ def _check_tensor(t, name: str, ndims: tuple[int, ...]) -> None:
     if t.ndim not in ndims:
         raise ValueError(f"{name} must have {' or '.join(map(str, ndims))} "
                          f"dims, got shape {tuple(t.shape)}")
-    if not t.is_contiguous():
+    if strided_lead:
+        h2, w = t.shape[-2:]
+        if t.stride(-1) != 1 or (h2 > 1 and t.stride(-2) != w):
+            raise ValueError(f"{name} must have contiguous rows")
+        if t.ndim == 3 and t.shape[0] > 1 and (t.stride(0) < h2 * w
+                                               or t.stride(0) % 16):
+            raise ValueError(f"{name}'s leading stride {t.stride(0)} must be "
+                             f"a multiple of 16 and at least {h2 * w}")
+    elif not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if t.device.type == "cuda" and t.data_ptr() % 16:
         raise ValueError(f"{name} must start on a 16-byte boundary")
@@ -152,15 +169,17 @@ def batch_slices(batch: int) -> list[tuple[int, int]]:
 
 
 def _launch(name: str, tensors: tuple[torch.Tensor, ...], batch: int,
-            launch) -> None:
+            launch, frame_bytes: list[int] | None = None) -> None:
     """Launch kernel ``name`` once per slice of ``batch_slices(batch)``:
     ``launch(lib, src, dst, frames)`` gets the pointers of ``tensors``
-    (input, output; each ``batch`` contiguous frames) advanced to the
-    slice's first frame.  Each launch adds one to ``LAUNCHES[name]``, so a
-    batch of more than ``_MAX_BATCH`` frames counts more than one; a launch
-    that returns a CUDA error raises."""
+    (input, output; each ``batch`` frames, contiguous unless
+    ``frame_bytes`` gives their strides) advanced to the slice's first
+    frame.  Each launch adds one to ``LAUNCHES[name]``, so a batch of more
+    than ``_MAX_BATCH`` frames counts more than one; a launch that returns
+    a CUDA error raises."""
     lib = _build.load()
-    frame_bytes = [t.numel() // batch for t in tensors]
+    if frame_bytes is None:
+        frame_bytes = [t.numel() // batch for t in tensors]
     with _on_device_of(tensors[0]):
         for lo, n in batch_slices(batch):
             rc = launch(lib, *(t.data_ptr() + lo * f
@@ -336,19 +355,26 @@ def encode_quantize_stereo(img: torch.Tensor, lut, start_y: int = 0,
     if img.device.type == "cpu":
         return _tp.encode_quantize_stereo(img, lut, start_y, end_y, rounding,
                                           view_layout)
-    batch = _batch_of(img, 2)
     out = torch.empty(img.shape[:-2] + frame, dtype=torch.uint8,
                       device=img.device)
+    _enc_stereo(img, out, _batch_of(img, 2), h, w, (h // 2) * w, lut,
+                start_y, end_y, rounding, view_layout)
+    return out
+
+
+def _enc_stereo(img, out, batch: int, h: int, w: int, view_stride: int, lut,
+                start_y: int, end_y: int, rounding: str,
+                view_layout: str) -> None:
     if out.numel() == 0:
-        return out
+        return
     q, _ = _host_scales(lut)
     _launch("enc_stereo", (img, out), batch,
             lambda lib, src, dst, n: lib.sdct_enc_stereo(
                 src, dst, q.ctypes.data, n, h, w,
                 L_stereo.native_stereo_bwp(w), _clamp_i32(start_y),
                 _clamp_i32(end_y), _ROUNDING_CODE[rounding],
-                _VIEW_LAYOUT_CODE[view_layout], _stream(img)))
-    return out
+                _VIEW_LAYOUT_CODE[view_layout], view_stride, _stream(img)),
+            frame_bytes=[h * w, out.numel() // batch])
 
 
 def decode_quantize_stereo(data: torch.Tensor, lut, size_x: int, size_y: int,
@@ -521,6 +547,135 @@ def decode_quantize32_ycbcr420(data: torch.Tensor, luma, chroma, size_x: int,
             lambda lib, src, dst, n: lib.sdct_dec420_rgb(
                 src, dst, qil.ctypes.data, qic.ctypes.data,
                 _COLOR_MIX.ctypes.data, n, h2, size_x, _stream(data)))
+    return out
+
+
+# -- bare views: the shards of ``dist`` ---------------------------------------
+
+def _lead_stride(t: torch.Tensor) -> int:
+    h2, w = t.shape[-2:]
+    return t.stride(0) if t.ndim == 3 and t.shape[0] > 1 else h2 * w
+
+
+def encode32_view(view: torch.Tensor, lut,
+                  rounding: str = "rne") -> torch.Tensor:
+    """Mode32 encode of a bare (H2, W) view, or a (B, H2, W) batch of them,
+    -> (H2*W,) or (B, H2*W) u8 records (every strip).  The rows must be
+    contiguous, the frames may lie a stride apart: a shard's row range of
+    a top view or of a batch of frames goes in as it is."""
+    _check_tensor(view, "view", (2, 3), strided_lead=True)
+    h2, w = view.shape[-2:]
+    _check_geometry("enc_quant32", 2 * h2, w)
+    if rounding not in ROUNDING_MODES:
+        raise ValueError(f"rounding must be one of {ROUNDING_MODES}")
+    if view.device.type == "cpu":
+        return _tp.encode32_view(view, lut, rounding)
+    batch = _batch_of(view, 2)
+    stride = _lead_stride(view)
+    out = torch.empty(view.shape[:-2] + (h2 * w,), dtype=torch.uint8,
+                      device=view.device)
+    if out.numel() == 0:
+        return out
+    q, _ = _host_scales(lut)
+    _launch("enc32", (view, out), batch,
+            lambda lib, src, dst, n: lib.sdct_enc32(
+                src, dst, q.ctypes.data, n, h2, w, stride, 0, _I32_MAX,
+                _ROUNDING_CODE[rounding], _stream(view)),
+            frame_bytes=[stride, h2 * w])
+    return out
+
+
+def decode32_view(records: torch.Tensor, lut) -> torch.Tensor:
+    """Mode32 records as strips, (S, 8W) or (B, S, 8W) u8 -> the (8S, W) or
+    (B, 8S, W) u8 view (``decode_quantize32`` of the flat records)."""
+    _check_tensor(records, "records", (2, 3))
+    s, row = records.shape[-2:]
+    if row % 8:
+        raise ValueError(f"a strip of records is 8*W bytes, got {row}")
+    return decode_quantize32(records.reshape(records.shape[:-2] + (s * row,)),
+                             lut, row // 8, 16 * s)
+
+
+def encode_stereo_view(views: torch.Tensor, lut, rounding: str = "rne",
+                       view_layout: str = "interleaved") -> torch.Tensor:
+    """Stereo encode of a bare (2, H2, W) pair of views -- one row range of
+    the top view and the same of the bottom view, rows contiguous, the two
+    a stride apart (a shard's strips of a dual-view image go in as they
+    are) -> the records ``encode_quantize_stereo`` gives for the (2*H2, W)
+    image they make; one launch."""
+    _check_tensor(views, "views", (3,), strided_lead=True)
+    if views.shape[0] != 2:
+        raise ValueError(f"views must be (2, H2, W), got shape "
+                         f"{tuple(views.shape)}")
+    h2, w = views.shape[-2:]
+    h = 2 * h2
+    frame = L_stereo.record_shape(view_layout, h, w)
+    _check_geometry("enc_quant_stereo", h, w)
+    if rounding not in ROUNDING_MODES:
+        raise ValueError(f"rounding must be one of {ROUNDING_MODES}")
+    if views.device.type == "cpu":
+        return _tp.encode_quantize_stereo(views.reshape(h, w), lut, 0,
+                                          1 << 30, rounding, view_layout)
+    out = torch.empty(frame, dtype=torch.uint8, device=views.device)
+    _enc_stereo(views, out, 1, h, w, _lead_stride(views), lut, 0, 1 << 30,
+                rounding, view_layout)
+    return out
+
+
+def _check_rgb_view(view, geometry: str) -> tuple[int, int]:
+    _check_tensor(view, "view", (3,), strided_lead=True)
+    if view.shape[0] != 3:
+        raise ValueError(f"view must be (3, H2, W) planar RGB, got shape "
+                         f"{tuple(view.shape)}")
+    h2, w = view.shape[-2:]
+    _check_geometry(geometry, 2 * h2, w)
+    return h2, w
+
+
+def encode32_rgb_view(view: torch.Tensor, luma, chroma,
+                      rounding: str = "rne") -> torch.Tensor:
+    """Colour mode32 encode of a bare (3, H2, W) planar RGB view, whose
+    planes may lie a stride apart (a shard's rows of a (3, H, W) image) ->
+    (3, H2*W) u8 records; one launch."""
+    h2, w = _check_rgb_view(view, "enc_quant32_ycbcr")
+    if rounding not in ROUNDING_MODES:
+        raise ValueError(f"rounding must be one of {ROUNDING_MODES}")
+    if view.device.type == "cpu":
+        return _tp.encode_ycbcr32_view(view, luma, chroma, rounding)
+    out = torch.empty((3, h2 * w), dtype=torch.uint8, device=view.device)
+    if out.numel() == 0:
+        return out
+    ql, _ = _host_scales(luma)
+    qc, _ = _host_scales(chroma)
+    _launch("enc32_rgb", (view, out), 1,
+            lambda lib, src, dst, n: lib.sdct_enc32_rgb(
+                src, dst, ql.ctypes.data, qc.ctypes.data,
+                _COLOR_MIX.ctypes.data, n, h2, w, _lead_stride(view),
+                _ROUNDING_CODE[rounding], _stream(view)))
+    return out
+
+
+def encode420_rgb_view(view: torch.Tensor, luma, chroma,
+                       rounding: str = "rne") -> torch.Tensor:
+    """Colour 4:2:0 encode of a bare (3, H2, W) planar RGB view, planes a
+    stride apart as for ``encode32_rgb_view`` -> the (1.5*H2*W,) u8 stream
+    [Y | Cb | Cr]; one launch."""
+    h2, w = _check_rgb_view(view, "enc_quant32_ycbcr420")
+    if rounding not in ROUNDING_MODES:
+        raise ValueError(f"rounding must be one of {ROUNDING_MODES}")
+    if view.device.type == "cpu":
+        return _tp.encode_ycbcr420_view(view, luma, chroma, rounding)
+    out = torch.empty((record_bytes_420(h2, w),), dtype=torch.uint8,
+                      device=view.device)
+    if out.numel() == 0:
+        return out
+    ql, _ = _host_scales(luma)
+    qc, _ = _host_scales(chroma)
+    _launch("enc420_rgb", (view, out), 1,
+            lambda lib, src, dst, n: lib.sdct_enc420_rgb(
+                src, dst, ql.ctypes.data, qc.ctypes.data,
+                _COLOR_MIX.ctypes.data, n, h2, w, _lead_stride(view),
+                _ROUNDING_CODE[rounding], _stream(view)))
     return out
 
 

@@ -192,11 +192,11 @@ def decode_quantize_stereo(data: torch.Tensor, lut, size_x: int, size_y: int,
         _buffers_to_view(coeffs, normalize=True, orientation="fy"))
 
 
-def _ycc_top(planes: torch.Tensor) -> torch.Tensor:
-    """(..., 3, H, W) u8 planar RGB -> (..., 3, H/2, W) f32 YCbCr of the
-    TOP view: the BT.601 mix, bias added, no u8 step."""
-    top = L_stereo.top_view(planes).to(torch.float32)
-    return L_color.mix_planes(top, L_color.RGB2YCC, L_color.YCC_BIAS)
+def _ycc(view: torch.Tensor) -> torch.Tensor:
+    """(..., 3, H2, W) u8 planar RGB of a bare view -> (..., 3, H2, W) f32
+    YCbCr: the BT.601 mix, bias added, no u8 step."""
+    return L_color.mix_planes(view.to(torch.float32), L_color.RGB2YCC,
+                              L_color.YCC_BIAS)
 
 
 def _plane_records(planes: torch.Tensor, scales: torch.Tensor,
@@ -237,9 +237,17 @@ def encode_ycbcr32(planes: torch.Tensor, luma, chroma,
     channel the mode32 encode in the raw 0..255 domain, Y with ``luma``'s
     scales and Cb, Cr with ``chroma``'s.  -> (..., 3, H/2*W) u8 (counterpart
     of ``simd_dct_tpu/kernels/color32.py`` ``encode_ycbcr_xla``)."""
+    return encode_ycbcr32_view(L_stereo.top_view(planes), luma, chroma,
+                               rounding)
+
+
+def encode_ycbcr32_view(view: torch.Tensor, luma, chroma,
+                        rounding: str = "rne") -> torch.Tensor:
+    """``encode_ycbcr32`` of a bare (..., 3, H2, W) planar RGB view ->
+    (..., 3, H2*W) u8 records."""
     return _plane_records(
-        _ycc_top(planes),
-        _channel_scales(quant_scales, luma, chroma, planes.device), rounding)
+        _ycc(view), _channel_scales(quant_scales, luma, chroma, view.device),
+        rounding)
 
 
 def decode_ycbcr32(data: torch.Tensor, luma, chroma, size_x: int,
@@ -271,9 +279,17 @@ def encode_ycbcr420(planes: torch.Tensor, luma, chroma,
     resolution Cb, Cr with ``chroma``'s.  -> (..., 1.5*H/2*W) u8 stream
     [Y | Cb | Cr] (counterpart of ``simd_dct_tpu/kernels/color420.py``
     ``encode_ycbcr420_xla`` and ``pack_records``)."""
-    h2, w = planes.shape[-2] // 2, planes.shape[-1]
-    ycc = _ycc_top(planes)
-    dev = planes.device
+    return encode_ycbcr420_view(L_stereo.top_view(planes), luma, chroma,
+                                rounding)
+
+
+def encode_ycbcr420_view(view: torch.Tensor, luma, chroma,
+                         rounding: str = "rne") -> torch.Tensor:
+    """``encode_ycbcr420`` of a bare (..., 3, H2, W) planar RGB view ->
+    (..., 1.5*H2*W) u8 stream."""
+    h2, w = view.shape[-2:]
+    ycc = _ycc(view)
+    dev = view.device
     y_rec = _plane_records(ycc[..., 0, :, :], quant_scales(luma, dev),
                            rounding)
     c_rec = _plane_records(L_color420.pool2x2(ycc[..., 1:, :, :]),

@@ -458,3 +458,153 @@ def test_scales_on_the_card_equal_the_host(gen):
         assert torch.equal(quant_scales(lut, "cuda").cpu(), quant_scales(lut))
         assert torch.equal(dequant_scales(lut, "cuda").cpu(),
                            dequant_scales(lut))
+
+
+# -- the dist path: four shards on one card and the plane gather -------------
+
+def _mesh4():
+    from simd_dct_tpu_torch import dist
+    return dist.make_mesh(4, devices=["cuda:0"] * 4)
+
+
+@pytest.mark.parametrize("view_layout", ["interleaved", "native"])
+def test_ring_gather_equals_the_ring_and_the_unsharded_call(gen, view_layout):
+    from simd_dct_tpu_torch import dist
+    from simd_dct_tpu_torch.dist import collectives as C
+    mesh = _mesh4()
+    img = _img(gen, 512, 384)
+    seg = dist.encode_quantize_stereo_sharded(img, LUT_Q, mesh,
+                                              view_layout=view_layout)
+    K.reset_launch_counts()
+    got = C.gather_planes_remote(seg, mesh)
+    assert K.LAUNCHES["ring_gather"] == 1
+    ring = C.gather_planes_ring(seg, mesh)
+    want = sd.encode_quantize_stereo(img, LUT_Q, view_layout=view_layout)
+    for a, b in zip(got.shards, ring.shards):
+        assert torch.equal(a, b)
+        assert torch.equal(a.reshape(want.shape), want)
+
+
+def test_ring_gather_byte_rows_and_a_2d_mesh(gen):
+    from simd_dct_tpu_torch import dist
+    from simd_dct_tpu_torch.dist import collectives as C
+    mesh2 = dist.make_mesh_2d((2, 2), devices=["cuda:0"] * 4)
+    seg = _img(gen, 64, 16, 15)                 # 120-byte rows: byte stores
+    got = C.gather_planes_remote(seg, mesh2, axis_name="chip")
+    for replica in got.shards:
+        assert torch.equal(replica, seg)
+
+
+def test_selfring_on_the_card(gen):
+    from simd_dct_tpu_torch.dist import collectives as C
+    assert C.remote_dma_selfring_smoke() is True
+    x = _img(gen, 8, 8, 128)
+    assert torch.equal(C.selfring(x), C.selfring_plain(x))
+
+
+def test_a_spin_that_times_out_raises(gen):
+    from simd_dct_tpu_torch import dist
+    from simd_dct_tpu_torch.dist import collectives as C
+    mesh = _mesh4()
+    seg = dist.strip_sharding(_img(gen, 64, 64, 32), mesh, dim=1)
+    C.gather_planes_remote(seg, mesh)
+    mesh._collective_workspace.arr[0] += 1      # one arrival too many expected
+    C.gather_planes_remote(seg, mesh, timeout_s=0.05)     # does not wait
+    with pytest.raises(sd.SimdDctError, match="within"):
+        C.check_workspace(mesh)
+    assert mesh._collective_workspace is None
+    again = C.gather_planes_remote(seg, mesh)
+    assert torch.equal(again.shards[0], seg.full())
+
+
+def test_a_timed_out_gather_is_reported_by_the_next(gen):
+    from simd_dct_tpu_torch import dist
+    from simd_dct_tpu_torch.dist import collectives as C
+    mesh = _mesh4()
+    seg = dist.strip_sharding(_img(gen, 64, 64, 32), mesh, dim=1)
+    C.gather_planes_remote(seg, mesh)
+    mesh._collective_workspace.arr[1] += 1
+    C.gather_planes_remote(seg, mesh, timeout_s=0.05)
+    torch.cuda.synchronize()
+    with pytest.raises(sd.SimdDctError, match="arrive"):
+        C.gather_planes_remote(seg, mesh)
+    assert mesh._collective_workspace is None
+    assert torch.equal(C.gather_planes_remote(seg, mesh).shards[3],
+                       seg.full())
+
+
+def _cards_mesh():
+    from simd_dct_tpu_torch import dist
+    n = min(torch.cuda.device_count(), 4)
+    if n < 2:
+        pytest.skip("needs two or more CUDA cards")
+    return dist.make_mesh(n)
+
+
+def _sleep_ms(dev, ms):
+    """Keep ``dev``'s current stream busy for about ``ms`` milliseconds."""
+    with torch.cuda.device(dev):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(10_000_000)
+        end.record()
+        end.synchronize()
+        torch.cuda._sleep(int(ms * 1e7 / start.elapsed_time(end)))
+
+
+def test_a_lagging_card_does_not_time_out(gen):
+    """A card busy for six spin bounds: its peers' streams wait for it, so
+    no kernel spins out and every replica is exact."""
+    from simd_dct_tpu_torch import dist
+    from simd_dct_tpu_torch.dist import collectives as C
+    mesh = _cards_mesh()
+    cards = list(mesh.devices.flat)
+    seg = dist.strip_sharding(_img(gen, 64, 16 * len(cards), 480), mesh,
+                              dim=1)
+    C.gather_planes_remote(seg, mesh)
+    _sleep_ms(cards[-1], 300)
+    got = C.gather_planes_remote(seg, mesh, timeout_s=0.05)
+    C.check_workspace(mesh)
+    for replica in got.shards:
+        assert torch.equal(replica.cpu(), seg.full().cpu())
+
+
+def test_a_timeout_across_cards_never_writes_freed_memory(gen, monkeypatch):
+    """Without the streams' joins, card 0 spins out at the barrier while the
+    last card is busy; that card's kernel still stores into card 0's output
+    later.  The output was dropped at once and a new tensor of its size
+    taken on card 0: it must keep its bytes, and the error must be raised
+    only after every card has finished."""
+    from simd_dct_tpu_torch import dist
+    from simd_dct_tpu_torch.dist import collectives as C
+    mesh = _cards_mesh()
+    cards = list(mesh.devices.flat)
+    seg = dist.strip_sharding(_img(gen, 64, 16 * len(cards), 480), mesh,
+                              dim=1)
+    shape = C.gather_planes_remote(seg, mesh).shards[0].shape
+    C.check_workspace(mesh)
+    monkeypatch.setattr(C, "_start_together", lambda cards: None)
+    _sleep_ms(cards[-1], 300)
+    got = C.gather_planes_remote(seg, mesh, timeout_s=0.05)
+    del got
+    with torch.cuda.device(cards[0]):
+        keep = torch.full(shape, 7, dtype=torch.uint8, device=cards[0])
+    with pytest.raises(sd.SimdDctError, match="within"):
+        C.check_workspace(mesh)
+    assert int((keep != 7).sum()) == 0
+    monkeypatch.undo()
+    again = C.gather_planes_remote(seg, mesh)
+    assert torch.equal(again.shards[0].cpu(), seg.full().cpu())
+
+
+def test_sharded_mode32_and_colour_equal_the_unsharded_calls(gen):
+    from simd_dct_tpu_torch import dist
+    mesh = _mesh4()
+    img = _img(gen, 512, 384)
+    rec = dist.encode_quantize32_sharded(img, LUT, mesh)
+    assert torch.equal(rec.full().reshape(-1), sd.encode_quantize32(img, LUT))
+    rgb = _img(gen, 3, 512, 384)
+    crec = dist.encode_quantize32_ycbcr_sharded(rgb, LUT, CHROMA, mesh)
+    assert torch.equal(crec.full().reshape(3, -1),
+                       sd.encode_quantize32_ycbcr(rgb, LUT, CHROMA))
