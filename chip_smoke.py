@@ -130,7 +130,9 @@ result line):
       api call on the card byte for byte.
 Phase 10 runs last, after phase 20; it also times the gather kernel on
 the 4K stereo segments of four shards against four torch.cats (its
-library call) and the bound, the self-ring call, and the 4-shard stereo
+library call, by the same two estimators) and the bound, with the launch
+plan (CTAs a rank, tile bytes, stages); the self-ring kernel against
+torch.cat([x, x], 1), both by the profiler; and the 4-shard stereo
 encode against the one-launch call.  Each phase logs its seconds.  The
 line before the last is a JSON object with one entry per kernel (its
 time, its bound and its share of the copy); the last line is
@@ -1652,6 +1654,7 @@ def timing_dist(gen, lut_q, reps, cycles_per_ms, rows, table):
     p_wall = wall_ms(plain, segs, PLAIN_WALL_REPS) * 1e3
     p_us = p_prof if p_prof is not None else p_wall
     bound, _ = bound_ms("ring_gather", n_bytes, 0)
+    plan = mesh._collective_workspace.last_plan._asdict()
     rows["ring_gather"] = (k_us / 1e3, p_us / 1e3, None, n_bytes, 0)
     table.append({"kernel": "ring_gather", "kernel_us": k_us,
                   "shape": f"4 x {tuple(segs[0].shards[0].shape)}",
@@ -1661,29 +1664,44 @@ def timing_dist(gen, lut_q, reps, cycles_per_ms, rows, table):
                   "bytes": n_bytes, "bound_us": bound * 1e3,
                   "kernel_gbps": n_bytes / (k_us * 1e3),
                   "frac_of_bound": bound * 1e3 / k_us,
-                  "kernel_names": k_names})
+                  "kernel_names": k_names, "plan": plan})
     log(f"  ring_gather 4 x {tuple(segs[0].shards[0].shape)}: kernel "
         f"{k_us:.3f} us (profiler {k_prof}, wall {k_wall:.2f})  four "
         f"torch.cat {lib_us:.3f} us (profiler {lib_prof})  plain ring "
         f"{p_us:.2f} us (wall {p_wall:.2f})  bound {bound * 1e3:.3f} us  "
         f"{n_bytes / (k_us * 1e3):.1f} GB/s  {bound * 1e3 / k_us:.3f} of "
-        "bound")
+        f"bound  CTAs a rank {plan['blocks']}, tile {plan['tile']} bytes, "
+        f"stages {plan['stages']}")
     # the self-ring: a check (a synchronisation) every call, so wall time;
-    # the kernel by profiler
+    # the kernel and its library call by profiler, the same estimator
     xs = [torch.randint(0, 256, (8, 8, 128), generator=gen,
                         dtype=torch.uint8, device=DEV) for _ in range(4)]
     s_wall = wall_ms(collectives.selfring, xs, reps) * 1e3
     s_prof, s_names = profiled_us(collectives.selfring, xs, match="selfring")
+    s_plan = collectives._self_meshes[xs[0].device] \
+        ._collective_workspace.last_plan._asdict()
     sp_prof, _ = profiled_us(collectives.selfring_plain, xs)
     sp_us = sp_prof if sp_prof is not None else \
         wall_ms(collectives.selfring_plain, xs, reps) * 1e3
-    s_lib = queued_ms(lambda x: torch.cat([x, x], dim=1), xs, reps,
-                      cycles_per_ms) * 1e3
+
+    def cat2(x):
+        return torch.cat([x, x], dim=1)
+
+    s_lib_queued = queued_ms(cat2, xs, reps, cycles_per_ms) * 1e3
+    s_lib_prof, _ = profiled_us(cat2, xs)
     s_us = s_prof if s_prof is not None else s_wall
+    s_lib = s_lib_prof if s_lib_prof is not None else s_lib_queued
     rows["selfring"] = (s_us / 1e3, sp_us / 1e3, None, 3 * 8 * 8 * 128, 0)
+    table.append({"kernel": "selfring", "shape": "(8, 8, 128)",
+                  "kernel_profiler_us": s_prof, "kernel_wall_us": s_wall,
+                  "plain_us": sp_us, "library_profiler_us": s_lib_prof,
+                  "library_us": s_lib_queued, "kernel_names": s_names,
+                  "plan": s_plan})
     log(f"  selfring (8, 8, 128): profiler {s_prof} us ({s_names}), call "
         f"wall {s_wall:.2f} us (a synchronisation each)  plain "
-        f"{sp_us:.2f} us  torch.cat {s_lib:.3f} us")
+        f"{sp_us:.2f} us  torch.cat([x, x], 1) profiler {s_lib_prof} us "
+        f"(queued events {s_lib_queued:.3f})  CTAs {s_plan['blocks']}, tile "
+        f"{s_plan['tile']} bytes, stages {s_plan['stages']}")
     # four shards, a launch each, against one launch on the whole image
     sharded = queued_ms(lambda x: dist.encode_quantize_stereo_sharded(
         x, lut_q, mesh), imgs, reps, cycles_per_ms) * 1e3

@@ -15,10 +15,43 @@
 //
 // selfring_kernel replaces simd_dct_tpu/dist/collectives.py:310 (the kernel
 // of remote_dma_selfring_smoke): the same device code on a one-rank ring
-// whose peer is the card itself -- the barrier signalled twice to itself
-// and waited for 2, the local copy into slot 0, one store through the
-// peer-pointer path into slot `chunk` of the same buffer, its arrival
-// signalled and waited for.
+// whose peer is the card itself, on one CTA -- the barrier signalled twice
+// to itself and waited for, the segment loaded into shared memory, stored
+// into slot 0 and, through the peer-pointer path, into slot `chunk` of the
+// same buffer, its arrival signalled and waited for.
+//
+// Bound: bytes.  A call reads each segment once and writes it n times (the
+// 4K dual view's stereo segments over four ranks: 15.7 MB in, 62.9 MB out,
+// 23.5 us at 3.35 TB/s); there is no arithmetic.
+//
+// The copy.  A segment is cut into tiles: as many whole rows as fit in
+// kMaxTile (16 KB), or, for a longer row, the row cut into the fewest
+// pieces of at most kMaxTile bytes, rounded up to 16, the last piece taking
+// what is left (a 4K row of 61,440 bytes: four tiles of 15,360).  A tile is
+// contiguous in the source, so one bulk load (the TMA's
+// cp.async.bulk...mbarrier::complete_tx) brings it into shared memory; each
+// of its rows then leaves in one bulk store (cp.async.bulk.global.shared
+// ::cta.bulk_group) per replica.  Thread 0 of a CTA walks its tiles (tile
+// blockIdx.x, then every gridDim.x-th) through a ring of `stages` (2 to 4)
+// shared buffers: the first `stages` loads are issued at once, before the
+// barrier; after a tile's stores are committed, the buffer of the tile
+// before is refilled as soon as its stores have read it out
+// (wait_group.read 1).  No register
+// holds a byte and no index is computed per byte.  The host gives each rank
+// one CTA per 32 KB of its segment, at most two CTAs per SM for the whole
+// launch (the card's ranks share them) and never more than a cooperative
+// launch holds: the 4K segments take 66 CTAs a rank on four ranks of one
+// H100, the self-ring's 8 KB one.
+//   The design this one replaced had every thread load 16 bytes and store
+// them n times: each unit found its row by a 64-bit division, and since a
+// store might alias the source, the next load waited for the n stores, so
+// few bytes were in flight; and it ran 1,056 CTAs of 256 threads, each
+// fencing at system scope and adding to n-1 counters.  It ran at 0.46 of
+// the bound, level with four torch.cats that move twice the bytes.
+//   Rows that are not 16-byte multiples, or a pointer that is not 16-byte
+// aligned, take the kernel's byte variant (kBulk = false; the host picks it
+// from the alignment): the same tiles, each walked a row at a time by the
+// CTA's 256 threads, a byte each, with no division per byte.
 //
 // Synchronisation.  Each rank owns, in a flag workspace on its card that is
 // allocated once per mesh, one barrier slot for each rank of its ring and
@@ -28,45 +61,66 @@
 // arrival counter must reach, so nothing is ever reset.  Comparisons are on
 // the signed difference, so generations and counters wrap at 2^32 without
 // harm as long as none lags its target by 2^31.
+//   * Scope (kSys): when every rank of the launch and every destination are
+//     on one card (one card in the mesh; always for the self-ring) the
+//     fences, releases, acquires and reductions are at .gpu scope, which
+//     orders them as well there; across cards at .sys scope.  The error
+//     word is host memory: its store is followed by a system fence, on the
+//     error path only.
 //   * Barrier: CTA 0 of a rank stores the generation into its slot of every
-//     rank it will store into (release, system scope); every CTA waits until
-//     each peer's slot of its own rank holds this generation or a later one
-//     (acquire).  A rank's kernel running means the work queued before it on
-//     that card's stream is done, so no peer writes into an output that the
+//     rank it will store into (release); every CTA waits until each peer's
+//     slot of its own rank holds this generation or a later one (acquire).
+//     A rank's kernel running means the work queued before it on that
+//     card's stream is done, so no peer writes into an output that the
 //     caching allocator handed out while an earlier kernel still used the
 //     memory.  A slot only moves forward when its peer enters a gather, so a
 //     rank that timed out in an earlier gather never lets a later one pass
-//     before every peer has entered it.
-//   * Arrival: after its stores, a CTA fences at system scope and adds 1 to
-//     the arrival counter of each peer it stored into; CTA 0 of a rank
-//     returns only once its own counter has reached the target, so the
-//     kernel ends after every byte of its output has landed.  A peer can add
-//     to it only after it has passed this gather's barrier, so the counter
-//     can lag its target (a timed-out gather) but never pass it early.
-//   * Every spin is bounded by %globaltimer (nanoseconds): when it runs out
-//     the CTA writes an error code into the card's error word and returns.
+//     before every peer has entered it.  A CTA's first loads (of its own
+//     segment, which no peer writes) are issued before it waits, so their
+//     latency overlaps the barrier's; after the barrier, thread 0 issues a
+//     proxy fence (fence.proxy.async.global), so the bulk stores, which are
+//     the async proxy's, come after the acquires.
+//   * Arrival: the order is (1) cp.async.bulk.wait_group 0 -- every bulk
+//     store of the CTA complete, not only read out of shared memory; (2)
+//     fence.proxy.async.global -- those writes visible to the generic proxy;
+//     (3) __syncthreads and one release reduction of 1 (red.release at the
+//     scope) on the arrival counter of each peer the CTA stored into.  The
+//     byte variant's stores are its 256 threads', so there thread 0 fences
+//     at the scope between (3)'s two steps; the bulk variant's stores are
+//     thread 0's own, which its release orders (a fence there cost 0.3 us
+//     of the self-ring's 4.9 on an H100).  CTA 0 of a rank returns only once
+//     its own counter has reached the target, so the kernel ends after
+//     every byte of its output has landed.  A peer can add to it only after
+//     it has passed this gather's barrier, so the counter can lag its
+//     target (a timed-out gather) but never pass it early.
+//   * Every spin is bounded by %globaltimer (nanoseconds), the wait for a
+//     bulk load's mbarrier too: when it runs out the CTA writes an error
+//     code into the card's error word and returns.
 //     The host reads that word without waiting on a stream; a hang becomes
 //     an error.
 //   * Spinning CTAs need the CTAs they wait for to be resident: one
 //     cooperative launch per card covers all that card's ranks
 //     (blockIdx.y = local rank), its grid no larger than the card holds.
 //
-// Bound: bytes.  A call reads each segment once and writes it n times;
-// stores of 16 bytes where the row and the pointers allow, bytes otherwise.
-// No arithmetic.
+// A store into a peer card's memory is a bulk store too: the peer's memory
+// is mapped into this card's address space (peer access), and the TMA
+// takes any global address there.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kGatherThreads = 256;
-constexpr int kMaxDst = 8;     // ranks of a ring (destinations of a rank)
-constexpr int kMaxLocal = 8;   // ranks of one launch (on one card)
+constexpr int kBulkThreads = 32;   // one warp: the barrier's lanes, thread 0 copies
+constexpr int kByteThreads = 256;
+constexpr int kMaxTile = 16384;    // bytes of a tile, at most
+constexpr int kMaxStages = 4;      // shared buffers of a CTA, at most
+constexpr int kMaxDst = 8;         // ranks of a ring (destinations of a rank)
+constexpr int kMaxLocal = 8;       // ranks of one launch (on one card)
 // int64 words of a rank's descriptor as the host packs it
 constexpr int kDescWords = 7 + 4 * kMaxDst;
 
-enum GatherError : unsigned { kErrNone = 0, kErrBarrier = 1, kErrArrival = 2 };
+enum GatherError : unsigned { kErrNone = 0, kErrBarrier = 1, kErrArrival = 2, kErrLoad = 3 };
 
 struct RankDesc {
   const uint8_t* src;              // (outer, row_bytes) contiguous
@@ -85,6 +139,11 @@ struct GatherParams {
   long long outer;                 // rows of a segment
   long long row_bytes;             // bytes of a segment row (chunk * inner)
   long long dst_stride;            // bytes of an output row (n * row_bytes)
+  long long tile;                  // bytes of a tile (the last may be short)
+  long long rows_per_tile;         // whole rows a tile (1 when pieces > 1)
+  long long pieces;                // tiles a row (1 when rows_per_tile > 1)
+  long long n_tiles;               // tiles of a segment
+  int stages;                      // shared buffers of a CTA (bulk variant)
   unsigned* err;                   // this card's error word (host-mapped)
   unsigned long long timeout_ns;
 };
@@ -95,24 +154,43 @@ __device__ __forceinline__ unsigned long long now_ns() {
   return t;
 }
 
+template <bool kSys>
+__device__ __forceinline__ void fence_scope() {
+  if constexpr (kSys) asm volatile("fence.acq_rel.sys;" ::: "memory");
+  else asm volatile("fence.acq_rel.gpu;" ::: "memory");
+}
+
+template <bool kSys>
 __device__ __forceinline__ void add_release(unsigned* flag) {
-  asm volatile("red.release.sys.add.u32 [%0], %1;" ::"l"(flag), "r"(1u) : "memory");
+  if constexpr (kSys)
+    asm volatile("red.release.sys.add.u32 [%0], %1;" ::"l"(flag), "r"(1u) : "memory");
+  else
+    asm volatile("red.release.gpu.add.u32 [%0], %1;" ::"l"(flag), "r"(1u) : "memory");
 }
 
+template <bool kSys>
 __device__ __forceinline__ void store_release(unsigned* flag, unsigned v) {
-  asm volatile("st.release.sys.u32 [%0], %1;" ::"l"(flag), "r"(v) : "memory");
+  if constexpr (kSys)
+    asm volatile("st.release.sys.u32 [%0], %1;" ::"l"(flag), "r"(v) : "memory");
+  else
+    asm volatile("st.release.gpu.u32 [%0], %1;" ::"l"(flag), "r"(v) : "memory");
 }
 
+template <bool kSys>
 __device__ __forceinline__ unsigned load_acquire(const unsigned* flag) {
   unsigned v;
-  asm volatile("ld.acquire.sys.u32 %0, [%1];" : "=r"(v) : "l"(flag) : "memory");
+  if constexpr (kSys)
+    asm volatile("ld.acquire.sys.u32 %0, [%1];" : "=r"(v) : "l"(flag) : "memory");
+  else
+    asm volatile("ld.acquire.gpu.u32 %0, [%1];" : "=r"(v) : "l"(flag) : "memory");
   return v;
 }
 
 // Spin until *flag has reached target (wrap-safe); false on timeout.
+template <bool kSys>
 __device__ bool wait_for(const unsigned* flag, unsigned target, unsigned long long timeout_ns) {
   const unsigned long long t0 = now_ns();
-  while ((int)(load_acquire(flag) - target) < 0) {
+  while ((int)(load_acquire<kSys>(flag) - target) < 0) {
     if (now_ns() - t0 > timeout_ns) return false;
     __nanosleep(64);
   }
@@ -124,60 +202,222 @@ __device__ void report(unsigned* err, unsigned code) {
   __threadfence_system();
 }
 
-template <bool kVec>
-__device__ void copy_segment(const GatherParams& p, const RankDesc& r) {
-  const long long step = (long long)gridDim.x * blockDim.x;
-  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (kVec) {
-    const long long rv = p.row_bytes >> 4, sv = p.dst_stride >> 4;
-    const long long total = p.outer * rv;
-    const uint4* s = reinterpret_cast<const uint4*>(r.src);
-    for (long long i = first; i < total; i += step) {
-      const uint4 v = s[i];
-      const long long row = i / rv, at = row * sv + (i - row * rv);
-      for (int d = 0; d < r.ndst; ++d) reinterpret_cast<uint4*>(r.dst[d])[at] = v;
-    }
+// Rows [row, row + nrows) of a segment from byte `off` of each, `len` bytes
+// a row: contiguous in the source (nrows > 1 only with off 0 and len a row).
+struct Tile {
+  long long row, off;
+  int nrows;
+  unsigned len;
+};
+
+__device__ __forceinline__ Tile tile_at(const GatherParams& p, long long t) {
+  Tile x;
+  if (p.pieces > 1) {
+    x.row = t / p.pieces;
+    x.off = (t - x.row * p.pieces) * p.tile;
+    x.nrows = 1;
+    const long long left = p.row_bytes - x.off;
+    x.len = (unsigned)(left < p.tile ? left : p.tile);
   } else {
-    const long long total = p.outer * p.row_bytes;
-    for (long long i = first; i < total; i += step) {
-      const uint8_t v = r.src[i];
-      const long long row = i / p.row_bytes, at = row * p.dst_stride + (i - row * p.row_bytes);
-      for (int d = 0; d < r.ndst; ++d) r.dst[d][at] = v;
+    x.row = t * p.rows_per_tile;
+    x.off = 0;
+    const long long left = p.outer - x.row;
+    x.nrows = (int)(left < p.rows_per_tile ? left : p.rows_per_tile);
+    x.len = (unsigned)p.row_bytes;
+  }
+  return x;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* ptr) {
+  return (unsigned)__cvta_generic_to_shared(ptr);
+}
+
+// One bulk load of `bytes` into shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(unsigned dst, const void* src, unsigned bytes,
+                                          unsigned bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+          dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_store(void* dst, unsigned src, unsigned bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(dst), "r"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait for the phase of `bar` with this parity to complete; false on
+// timeout.
+__device__ bool wait_parity(unsigned bar, unsigned parity, unsigned long long timeout_ns) {
+  const unsigned long long t0 = now_ns();
+  for (;;) {
+    unsigned done;
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return true;
+    if (now_ns() - t0 > timeout_ns) return false;
+  }
+}
+
+// The bulk copy of one CTA's tiles (tile blockIdx.x, then every
+// gridDim.x-th), run by its thread 0 through a ring of p.stages shared
+// buffers: each tile one bulk load and, for each of its rows, one bulk
+// store per replica.
+struct BulkCopy {
+  const GatherParams& p;
+  const RankDesc& r;
+  unsigned base;               // shared address of the buffers
+  unsigned long long* full;    // an mbarrier for each buffer
+  long long count;             // tiles of this CTA
+
+  __device__ unsigned bar(long long i) const { return smem_addr(&full[i % p.stages]); }
+
+  __device__ unsigned at(long long i) const {
+    return base + (unsigned)(i % p.stages) * (unsigned)p.tile;
+  }
+
+  __device__ Tile tile(long long i) const {
+    return tile_at(p, blockIdx.x + i * (long long)gridDim.x);
+  }
+
+  __device__ void load(long long i) const {
+    const Tile x = tile(i);
+    bulk_load(at(i), r.src + x.row * p.row_bytes + x.off, (unsigned)x.nrows * x.len, bar(i));
+  }
+
+  // Before the barrier: the first loads (of the rank's own segment, which
+  // no peer writes), so their latency overlaps the barrier's.
+  __device__ void begin() const {
+    for (int s = 0; s < p.stages; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(&full[s])) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (long long i = 0; i < count && i < p.stages; ++i) load(i);
+  }
+
+  // After the barrier: the stores, each buffer refilled once its stores
+  // have read it out.  Returns with every store complete and visible to
+  // the generic proxy; false if a load did not complete within the spin
+  // bound.
+  __device__ bool finish() const {
+    // the async proxy's stores come after the barrier's acquires
+    asm volatile("fence.proxy.async.global;" ::: "memory");
+    for (long long i = 0; i < count; ++i) {
+      if (!wait_parity(bar(i), (unsigned)((i / p.stages) & 1), p.timeout_ns)) return false;
+      const Tile x = tile(i);
+      for (int k = 0; k < x.nrows; ++k) {
+        const long long o = (x.row + k) * p.dst_stride + x.off;
+        for (int d = 0; d < r.ndst; ++d) bulk_store(r.dst[d] + o, at(i) + k * x.len, x.len);
+      }
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      // refill the buffer of the tile before, once its stores (the group
+      // before this one) have read it out
+      if (i >= 1 && i - 1 + p.stages < count) {
+        asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+        load(i - 1 + p.stages);
+      }
+    }
+    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+    asm volatile("fence.proxy.async.global;" ::: "memory");
+    return true;
+  }
+
+  // After a barrier that failed: the first loads land before the CTA
+  // leaves its shared memory.
+  __device__ void drain() const {
+    for (long long i = 0; i < count && i < p.stages; ++i) wait_parity(bar(i), 0, p.timeout_ns);
+  }
+};
+
+__device__ BulkCopy bulk_copy(const GatherParams& p, const RankDesc& r) {
+  extern __shared__ __align__(128) uint8_t buf[];
+  __shared__ __align__(8) unsigned long long full[kMaxStages];
+  const long long step = gridDim.x;
+  return BulkCopy{p, r, smem_addr(buf), full, (p.n_tiles - blockIdx.x + step - 1) / step};
+}
+
+// The byte variant: the CTA's tiles a row at a time, a byte a thread.
+__device__ void copy_bytes(const GatherParams& p, const RankDesc& r) {
+  for (long long t = blockIdx.x; t < p.n_tiles; t += gridDim.x) {
+    const Tile x = tile_at(p, t);
+    for (int k = 0; k < x.nrows; ++k) {
+      const uint8_t* s = r.src + (x.row + k) * p.row_bytes + x.off;
+      const long long o = (x.row + k) * p.dst_stride + x.off;
+      for (unsigned c = threadIdx.x; c < x.len; c += blockDim.x) {
+        const uint8_t v = s[c];
+        for (int d = 0; d < r.ndst; ++d) r.dst[d][o + c] = v;
+      }
     }
   }
 }
 
-// One CTA's share of one rank's gather: barrier, stores, arrival.
-template <bool kVec>
-__device__ void gather_rank(const GatherParams& p, const RankDesc& r) {
-  if (blockIdx.x == 0 && threadIdx.x < r.nsig) store_release(r.signal[threadIdx.x], r.gen);
+// The barrier: false, for every thread of the CTA, if a peer never entered.
+template <bool kSys>
+__device__ bool enter(const GatherParams& p, const RankDesc& r) {
+  if (blockIdx.x == 0 && threadIdx.x < r.nsig) store_release<kSys>(r.signal[threadIdx.x], r.gen);
   const bool entered =
-      threadIdx.x >= r.nwait || wait_for(r.wait[threadIdx.x], r.gen, p.timeout_ns);
+      threadIdx.x >= r.nwait || wait_for<kSys>(r.wait[threadIdx.x], r.gen, p.timeout_ns);
   if (!entered) report(p.err, kErrBarrier);
-  if (!__syncthreads_and(entered)) return;
-  copy_segment<kVec>(p, r);
+  return __syncthreads_and(entered);
+}
+
+// The arrival, once the CTA's stores are done (`copied`: thread 0's word).
+template <bool kBulk, bool kSys>
+__device__ void arrive(const GatherParams& p, const RankDesc& r, bool copied) {
   __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence_system();
-    for (int d = 0; d < r.ndst; ++d)
-      if (r.dst_flag[d] != nullptr) add_release(r.dst_flag[d]);
-    if (blockIdx.x == 0 && !wait_for(r.arr, r.arr_target, p.timeout_ns))
-      report(p.err, kErrArrival);
+  if (threadIdx.x != 0) return;
+  if (!copied) {   // no arrival: the peers waiting for it report too
+    report(p.err, kErrLoad);
+    return;
+  }
+  // the byte variant's stores are the CTA's 256 threads': a fence at the
+  // scope makes them part of thread 0's release (the bulk variant's are
+  // thread 0's own, which the release orders by itself)
+  if constexpr (!kBulk) fence_scope<kSys>();
+  for (int d = 0; d < r.ndst; ++d)
+    if (r.dst_flag[d] != nullptr) add_release<kSys>(r.dst_flag[d]);
+  if (blockIdx.x == 0 && !wait_for<kSys>(r.arr, r.arr_target, p.timeout_ns))
+    report(p.err, kErrArrival);
+}
+
+// One CTA's share of one rank's gather: barrier, stores, arrival.
+template <bool kBulk, bool kSys>
+__device__ void gather_rank(const GatherParams& p, const RankDesc& r) {
+  if constexpr (kBulk) {
+    const BulkCopy bulk = bulk_copy(p, r);
+    if (threadIdx.x == 0) bulk.begin();
+    if (!enter<kSys>(p, r)) {
+      if (threadIdx.x == 0) bulk.drain();
+      return;
+    }
+    arrive<kBulk, kSys>(p, r, threadIdx.x != 0 || bulk.finish());
+  } else {
+    if (!enter<kSys>(p, r)) return;
+    copy_bytes(p, r);
+    arrive<kBulk, kSys>(p, r, true);
   }
 }
 
 // Replaces simd_dct_tpu/dist/collectives.py:215 (gather_planes_remote).
-template <bool kVec>
-__global__ void __launch_bounds__(kGatherThreads)
+template <bool kBulk, bool kSys>
+__global__ void __launch_bounds__(kBulk ? kBulkThreads : kByteThreads)
 ring_gather_kernel(const __grid_constant__ GatherParams p) {
-  gather_rank<kVec>(p, p.rank[blockIdx.y]);
+  gather_rank<kBulk, kSys>(p, p.rank[blockIdx.y]);
 }
 
 // Replaces simd_dct_tpu/dist/collectives.py:310 (remote_dma_selfring_smoke).
-template <bool kVec>
-__global__ void __launch_bounds__(kGatherThreads)
+template <bool kBulk>
+__global__ void __launch_bounds__(kBulk ? kBulkThreads : kByteThreads)
 selfring_kernel(const __grid_constant__ GatherParams p) {
-  gather_rank<kVec>(p, p.rank[blockIdx.y]);
+  gather_rank<kBulk, false>(p, p.rank[blockIdx.y]);
 }
 
 bool unpack(const long long* desc, int local_ranks, GatherParams* p) {
@@ -204,30 +444,63 @@ bool unpack(const long long* desc, int local_ranks, GatherParams* p) {
   return true;
 }
 
-template <bool kVec>
-const void* kernel_of(int selfring) {
-  return selfring ? (const void*)&selfring_kernel<kVec> : (const void*)&ring_gather_kernel<kVec>;
+const void* kernel_of(int selfring, int bulk, int sys) {
+  if (selfring)
+    return bulk ? (const void*)&selfring_kernel<true> : (const void*)&selfring_kernel<false>;
+  if (bulk)
+    return sys ? (const void*)&ring_gather_kernel<true, true>
+               : (const void*)&ring_gather_kernel<true, false>;
+  return sys ? (const void*)&ring_gather_kernel<false, true>
+             : (const void*)&ring_gather_kernel<false, false>;
+}
+
+// The bulk variant's dynamic shared memory may reach kMaxStages tiles,
+// above the 48 KB a launch gets without asking.
+cudaError_t allow_smem(const void* fn) {
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              kMaxStages * kMaxTile);
 }
 
 int launch(int selfring, const long long* desc, int local_ranks, int blocks, long long outer,
-           long long row_bytes, long long dst_stride, int vec, void* err,
-           unsigned long long timeout_ns, void* stream) {
+           long long row_bytes, long long dst_stride, int vec, int sys, long long tile,
+           int stages, void* err, unsigned long long timeout_ns, void* stream) {
   if (local_ranks < 1 || local_ranks > kMaxLocal || blocks < 1 || outer < 1 || row_bytes < 1 ||
-      dst_stride < row_bytes || (vec && (row_bytes % 16 || dst_stride % 16)))
+      dst_stride < row_bytes || tile < 1 || tile > kMaxTile ||
+      (tile > row_bytes && tile % row_bytes) ||
+      (vec && (row_bytes % 16 || dst_stride % 16 || tile % 16 || stages < 2 ||
+               stages > kMaxStages)))
     return (int)cudaErrorInvalidValue;
   GatherParams p = {};
   if (!unpack(desc, local_ranks, &p)) return (int)cudaErrorInvalidValue;
   p.outer = outer;
   p.row_bytes = row_bytes;
   p.dst_stride = dst_stride;
+  p.tile = tile;
+  if (tile >= row_bytes) {
+    p.rows_per_tile = tile / row_bytes;
+    p.pieces = 1;
+    p.n_tiles = (outer + p.rows_per_tile - 1) / p.rows_per_tile;
+  } else {
+    p.rows_per_tile = 1;
+    p.pieces = (row_bytes + tile - 1) / tile;
+    p.n_tiles = outer * p.pieces;
+  }
+  p.stages = vec ? stages : 0;
   p.err = reinterpret_cast<unsigned*>(err);
   p.timeout_ns = timeout_ns;
   void* args[] = {&p};
-  const void* fn = vec ? kernel_of<true>(selfring) : kernel_of<false>(selfring);
+  const void* fn = kernel_of(selfring, vec, sys);
+  size_t smem = 0;
+  if (vec) {
+    const cudaError_t e = allow_smem(fn);
+    if (e != cudaSuccess) return (int)e;
+    smem = (size_t)stages * (size_t)tile;
+  }
   // cooperative: every CTA of the grid is resident at once, or the launch
   // is refused, so no spinning CTA waits for one that cannot start
-  return (int)cudaLaunchCooperativeKernel(fn, dim3(blocks, local_ranks), dim3(kGatherThreads),
-                                          args, 0, (cudaStream_t)stream);
+  return (int)cudaLaunchCooperativeKernel(fn, dim3(blocks, local_ranks),
+                                          dim3(vec ? kBulkThreads : kByteThreads), args, smem,
+                                          (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -237,19 +510,24 @@ extern "C" {
 // desc: local_ranks descriptors of kDescWords int64 each, as
 // dist/collectives.py packs them.  blocks: CTAs per rank (the same for
 // every rank of a ring, since arrival targets count them).  err: the
-// card's error word, from sdct_host_words.  vec: 16-byte stores
-// (row_bytes, dst_stride and every pointer 16-byte aligned).
+// card's error word, from sdct_host_words.  vec: the bulk variant
+// (row_bytes, dst_stride, tile and every pointer 16-byte aligned).  sys:
+// system scope (ranks or destinations on several cards).  tile: bytes of a
+// tile, whole rows or a piece of one row; stages: shared buffers of a CTA
+// (bulk variant, 2 to 4).
 int sdct_ring_gather(const long long* desc, int local_ranks, int blocks, long long outer,
-                     long long row_bytes, long long dst_stride, int vec, void* err,
-                     unsigned long long timeout_ns, void* stream) {
-  return launch(0, desc, local_ranks, blocks, outer, row_bytes, dst_stride, vec, err, timeout_ns,
-                stream);
+                     long long row_bytes, long long dst_stride, int vec, int sys, long long tile,
+                     int stages, void* err, unsigned long long timeout_ns, void* stream) {
+  return launch(0, desc, local_ranks, blocks, outer, row_bytes, dst_stride, vec, sys, tile,
+                stages, err, timeout_ns, stream);
 }
 
+// The self-ring: one rank, card scope.
 int sdct_selfring(const long long* desc, int blocks, long long outer, long long row_bytes,
-                  long long dst_stride, int vec, void* err, unsigned long long timeout_ns,
-                  void* stream) {
-  return launch(1, desc, 1, blocks, outer, row_bytes, dst_stride, vec, err, timeout_ns, stream);
+                  long long dst_stride, int vec, long long tile, int stages, void* err,
+                  unsigned long long timeout_ns, void* stream) {
+  return launch(1, desc, 1, blocks, outer, row_bytes, dst_stride, vec, 0, tile, stages, err,
+                timeout_ns, stream);
 }
 
 // n zeroed u32 words of pinned host memory that every card can store into
@@ -272,25 +550,30 @@ int sdct_host_words(int n, void** words) {
   return 0;
 }
 
-// CTAs of either kernel that the current card holds at once (the most a
-// cooperative launch takes), into *blocks.
-int sdct_gather_capacity(int* blocks) {
-  int dev = 0, sms = 0, coop = 0;
+// For the current card and one variant of the kernels (bulk: at its most
+// shared memory), the CTAs an SM holds at once (the least over the
+// kernels of the variant) into *per_sm, and the SMs into *sms: a
+// cooperative launch takes at most their product.
+int sdct_gather_capacity(int bulk, int* per_sm, int* sms) {
+  int dev = 0, coop = 0;
   cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (e != cudaSuccess) return (int)e;
   if (!coop) return (int)cudaErrorNotSupported;
-  const void* fns[] = {kernel_of<true>(0), kernel_of<false>(0), kernel_of<true>(1),
-                       kernel_of<false>(1)};
+  const void* fns[] = {kernel_of(0, bulk, 0), kernel_of(0, bulk, 1), kernel_of(1, bulk, 0)};
+  const size_t smem = bulk ? (size_t)kMaxStages * kMaxTile : 0;
   int least = 1 << 30;
   for (const void* fn : fns) {
-    int per_sm = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kGatherThreads, 0);
+    int n = 0;
+    if (bulk) e = allow_smem(fn);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, bulk ? kBulkThreads : kByteThreads,
+                                                        smem);
     if (e != cudaSuccess) return (int)e;
-    least = per_sm < least ? per_sm : least;
+    least = n < least ? n : least;
   }
-  *blocks = least * sms;
+  *per_sm = least;
   return 0;
 }
 

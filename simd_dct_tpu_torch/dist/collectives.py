@@ -53,6 +53,7 @@ from __future__ import annotations
 import ctypes
 import math
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -65,18 +66,26 @@ from .mesh import DATA_AXIS, Mesh, Sharded, shard
 
 # How long a CTA spins on a flag before it gives up and reports.
 SPIN_TIMEOUT_S = 1.0
-# csrc/collectives.cu: ranks of a ring, ranks of one launch, CTA size and
-# the int64 words of a rank's descriptor
+# csrc/collectives.cu: ranks of a ring, ranks of one launch and the int64
+# words of a rank's descriptor
 MAX_RING = 8
 MAX_LOCAL = 8
-_THREADS = 256
 _DESC_WORDS = 7 + 4 * MAX_RING
+# csrc/collectives.cu kMaxTile and kMaxStages: a tile is at most 16 KB
+# (whole rows, or a piece of one row), a CTA cycles through 2 to 4 of them
+_TILE = 16384
+_STAGES = 4
+# CTAs of one launch on a streaming multiprocessor, at most; and the bytes
+# of a segment that earn a rank one more CTA
+_CTAS_PER_SM = 2
+_CTA_BYTES = 32768
 # a mesh position's flag words: a barrier slot for each rank of its ring,
 # then its arrival counter
 _SLOT_WORDS = MAX_RING + 1
 _U32 = 0xFFFFFFFF
 _ERRORS = {1: "a peer never entered the kernel (barrier)",
-           2: "a peer's stores never arrived"}
+           2: "a peer's stores never arrived",
+           3: "a bulk load into shared memory never completed"}
 
 
 def _segments(segments, mesh: Mesh, axis_name: str) -> Sharded:
@@ -231,14 +240,12 @@ class _Workspace:
 
     def __init__(self, mesh: Mesh, lib):
         self.lock = threading.Lock()
-        self.slot = {}
-        per_dev: dict[torch.device, int] = {}
-        for p, dev in enumerate(mesh.devices.flat):
-            self.slot[p] = (dev, _SLOT_WORDS * per_dev.get(dev, 0))
-            per_dev[dev] = per_dev.get(dev, 0) + 1
-        self.flags = {dev: torch.zeros(_SLOT_WORDS * k, dtype=torch.int32,
-                                       device=dev)
-                      for dev, k in per_dev.items()}
+        per_dev = _per_device(mesh)
+        self.slot = {p: (dev, _SLOT_WORDS * i)
+                     for dev, ps in per_dev.items() for i, p in enumerate(ps)}
+        self.flags = {dev: torch.zeros(_SLOT_WORDS * len(ps),
+                                       dtype=torch.int32, device=dev)
+                      for dev, ps in per_dev.items()}
         # a peer may signal a card before that card's stream has run the
         # zeroing: finish it everywhere first (once per mesh)
         for dev in self.flags:
@@ -246,7 +253,8 @@ class _Workspace:
         self.err = {dev: _ERROR_WORDS.take(lib) for dev in self.flags}
         self.gen = 0
         self.arr = [0] * mesh.size
-        self.capacity: dict[torch.device, int] = {}
+        self.capacity: dict[tuple[torch.device, bool], tuple[int, int]] = {}
+        self.last_plan: _Plan | None = None
 
     def bar_ptr(self, p: int, k: int) -> int:
         """Slot ``k`` (ring position of the peer) of position p's barrier."""
@@ -265,15 +273,18 @@ class _Workspace:
         codes = {dev: int(words[i]) for dev, (words, i) in self.err.items()}
         return {dev: c for dev, c in codes.items() if c}
 
-    def blocks_on(self, lib, dev: torch.device) -> int:
-        """CTAs the card holds at once (queried once per card)."""
-        if dev not in self.capacity:
-            out = np.zeros(1, np.int32)
+    def capacity_of(self, lib, dev: torch.device,
+                    vec: bool) -> tuple[int, int]:
+        """(CTAs of the variant an SM holds at once, SMs) of the card
+        (queried once per card and variant)."""
+        if (dev, vec) not in self.capacity:
+            out = np.zeros(2, np.int32)
             with torch.cuda.device(dev):
-                _build.check(lib, lib.sdct_gather_capacity(out.ctypes.data),
-                             "gather capacity")
-            self.capacity[dev] = int(out[0])
-        return self.capacity[dev]
+                _build.check(lib, lib.sdct_gather_capacity(
+                    int(vec), out.ctypes.data, out.ctypes.data + 4),
+                    "gather capacity")
+            self.capacity[dev, vec] = (int(out[0]), int(out[1]))
+        return self.capacity[dev, vec]
 
 
 _workspace_lock = threading.Lock()
@@ -365,15 +376,74 @@ def _desc(src: int, arr: int, gen: int, arr_target: int, dsts, flags,
     return [w - (1 << 64) if w >= 1 << 63 else w for w in words]
 
 
-def _blocks(ws: _Workspace, lib, per_dev, n_units: int) -> int:
-    """CTAs per rank: enough for one 16-byte unit a thread, no more than
-    every card holds for all its ranks at once (the same for each rank,
-    since arrival targets count them)."""
-    fit = min(ws.blocks_on(lib, dev) // len(ranks)
-              for dev, ranks in per_dev.items())
+class _Plan(NamedTuple):
+    """How one gather launches (csrc/collectives.cu): ``tile`` bytes a
+    tile, ``stages`` shared buffers a CTA (the bulk variant), ``blocks``
+    CTAs a rank, and ``arrivals``, what the gather adds to each rank's
+    arrival counter (one from each CTA of each peer that stores into it)."""
+    tile: int
+    stages: int
+    blocks: int
+    arrivals: int
+
+    def target(self, counter: int) -> int:
+        """The value an arrival counter at ``counter`` must reach (mod
+        2^32: the kernel compares signed differences)."""
+        return (counter + self.arrivals) & _U32
+
+
+def _tile(outer: int, row: int) -> int:
+    """Bytes of a tile: as many whole rows as fit in ``_TILE`` (at most
+    ``outer``); a longer row cut into the fewest pieces of at most
+    ``_TILE`` bytes, rounded up to 16 (the last piece takes what is
+    left)."""
+    if row <= _TILE:
+        return min(_TILE // row, outer) * row
+    pieces = -(-row // _TILE)
+    return (-(-row // pieces) + 15) // 16 * 16
+
+
+def _n_tiles(outer: int, row: int, tile: int) -> int:
+    if tile >= row:
+        return -(-outer // (tile // row))
+    return outer * -(-row // tile)
+
+
+def _ctas_fit(per_sm: int, sms: int, local_ranks: int) -> int:
+    """CTAs a rank may take on a card of ``sms`` SMs holding ``per_sm``
+    CTAs each, shared by ``local_ranks`` ranks: at most ``_CTAS_PER_SM``
+    an SM for the whole launch, and all of them resident at once."""
+    fit = min(per_sm, _CTAS_PER_SM) * sms // local_ranks
     if fit < 1:
         raise NotSupportedError("too many ranks on one card for the gather")
-    return max(1, min(fit, -(-n_units // _THREADS)))
+    return fit
+
+
+def _plan(outer: int, row: int, fit: int, peers: int) -> _Plan:
+    """The launch for segments of ``outer`` rows of ``row`` bytes: one CTA
+    a rank for each ``_CTA_BYTES`` of its segment, at most ``fit`` (the
+    least over the cards); as many stages as a CTA has tiles, 2 to
+    ``_STAGES``.  ``peers``: the ranks that store into each rank, each
+    with ``blocks`` CTAs (n - 1 on a ring of n; 1 on the self-ring, whose
+    one peer is itself)."""
+    tile = _tile(outer, row)
+    blocks = max(1, min(fit, -(-outer * row // _CTA_BYTES)))
+    per_cta = -(-_n_tiles(outer, row, tile) // blocks)
+    return _Plan(tile, max(2, min(_STAGES, per_cta)), blocks, peers * blocks)
+
+
+def _per_device(mesh: Mesh) -> dict[torch.device, list[int]]:
+    """The mesh positions on each device, in mesh order."""
+    per_dev: dict[torch.device, list[int]] = {}
+    for p, dev in enumerate(mesh.devices.flat):
+        per_dev.setdefault(dev, []).append(p)
+    return per_dev
+
+
+def _system_scope(per_dev) -> bool:
+    """Flags at system scope: the ranks, hence the destinations, lie on
+    more than one card.  On one card, card scope orders them as well."""
+    return len(per_dev) > 1
 
 
 def _stream(dev: torch.device):
@@ -409,9 +479,7 @@ def _gather_on_cards(seg: Sharded, a: int, *,
         raise NotSupportedError(
             f"the gather kernel takes rings of at most {MAX_RING} ranks, "
             f"got {n}")
-    per_dev: dict[torch.device, list[int]] = {}
-    for p, dev in enumerate(mesh.devices.flat):
-        per_dev.setdefault(dev, []).append(p)
+    per_dev = _per_device(mesh)
     if max(len(r) for r in per_dev.values()) > MAX_LOCAL:
         raise NotSupportedError(
             f"the gather kernel takes at most {MAX_LOCAL} ranks on one card")
@@ -430,19 +498,21 @@ def _gather_on_cards(seg: Sharded, a: int, *,
     vec = row % 16 == 0 and all(t.data_ptr() % 16 == 0
                                 for t in views + outs)
     ring_of = {p: (ring, k) for ring in rings for k, p in enumerate(ring)}
+    sys_scope = _system_scope(per_dev)
     try:
         with ws.lock:
-            blocks = _blocks(ws, lib, per_dev,
-                             outer * row // (16 if vec else 1))
+            fit = min(_ctas_fit(*ws.capacity_of(lib, dev, vec), len(ranks))
+                      for dev, ranks in per_dev.items())
+            plan = ws.last_plan = _plan(outer, row, fit, n - 1)
             ws.gen = (ws.gen + 1) & _U32
-            if len(per_dev) > 1:
+            if sys_scope:
                 _start_together(per_dev)
             for dev, ranks in per_dev.items():
                 desc = []
                 for p in ranks:
                     ring, me = ring_of[p]
                     peers = [(k, q) for k, q in enumerate(ring) if q != p]
-                    ws.arr[p] = (ws.arr[p] + (n - 1) * blocks) & _U32
+                    ws.arr[p] = plan.target(ws.arr[p])
                     desc += _desc(
                         views[p].data_ptr(), ws.arr_ptr(p), ws.gen, ws.arr[p],
                         [outs[q].data_ptr() + me * row for q in ring],
@@ -452,12 +522,13 @@ def _gather_on_cards(seg: Sharded, a: int, *,
                 words = np.asarray(desc, np.int64)
                 with torch.cuda.device(dev):
                     rc = lib.sdct_ring_gather(
-                        words.ctypes.data, len(ranks), blocks, outer, row,
-                        n * row, int(vec), ws.err_ptr(dev),
-                        int(timeout_s * 1e9), _stream(dev).cuda_stream)
+                        words.ctypes.data, len(ranks), plan.blocks, outer,
+                        row, n * row, int(vec), int(sys_scope), plan.tile,
+                        plan.stages, ws.err_ptr(dev), int(timeout_s * 1e9),
+                        _stream(dev).cuda_stream)
                     _cuda.LAUNCHES["ring_gather"] += 1
                 _build.check(lib, rc, "ring_gather")
-            if len(per_dev) > 1:
+            if sys_scope:
                 # after the launches: what each card queues next, a reuse of
                 # a dropped output or flag tensor included, waits for every
                 # card's kernel, the peers that store into its memory.
@@ -508,18 +579,18 @@ def selfring(local: torch.Tensor, *,
     lib = _build.load()
     ws = _workspace(mesh, lib)
     with ws.lock:
-        blocks = _blocks(ws, lib, {local.device: [0]},
-                         outer * row // (16 if vec else 1))
+        fit = _ctas_fit(*ws.capacity_of(lib, local.device, vec), 1)
+        plan = ws.last_plan = _plan(outer, row, fit, 1)
         ws.gen = (ws.gen + 1) & _U32
-        ws.arr[0] = (ws.arr[0] + blocks) & _U32
+        ws.arr[0] = plan.target(ws.arr[0])
         slots = [ws.bar_ptr(0, 0), ws.bar_ptr(0, 1)]
         desc = _desc(src.data_ptr(), ws.arr_ptr(0), ws.gen, ws.arr[0],
                      [out.data_ptr(), out.data_ptr() + row],
                      [0, ws.arr_ptr(0)], slots, slots)
         words = np.asarray(desc, np.int64)
         with _cuda._on_device_of(local):
-            rc = lib.sdct_selfring(words.ctypes.data, blocks, outer, row,
-                                   2 * row, int(vec),
+            rc = lib.sdct_selfring(words.ctypes.data, plan.blocks, outer, row,
+                                   2 * row, int(vec), plan.tile, plan.stages,
                                    ws.err_ptr(local.device),
                                    int(timeout_s * 1e9),
                                    _stream(local.device).cuda_stream)

@@ -165,11 +165,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sdct_tiles.restype = i
     lib.sdct_detile.argtypes = [p, p, p, i, i, i, i, i, p]
     lib.sdct_detile.restype = i
-    lib.sdct_ring_gather.argtypes = [p, i, i, ll, ll, ll, i, p, ull, p]
+    lib.sdct_ring_gather.argtypes = [p, i, i, ll, ll, ll, i, i, ll, i, p, ull, p]
     lib.sdct_ring_gather.restype = i
-    lib.sdct_selfring.argtypes = [p, i, ll, ll, ll, i, p, ull, p]
+    lib.sdct_selfring.argtypes = [p, i, ll, ll, ll, i, ll, i, p, ull, p]
     lib.sdct_selfring.restype = i
-    lib.sdct_gather_capacity.argtypes = [p]
+    lib.sdct_gather_capacity.argtypes = [i, p, p]
     lib.sdct_gather_capacity.restype = i
     lib.sdct_enable_peer.argtypes = [i, i]
     lib.sdct_enable_peer.restype = i

@@ -495,6 +495,29 @@ def test_ring_gather_byte_rows_and_a_2d_mesh(gen):
         assert torch.equal(replica, seg)
 
 
+@pytest.mark.parametrize("ranks, shape", [
+    (4, (16, 4 * 41, 400)),     # 16,400-byte rows: two pieces, the last short
+    (4, (70, 4 * 13, 80)),      # 1,040-byte rows: 15 a tile, the last 10
+    (4, (1, 4 * 64, 1024)),     # outer == 1
+    (2, (64, 2 * 64, 480)),     # a ring of 2 on one card
+    (8, (64, 8 * 16, 480)),     # a ring of 8 on one card
+    (4, (64, 4 * 64, 960)),     # the 4K stereo segments' 61,440-byte rows
+])
+def test_ring_gather_tiles_equal_the_ring(gen, ranks, shape):
+    """The bulk variant's tiles, ragged and whole, on rings of 2, 4 and 8
+    ranks of one card: every replica equals the plain ring byte for byte."""
+    from simd_dct_tpu_torch import dist
+    from simd_dct_tpu_torch.dist import collectives as C
+    mesh = dist.make_mesh(ranks, devices=["cuda:0"] * ranks)
+    seg = _img(gen, *shape)
+    got = C.gather_planes_remote(seg, mesh)
+    ring = C.gather_planes_ring(seg, mesh)
+    C.check_workspace(mesh)
+    for a, b in zip(got.shards, ring.shards):
+        assert torch.equal(a, b)
+    assert torch.equal(got.shards[0], seg)
+
+
 def test_selfring_on_the_card(gen):
     from simd_dct_tpu_torch.dist import collectives as C
     assert C.remote_dma_selfring_smoke() is True

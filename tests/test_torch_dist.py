@@ -444,3 +444,68 @@ def test_stereo_view_wrapper_takes_strided_shards(view_layout):
     assert torch.equal(got, want)
     with pytest.raises(ValueError, match="views must be"):
         K.encode_stereo_view(views[:1], LUT_Q)
+
+
+# -- the gather kernel's launch plan: host arithmetic, no card ----------------
+# An H100 has 132 SMs and holds 3 CTAs of the bulk variant an SM at its most
+# shared memory (4 tiles of 16 KB); a launch takes at most 2 an SM.
+
+def test_gather_scope_follows_the_cards():
+    """Card scope when every rank of the mesh lies on one card, system
+    scope when they lie on several (meshes of cards are only described
+    here, never run)."""
+    one = TD.make_mesh(4, devices=["cuda:0"] * 4)
+    mixed = TD.make_mesh_2d((2, 2), devices=["cuda:0", "cuda:1"] * 2)
+    assert TC._per_device(one) == {torch.device("cuda:0"): [0, 1, 2, 3]}
+    assert not TC._system_scope(TC._per_device(one))
+    assert TC._per_device(mixed) == {torch.device("cuda:0"): [0, 2],
+                                     torch.device("cuda:1"): [1, 3]}
+    assert TC._system_scope(TC._per_device(mixed))
+
+
+@pytest.mark.parametrize("outer, row, ranks, want", [
+    # the 4K dual view's stereo segments (64, 64, 960) on four ranks of one
+    # card: four 15,360-byte tiles a row, 66 CTAs a rank (264 / 4)
+    (64, 64 * 960, 4, (15360, 4, 66, 3 * 66)),
+    # the self-ring's (8, 8, 128): one tile of all 8 rows, one CTA
+    (8, 8 * 128, 1, (8192, 2, 1, 1)),
+    # eight ranks of 4K-wide segments: the launch's 264 CTAs bind (33 each)
+    (64, 32 * 960, 8, (15360, 4, 33, 7 * 33)),
+    # a ring of 2: a CTA for each 32 KB of the segment
+    (64, 16 * 480, 2, (15360, 3, 15, 15)),
+])
+def test_gather_plan_counts_ctas_tiles_and_arrivals(outer, row, ranks, want):
+    """(tile bytes, stages, CTAs a rank, arrivals a rank) of one gather;
+    arrivals count one from each CTA of each of the ring's other ranks
+    (the self-ring's one peer is itself)."""
+    fit = TC._ctas_fit(3, 132, ranks)
+    assert tuple(TC._plan(outer, row, fit, max(ranks - 1, 1))) == want
+
+
+@pytest.mark.parametrize("outer, row, tile, n_tiles, last", [
+    (16, 16400, 8208, 32, 8192),    # a row cut in two, the last piece short
+    (70, 1040, 15600, 5, 10 * 1040),  # 15 rows a tile, the last tile 10
+    (1, 65536, 16384, 4, 16384),     # one row of four whole tiles
+    (64, 120, 7680, 1, 7680),        # byte-wide rows: the byte variant
+])
+def test_gather_tiles_cover_the_segment(outer, row, tile, n_tiles, last):
+    assert TC._tile(outer, row) == tile
+    assert TC._n_tiles(outer, row, tile) == n_tiles
+    covered = (outer * row - (n_tiles - 1) * tile if tile >= row else
+               row - (n_tiles // outer - 1) * tile)
+    assert covered == last
+
+
+def test_arrival_target_wraps_and_rides_in_the_descriptor():
+    plan = TC._plan(64, 64 * 960, TC._ctas_fit(3, 132, 4), 3)
+    assert plan.target(5) == 5 + 198
+    near = 0xFFFFFFFF - 9
+    assert plan.target(near) == (near + 198) & 0xFFFFFFFF == 188
+    words = TC._desc(16, 32, 7, plan.target(near), [48, 64], [0, 80],
+                     [96], [112])
+    assert len(words) == TC._DESC_WORDS and words[6] == 188
+
+
+def test_too_many_ranks_for_the_card_raise():
+    with pytest.raises(T.NotSupportedError, match="too many ranks"):
+        TC._ctas_fit(1, 4, 8)
