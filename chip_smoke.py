@@ -9,8 +9,9 @@ Phases (any failure raises, and the script exits non-zero without the
 result line):
   1. the card: nvidia-smi name and power limit, torch's device name;
   2. build the kernels from csrc/ with nvcc (one process per source, all
-     started together), print build time and ptxas register use, run the
-     capability probe;
+     started together), print build time and ptxas register use, stack
+     frame and spills of every kernel instantiation, run the capability
+     probe;
   3. each mode32 kernel against its plain PyTorch version on the same CUDA
      tensors (+-1 on at most 0.2% of bytes) at 4096x3840, 1088x1920,
      256x192, a batch of 8 frames of 1088x1920, every rounding mode and a
@@ -60,11 +61,19 @@ result line):
       behind a device-side sleep (no host launch cost in the reading), the
       plain version by torch.profiler device time, and the CUDA-event wall
       of back-to-back calls for each (the 4:2:0 rows beside the colour
-      rows' copy of the three channels' top view);
+      rows' copy of the three channels' top view); the launch plan of
+      enc32_rgb and roundtrip32_rgb (``cuda_dct.color_plan``) beside their
+      4K times before the strip-tile design (``EARLIER_US``) and their
+      exact-arithmetic floor (``EXACT_OPS_PER_PX``);
   11. the YCbCr 4:4:4 colour kernels against their plain versions (+-1 on
       at most 0.2% of bytes) on (3, H, W) planar RGB at 4096x3840 (every
-      rounding mode), 1088x1920, 256x192 (W % 128 != 0) and an 8-frame
-      1088x1920 batch; the fused round trip equals decode(encode(x)) byte
+      rounding mode), 1088x1920, 256x192 (W % 128 != 0), 16x1984 (each
+      strip ends in a short tile) and an 8-frame 1088x1920 batch, with the
+      launch plan of each; the rne and clamp_first encodes equal the plain
+      version byte for byte; the plain-load variant: a (3, 544, 1920) view
+      8 bytes off a 16-byte boundary through encode32_rgb_view (every
+      rounding);
+      the fused round trip equals decode(encode(x)) byte
       for byte; its PSNR on the config-3 gate's input (three correlated
       channels of one smooth field, a 1024x3840 top view,
       simd_dct_tpu/bench/harness.py:151-156) within 0.1 dB of the plain
@@ -203,6 +212,9 @@ GEOMETRIES = [(4096, 3840, 1), (1088, 1920, 1), (256, 192, 1), (1088, 1920, 8)]
 # row) a CUDA block's 32 macroblocks cross a macroblock row
 GEOMETRIES_420 = [(4096, 3840, 1), (1088, 1920, 1), (64, 384, 1),
                   (1088, 1920, 8)]
+# colour: W = 1984 (248 blocks a strip) ends each strip in a tile of 8
+# blocks where enc32_rgb and roundtrip32_rgb tile strips by 16
+COLOR_GEOMETRIES = GEOMETRIES + [(16, 1984, 1)]
 # stereo: W = 200 (BW = 25) takes the kernels' byte-wide plane-row path
 STEREO_GEOMETRIES = [(4096, 3840, 1), (1088, 1920, 1), (256, 200, 1),
                      (1088, 1920, 8)]
@@ -217,6 +229,26 @@ REPS = 25
 # the plain versions' walls, logged beside their profiler times (which the
 # rows use): a few milliseconds a call, so fewer repetitions
 PLAIN_WALL_REPS = 5
+# the redesigned colour kernels' 4K times before the redesign (queued
+# events, PERF.md rows 12 and 14: the thread-per-(block, channel) design)
+EARLIER_US = {"enc32_rgb": 52.84, "roundtrip32_rgb": 86.72}
+# The exact-arithmetic floor of the colour tile kernels: the instructions a
+# pixel position that their bytes require, issued at one instruction a lane
+# a clock (132 SMs x 128 lanes at the 1980 MHz the card holds under them,
+# color_variants.py).  A pixel position's three channels take: the exact
+# u8 -> f32 (2 each), the mix (3 multiplies and 3 adds each), the
+# matrix-form transforms (8 FMAs a pass and channel; the identities with
+# the plain version and dec32_rgb fix every product and sum), the quantizer
+# (multiply, 2 clamps, round; the encode's +127, the round trip's exact
+# rint and dequant multiply), the round trip's bias, inverse mix, clamp and
+# round (8 a channel) and packing (0.75); and the design's shared-memory
+# traffic (3 input loads; 6 a crossing, one in the encode and three in the
+# round trip; the encode's 3 record stores, the round trip's 3/8).
+EXACT_OPS_PER_PX = {
+    "enc32_rgb": 3 * (2 + 6 + 16 + 5) + 3 + 6 + 3,
+    "roundtrip32_rgb": 3 * (2 + 6 + 32 + 6 + 1 + 8 + 0.75) + 3 + 18 + 3 / 8,
+}
+ISSUE_PER_S = 132 * 128 * 1.98e9
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FMA/s on the CUDA
 # cores (67 TFLOP/s)
 PEAK_BYTES_S = 3.35e12
@@ -648,19 +680,33 @@ def gate_rgb(h2: int = 1024, w: int = 3840) -> np.ndarray:
     return np.concatenate([top, np.zeros_like(top)], axis=1)
 
 
+def enc32_rgb_exact(name, got, want, rounding, errs) -> None:
+    """rne and clamp_first encodes equal the plain version byte for byte;
+    scalar keeps the +-1 contract."""
+    agree(name, got, want, errs, "enc32_rgb")
+    if rounding != "scalar":
+        n = int((got != want).sum())
+        log(f"  {name}: {n} mismatches against the plain version")
+        require(n == 0, f"{name} equals the plain version byte for byte")
+
+
 def phase_compare_color(gen, luma, chroma, errs):
     log("phase 11: YCbCr 4:4:4 colour kernels against the plain version on "
         "the card")
-    for h, w, frames in GEOMETRIES:
+    for h, w, frames in COLOR_GEOMETRIES:
         rgb = random_rgb(gen, h, w, frames)
         tag = f"{frames}x3x{h}x{w}"
-        roundings = ROUNDINGS if h == 4096 else ("rne",)
+        for kind in ("enc32_rgb", "roundtrip32_rgb"):
+            log(f"  {kind} {tag} plan: "
+                f"{cuda_dct.color_launch_plan(kind, rgb)._asdict()}")
+        roundings = ROUNDINGS if h == 4096 else ("rne", "clamp_first")
         for rounding in roundings:
-            agree(f"enc32_rgb {tag} {rounding}",
-                  cuda_dct.encode_quantize32_ycbcr(rgb, luma, chroma,
-                                                   rounding),
-                  torch_path.encode_ycbcr32(rgb, luma, chroma, rounding),
-                  errs, "enc32_rgb")
+            enc32_rgb_exact(f"enc32_rgb {tag} {rounding}",
+                            cuda_dct.encode_quantize32_ycbcr(
+                                rgb, luma, chroma, rounding),
+                            torch_path.encode_ycbcr32(rgb, luma, chroma,
+                                                      rounding),
+                            rounding, errs)
         rec = torch_path.encode_ycbcr32(rgb, luma, chroma)
         agree(f"dec32_rgb {tag} (same records)",
               cuda_dct.decode_quantize32_ycbcr(rec, luma, chroma, w, h),
@@ -676,6 +722,23 @@ def phase_compare_color(gen, luma, chroma, errs):
         agree(f"roundtrip32_rgb {tag}", fused,
               torch_path.roundtrip_ycbcr32(rgb, luma, chroma), errs,
               "roundtrip32_rgb")
+    # a (3, H2, W) view 8 bytes off a 16-byte boundary: the plain-load
+    # variant of enc32_rgb, picked by the plan
+    h, w = 1088, 1920
+    flat = random_images(gen, 1, 3 * h * w + 64, 1).reshape(-1)
+    view = flat[8:8 + 3 * h * w].view(3, h, w)[:, : h // 2]
+    plan = cuda_dct._color_plan_of("enc32_rgb", view, view.data_ptr(), 1,
+                                   h // 2, w, view.stride(0))
+    log(f"  enc32_rgb 3x{h // 2}x{w} view at +8 bytes plan: "
+        f"{plan._asdict()}")
+    require(plan.variant == "plain", "a misaligned view takes plain loads")
+    for rounding in ROUNDINGS:
+        enc32_rgb_exact(f"enc32_rgb view at +8 bytes {rounding}",
+                        cuda_dct.encode32_rgb_view(view, luma, chroma,
+                                                   rounding),
+                        torch_path.encode_ycbcr32_view(view, luma, chroma,
+                                                       rounding),
+                        rounding, errs)
     planes = gate_rgb()
     top = planes[:, : planes.shape[1] // 2]
     x = torch.from_numpy(planes).to(DEV)
@@ -1598,6 +1661,14 @@ def phase_timing(gen, lut, lut_q, chroma, reps):
             if frames == 1:
                 rows[name] = (k_us / 1e3, p_us / 1e3, c_us / 1e3, n_bytes,
                               n_px)
+            if name in EARLIER_US:
+                plan = cuda_dct.color_launch_plan(name, inputs[0])
+                floor_us = EXACT_OPS_PER_PX[name] * n_px / ISSUE_PER_S * 1e6
+                table[-1].update(plan=plan._asdict(), floor_us=floor_us)
+                log(f"  {name} plan {plan._asdict()}; earlier (4K) "
+                    f"{EARLIER_US[name]} us; exact-arithmetic floor "
+                    f"{floor_us:.2f} us ({EXACT_OPS_PER_PX[name]} "
+                    "instructions a pixel position)")
             log(f"  {name:17s} {table[-1]['shape']:18s} kernel {k_us:8.3f} us "
                 f"(profiler {k_prof if k_prof is None else round(k_prof, 3)}"
                 f", wall {k_wall:7.2f})  plain {p_us:9.2f} us "

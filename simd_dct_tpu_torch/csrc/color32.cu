@@ -14,34 +14,55 @@
 // IDCT, subtracts the bias and applies the inverse mix in f32 (the YCbCr
 // values are not rounded), then rounds half to even and clips to u8.
 //
-// Design.  One thread per (8x8 block, channel).  A CUDA block of
-// kColorThreads = 96 threads covers kColorBlocks = 32 consecutive block
-// numbers, one warp per channel, so every choice by channel is uniform in a
-// warp and a thread holds 64 f32 values, as in dct32.cu:
-//   * encode: each thread reads its block's three 8x8 RGB pieces (the two
-//     sibling warps read the same bytes, from L1), mixes its channel,
-//     transforms and quantizes.  The three channels' 32-block record spans
-//     are staged in shared memory as in enc32_kernel (groups kGroupStride
-//     apart) and leave in 16-byte stores;
-//   * decode: the three record spans come in with 16-byte loads; each
-//     thread gathers its channel's bytes, runs the IDCT and writes its 64
-//     YCbCr values, bias removed, to shared memory (96 slabs of 65 floats:
-//     the odd pitch puts a warp's 32 accesses on 32 banks).  After a
-//     barrier each thread reads the three channels of its block and stores
-//     the inverse mix of its own output channel;
-//   * the round trip does both without records: the quantized level stays
-//     in registers, quant_level times the dequant scale, the identity of
-//     roundtrip32_kernel, so it equals decode(encode(x)) byte for byte.
-// This keeps the decode and the round trip at one 64-float array a thread,
-// where holding a block's three channels in one thread would need 192.
-// grid = (ceil(blocks per plane / 32), batch): one launch covers a
-// (B, 3, H, W) batch; any W % 64 == 0, H2 % 8 == 0 runs directly.  The mix
-// matrices and the bias (ColorMix, dct_common.cuh) come by value from the
-// host constants of layout/color.py, like the scales.
+// Encode and round trip: strip tiles, eight threads a block.
+//   * A tile is kTileBlocks = 16 consecutive 8x8 blocks of one strip (8
+//     rows x 128 pixels of each plane); the last tile of a strip is short
+//     where 16 does not divide W/8.  Its records are one span of 64 bytes a
+//     block per channel, at block number s*bw + bx0 of the group-record
+//     layout (byte (u*8+v)*8 + (b & 7) of group b >> 3).
+//   * A persistent grid: CTA i takes tiles i, i + grid, ..., numbered over
+//     (frame, strip, tile of the strip).  Thread 0 brings a tile's 24 rows
+//     (8 a plane) into shared memory by one 4-D tensor copy (box 128
+//     columns x 8 rows x 3 planes x 1 frame) completing on an mbarrier,
+//     and brings the CTA's next tile in as soon as this one's columns are
+//     read, under its row pass.  Warp 1 sends the results, staged in two
+//     buffers, out of shared memory by bulk stores (the records a 512-byte
+//     group at a time, the round trip's pixels by one tensor store); a
+//     buffer is reused only after cp.async.bulk.wait_group.read.  The
+//     encode of a
+//     view whose base or plane stride is not a multiple of 16 takes the
+//     plain-load variant: the threads load the tile with 8-byte loads.
+//   * 128 threads, eight a block: lane l of warp w holds block b = l & 15
+//     and index x = 2w + (l >> 4).  As column k = x, a thread reads column k
+//     of block b of the three planes (each byte once, to f32 without the
+//     conversion unit), mixes Y, Cb, Cr and runs the column pass of dct2d
+//     for each; as row u = x, it runs a row pass.  Values cross between the
+//     two through a shared buffer (cross_at) in which every access of either
+//     form is free of bank conflicts.  The encode quantizes its row and
+//     stages the bytes in padded records (kGroupStride apart, as enc32).
+//     The round trip dequantizes in registers, crosses to the columns for
+//     the first pass of idct2d and back to the rows for the second; the
+//     thread of row j then holds all three channels: bias, inverse mix,
+//     rounding and packing happen in registers.
+//   * Every product and sum of dct2d / idct2d, the mix and the quantizer is
+//     kept in its order, so the bytes equal the one-thread-per-block form
+//     (and dec32_rgb(enc32_rgb(x)) for the round trip).  Rounding to an
+//     integer is x + 1.5*2^23 on clipped x (ties to even; clip(rint(x)) ==
+//     rint(clip(x)) since the limits are integers); rne's +127 is added to
+//     the integer bits, after the rounding (127 is odd: rint(x + 127) is
+//     not rint(x) + 127 at ties).  The 'scalar' rounding keeps quantize<>.
+// Decode: one thread per (8x8 block, channel), kColorThreads = 96 threads a
+// CUDA block over kColorBlocks = 32 block numbers, a warp per channel; the
+// records come in through shared memory with 16-byte loads and the three
+// channels meet in shared memory for the inverse mix.
+
+#include <cuda.h>  // CUtensorMap; the encoder comes from cudaGetDriverEntryPoint
 
 #include "dct_common.cuh"
 
 namespace {
+
+// -- decode: a thread per (block, channel) -----------------------------------
 
 constexpr int kColorBlocks = 32;                 // 8x8 blocks a CUDA block: one warp
 constexpr int kColorThreads = 3 * kColorBlocks;  // a warp per channel
@@ -49,28 +70,6 @@ constexpr int kColorGroups = kColorBlocks / 8;   // 8-block record groups a chan
 constexpr int kRecSmem = 3 * kColorGroups * kGroupStride;
 constexpr int kYccPitch = 65;                    // floats per (channel, block) slab
 constexpr int kYccPlane = kColorBlocks * kYccPitch;
-
-// Channel c of the forward mix of one 8x8 RGB block; p points at its R
-// piece, the G and B pieces lie plane_stride and 2*plane_stride further.
-__device__ __forceinline__ void load_mixed_block(const uint8_t* __restrict__ p,
-                                                 long long plane_stride, int w, int c,
-                                                 const ColorMix& mix, float (&x)[64]) {
-  const float m0 = pick(c, mix.fwd[0], mix.fwd[3], mix.fwd[6]);
-  const float m1 = pick(c, mix.fwd[1], mix.fwd[4], mix.fwd[7]);
-  const float m2 = pick(c, mix.fwd[2], mix.fwd[5], mix.fwd[8]);
-  const float bias = pick(c, mix.bias[0], mix.bias[1], mix.bias[2]);
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const uint8_t* row = p + (size_t)r * w;
-    const uint2 vr = __ldg(reinterpret_cast<const uint2*>(row));
-    const uint2 vg = __ldg(reinterpret_cast<const uint2*>(row + plane_stride));
-    const uint2 vb = __ldg(reinterpret_cast<const uint2*>(row + 2 * plane_stride));
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      x[r * 8 + i] = __fadd_rn(mix3(m0, m1, m2, byte_of(vr, i), byte_of(vg, i), byte_of(vb, i)),
-                               bias);
-  }
-}
 
 // A thread's IDCT output, bias removed, into its shared-memory slab.
 __device__ __forceinline__ void put_ycc(float* __restrict__ slab, int c, const ColorMix& mix,
@@ -93,44 +92,6 @@ __device__ __forceinline__ void store_unmixed(uint8_t* __restrict__ p, int w, in
   for (int q = 0; q < 64; ++q)
     x[q] = mix3(m0, m1, m2, slab_y[q], slab_y[kYccPlane + q], slab_y[2 * kYccPlane + q]);
   store_block(p, w, x);
-}
-
-// Replaces simd_dct_tpu/kernels/color32.py _enc32_rgb_kernel.
-// Bound: memory, 3 bytes read + 3 bytes written per pixel position; the
-// f32 work (3 x (8.25 + 3) FMAs per pixel position, butterfly transform and
-// mix) is below the CUDA cores' rate.  Design: see the head of this file;
-// the records leave through shared memory in 16-byte stores as enc32's do.
-template <int R>
-__global__ void __launch_bounds__(kColorThreads)
-enc32_rgb_kernel(const uint8_t* __restrict__ img, uint8_t* __restrict__ out, Scales ql,
-                 Scales qc, ColorMix mix, int h2, int w, long long plane_stride) {
-  __shared__ __align__(16) uint8_t rec[kRecSmem];
-  const int c = threadIdx.x / kColorBlocks;  // uniform in a warp
-  const int b = threadIdx.x % kColorBlocks;
-  const int bw = w >> 3;
-  const long long nblk = (long long)(h2 >> 3) * bw;
-  const long long blk0 = (long long)blockIdx.x * kColorBlocks;
-  const long long blk = blk0 + b;
-  const long long plane_out = (long long)h2 * w;
-  if (blk < nblk) {
-    const long long s = blk / bw;
-    const int bx = (int)(blk - s * bw);
-    float x[64];
-    load_mixed_block(img + (long long)blockIdx.y * 3 * plane_stride + 8 * s * w + 8 * bx,
-                     plane_stride, w, c, mix, x);
-    dct2d(x);
-    uint8_t* slot = rec + (c * kColorGroups + (b >> 3)) * kGroupStride + (b & 7);
-#pragma unroll
-    for (int p = 0; p < 64; ++p) slot[p * 8] = quantize<R>(x[p], c == 0 ? ql.v[p] : qc.v[p]);
-  }
-  __syncthreads();
-  const int pieces = 4 * (int)(nblk - blk0 < kColorBlocks ? nblk - blk0 : kColorBlocks);
-  const uint4* s4 = reinterpret_cast<const uint4*>(rec);
-  uint8_t* dst = out + (long long)blockIdx.y * 3 * plane_out + blk0 * 64;
-  for (int i = threadIdx.x; i < 3 * pieces; i += kColorThreads) {
-    const int ch = i / pieces, j = i - ch * pieces;
-    reinterpret_cast<uint4*>(dst + ch * plane_out)[j] = s4[smem_piece(ch * kColorGroups * 32 + j)];
-  }
 }
 
 // Replaces simd_dct_tpu/kernels/color32.py _dec32_rgb_kernel.
@@ -176,42 +137,426 @@ dec32_rgb_kernel(const uint8_t* __restrict__ records, uint8_t* __restrict__ out,
   store_unmixed(out + frame + c * plane + 8 * s * w + 8 * bx, w, c, mix, ycc + b * kYccPitch);
 }
 
-// Replaces simd_dct_tpu/kernels/color32.py _roundtrip_rgb_kernel.
-// Bound: operations, 3 x (16.5 + 3 + 3) FMAs per pixel position against 6
-// bytes (at 3.35 TB/s and 33.5 T FMA/s the FMAs take longer).  Design: the
-// quantized levels never leave registers (quantize clip(rint(z*q)) on
-// [-127, 128], then times the dequant scale, color32.py:229-231), the same
-// device functions as enc32_rgb and dec32_rgb.
-__global__ void __launch_bounds__(kColorThreads)
-roundtrip32_rgb_kernel(const uint8_t* __restrict__ img, uint8_t* __restrict__ out, Scales ql,
-                       Scales qc, Scales qil, Scales qic, ColorMix mix, int h2, int w,
-                       long long plane_stride) {
-  __shared__ float ycc[3 * kYccPlane];
-  const int c = threadIdx.x / kColorBlocks;
-  const int b = threadIdx.x % kColorBlocks;
-  const int bw = w >> 3;
-  const long long nblk = (long long)(h2 >> 3) * bw;
-  const long long blk = (long long)blockIdx.x * kColorBlocks + b;
-  const bool live = blk < nblk;
-  const long long s = live ? blk / bw : 0;
-  const int bx = (int)(blk - s * bw);
-  if (live) {
-    float x[64];
-    load_mixed_block(img + (long long)blockIdx.y * 3 * plane_stride + 8 * s * w + 8 * bx,
-                     plane_stride, w, c, mix, x);
-    dct2d(x);
-#pragma unroll
-    for (int p = 0; p < 64; ++p)
-      x[p] = __fmul_rn(quant_level(__fmul_rn(x[p], c == 0 ? ql.v[p] : qc.v[p])),
-                       c == 0 ? qil.v[p] : qic.v[p]);
-    idct2d(x);
-    put_ycc(ycc + threadIdx.x * kYccPitch, c, mix, x);
+// -- encode and round trip: strip tiles --------------------------------------
+
+constexpr int kTileBlocks = 16;                       // 8x8 blocks a tile
+constexpr int kTileThreads = 8 * kTileBlocks;         // eight a block: 4 warps
+constexpr int kTileRow = 8 * kTileBlocks;             // bytes of a tile row of a plane
+constexpr int kTileIn = 24 * kTileRow;                // 3 planes x 8 rows
+constexpr int kTileGroups = kTileBlocks / 8;          // record groups a channel
+constexpr int kTileRec = 3 * kTileGroups * kGroupStride;
+constexpr int kCrossBytes = 3 * 64 * kTileBlocks * 4;  // f32 of the crossing buffer
+// CTAs an SM the round trip is built for: a cap of 72 registers (uncapped
+// it takes 79, six CTAs an SM, and ran 0.8-2% slower on a 4K view)
+constexpr int kRoundtripCtas = 7;
+// Input loads: kTensor one 4-D tensor copy a tile (box 128 columns x 8
+// rows x 3 planes x 1 frame; 16-byte addresses and strides), kPlain the
+// threads' own 8-byte loads (the encode of a view that is not aligned so).
+enum Variant { kPlain = 0, kTensor = 1 };
+constexpr float kTwo23 = 8388608.0f;
+constexpr float kRound = 12582912.0f;  // 1.5 * 2^23
+constexpr unsigned long long kWaitNs = 2000000000ull;
+
+// Shared bytes of a launch: scales (2 tables, 4 for the round trip), the
+// input tile, two output buffers, the crossing buffer.  The host's plan
+// (cuda_dct.color_smem) computes the same and the entry points compare.
+inline int tile_smem(bool roundtrip) {
+  return (roundtrip ? 4 : 2) * 64 * 4 + kTileIn + 2 * (roundtrip ? kTileIn : kTileRec) +
+         kCrossBytes;
+}
+
+struct TileGeom {
+  int w, bw;           // W, blocks a row
+  unsigned tps;        // tiles a strip
+  unsigned strips;     // strips a frame
+  unsigned tiles;      // of the launch (the host keeps it below 2^31)
+  long long ps;        // plane stride of the input, bytes
+  long long plane;     // H2*W: a channel's records or output plane
+};
+
+struct Tile {
+  long long frame, strip;
+  int bx0, nb;  // first block of the strip, blocks (a multiple of 8)
+};
+
+// Tile t, numbered over (frame, strip, tile of the strip): 32-bit divisions.
+__device__ __forceinline__ Tile tile_at(const TileGeom& g, unsigned t) {
+  const unsigned fs = t / g.tps, x = t - fs * g.tps;
+  const unsigned frame = fs / g.strips;
+  Tile a;
+  a.frame = frame;
+  a.strip = fs - frame * g.strips;
+  a.bx0 = (int)x * kTileBlocks;
+  a.nb = min(kTileBlocks, g.bw - a.bx0);
+  return a;
+}
+
+__device__ __forceinline__ unsigned saddr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Wait for the phase of `bar` with this parity.  A load that never lands
+// (a fault of this file) traps after kWaitNs instead of hanging the card.
+__device__ __forceinline__ void wait_full(uint64_t* bar, unsigned parity) {
+  const unsigned b = saddr(bar);
+  unsigned long long t0 = 0;
+  for (;;) {
+    unsigned done;
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(b), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (t0 == 0) t0 = globaltimer();
+    else if (globaltimer() - t0 > kWaitNs) __trap();
+  }
+}
+
+// Lane 0 of warp 0: tile t (if the launch has it) into `stage` by one
+// tensor copy, completing on `bar` with the whole box (a short tile's
+// columns past W come in as zeros).
+__device__ __forceinline__ void load_tile(const CUtensorMap* tin, const TileGeom& g, unsigned t,
+                                          uint8_t* stage, uint64_t* bar) {
+  if (t >= g.tiles) return;
+  const Tile a = tile_at(g, t);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(saddr(bar)),
+               "r"(kTileIn)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(saddr(stage)),
+      "l"(tin), "r"(8 * a.bx0), "r"((int)(8 * a.strip)), "r"(0), "r"((int)a.frame),
+      "r"(saddr(bar))
+      : "memory");
+}
+
+// All threads: the tile's rows into `stage` with 8-byte loads, then a
+// barrier.
+__device__ __forceinline__ void load_tile_plain(const uint8_t* img, const TileGeom& g,
+                                                unsigned t, uint8_t* stage) {
+  const Tile a = tile_at(g, t);
+  for (int i = threadIdx.x; i < 24 * a.nb; i += kTileThreads) {
+    const int pr = i / a.nb, b = i - pr * a.nb;
+    const uint8_t* row =
+        img + (a.frame * 3 + (pr >> 3)) * g.ps + (8 * a.strip + (pr & 7)) * g.w + 8 * a.bx0;
+    *reinterpret_cast<uint2*>(stage + pr * kTileRow + 8 * b) =
+        __ldg(reinterpret_cast<const uint2*>(row + 8 * b));
   }
   __syncthreads();
-  if (!live) return;
-  const long long plane = (long long)h2 * w;
-  store_unmixed(out + (long long)blockIdx.y * 3 * plane + c * plane + 8 * s * w + 8 * bx, w, c,
-                mix, ycc + b * kYccPitch);
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+
+// The generic proxy's shared-memory writes, before the bulk stores read them.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Exact u8 -> f32 without the conversion unit: 2^23 + b, less 2^23.
+__device__ __forceinline__ float u8f(uint32_t b) {
+  return __fsub_rn(__int_as_float(0x4B000000u | b), kTwo23);
+}
+
+// For |x| <= 2^22: the low bits of x + 1.5*2^23 are rint(x) (ties to even),
+// as a two's complement integer in the low byte.
+__device__ __forceinline__ uint32_t rint_bits(float x) {
+  return __float_as_uint(__fadd_rn(x, kRound));
+}
+
+// rint(x) as f32, exactly.
+__device__ __forceinline__ float rint_small(float x) {
+  return __fsub_rn(__fadd_rn(x, kRound), kRound);
+}
+
+// quantize<R> of dct_common.cuh, its bytes, without rintf and int casts.
+template <int R>
+__device__ __forceinline__ uint8_t quantize_byte(float c, float q) {
+  if (R == kScalar) return quantize<kScalar>(c, q);
+  const float x = __fmul_rn(c, q);
+  if (R == kRne) return (uint8_t)(rint_bits(fminf(fmaxf(x, -127.0f), 128.0f)) + 127u);
+  return (uint8_t)rint_bits(fminf(fmaxf(__fadd_rn(x, 127.0f), 0.0f), 255.0f));
+}
+
+// The crossing buffer: value (row index r, column index c) of block b of a
+// channel, in 32-float lines of a column pair, the pair's halves swapped on
+// odd r.  A warp writing (16 blocks x c in {2i, 2i+1}, fixed r) or reading
+// (16 blocks x r in {2i, 2i+1}, fixed c) touches 32 distinct banks.
+__device__ __forceinline__ int cross_at(int ch, int r, int c, int b) {
+  return ((ch * 8 + r) * 4 + (c >> 1)) * 32 + (((c ^ r) & 1) << 4) + b;
+}
+
+// As column k, thread (b, k): column k of block b of the three planes
+// (tile rows kTileRow apart), mixed, bias added, column pass of dct2d:
+// t[u][k] = sum_j D[u][j] x[j][k] into the crossing buffer.
+__device__ __forceinline__ void mix_columns(const uint8_t* __restrict__ stage,
+                                            float* __restrict__ cross, const ColorMix& mix, int b,
+                                            int k) {
+  float rgb[3][8];
+#pragma unroll
+  for (int p = 0; p < 3; ++p)
+#pragma unroll
+    for (int r = 0; r < 8; ++r) rgb[p][r] = u8f(stage[(p * 8 + r) * kTileRow + b * 8 + k]);
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    float x[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+      x[r] = __fadd_rn(mix3(mix.fwd[ch * 3], mix.fwd[ch * 3 + 1], mix.fwd[ch * 3 + 2], rgb[0][r],
+                            rgb[1][r], rgb[2][r]),
+                       mix.bias[ch]);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      float acc = __fmul_rn(kD[u * 8], x[0]);
+#pragma unroll
+      for (int j = 1; j < 8; ++j) acc = __fmaf_rn(kD[u * 8 + j], x[j], acc);
+      cross[cross_at(ch, u, k, b)] = acc;
+    }
+  }
+}
+
+// As row u, thread (b, u): row u of channel ch's t, row pass of dct2d:
+// c[u][v] = sum_k t[u][k] D[v][k].
+__device__ __forceinline__ void row_pass(const float* __restrict__ cross, int ch, int u, int b,
+                                         float (&c)[8]) {
+  float t[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) t[k] = cross[cross_at(ch, u, k, b)];
+#pragma unroll
+  for (int v = 0; v < 8; ++v) {
+    float acc = __fmul_rn(t[0], kD[v * 8]);
+#pragma unroll
+    for (int k = 1; k < 8; ++k) acc = __fmaf_rn(t[k], kD[v * 8 + k], acc);
+    c[v] = acc;
+  }
+}
+
+// Row u's 8 scales of a 64-entry table in shared memory (two 16-byte loads).
+__device__ __forceinline__ void row_scales(const float* table, int u, float (&q)[8]) {
+  const float4 lo = *reinterpret_cast<const float4*>(table + u * 8);
+  const float4 hi = *reinterpret_cast<const float4*>(table + u * 8 + 4);
+  q[0] = lo.x, q[1] = lo.y, q[2] = lo.z, q[3] = lo.w;
+  q[4] = hi.x, q[5] = hi.y, q[6] = hi.z, q[7] = hi.w;
+}
+
+// Warp 1 of the encode: the tile's records, a 512-byte group a store.
+__device__ __forceinline__ void store_records(uint8_t* out, const TileGeom& g, unsigned t,
+                                              const uint8_t* rec, int lane) {
+  const Tile a = tile_at(g, t);
+  const int groups = a.nb >> 3;
+  if (lane < 3 * groups) {
+    const int ch = lane / groups, gi = lane - ch * groups;
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], 512;" ::"l"(
+                     out + (a.frame * 3 + ch) * g.plane + (a.strip * g.bw + a.bx0 + 8 * gi) * 64),
+                 "r"(saddr(rec + (ch * kTileGroups + gi) * kGroupStride))
+                 : "memory");
+  }
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// Lane 0 of warp 1 of the round trip: the tile's pixel rows as one tensor
+// store (columns past W are not written).
+__device__ __forceinline__ void store_rows(const CUtensorMap* tout, const TileGeom& g,
+                                           unsigned t, const uint8_t* pix) {
+  const Tile a = tile_at(g, t);
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.tile.bulk_group [%0, {%1, %2, %3, %4}], "
+      "[%5];" ::"l"(tout),
+      "r"(8 * a.bx0), "r"((int)(8 * a.strip)), "r"(0), "r"((int)a.frame), "r"(saddr(pix))
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// A table of scales into shared memory by thread 0, at compile-time
+// indices (the by-value table stays in parameter space: a thread indexes
+// the scales by its row, a runtime value).
+__device__ __forceinline__ void put_scales(float* sq, const Scales& q) {
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sq[i] = q.v[i];
+  }
+}
+
+// Common prologue, after the scales: the input mbarrier, then a barrier.
+__device__ __forceinline__ void tile_prologue(uint64_t* full) {
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(saddr(full)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// Replaces simd_dct_tpu/kernels/color32.py _enc32_rgb_kernel.
+// Bound: memory, 3 bytes read + 3 bytes written per pixel position; the
+// matrix-form arithmetic these bytes need sets a floor above it (PERF.md).
+// Design: see the head of this file.
+template <int R, int V>
+__global__ void __launch_bounds__(kTileThreads)
+enc32_rgb_kernel(const uint8_t* __restrict__ img, uint8_t* __restrict__ out, Scales ql,
+                 Scales qc, ColorMix mix, TileGeom g, const __grid_constant__ CUtensorMap tin) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ __align__(8) uint64_t full;
+  float* sq = reinterpret_cast<float*>(smem);
+  uint8_t* stage = smem + 2 * 64 * 4;
+  uint8_t* recs = stage + kTileIn;
+  float* cross = reinterpret_cast<float*>(recs + 2 * kTileRec);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = lane & 15, x = 2 * warp + (lane >> 4);  // block; column, then row
+  put_scales(sq, ql);
+  put_scales(sq + 64, qc);
+  tile_prologue(&full);
+  if (V == kTensor && threadIdx.x == 0) load_tile(&tin, g, blockIdx.x, stage, &full);
+  unsigned phase = 0, half = 0;  // the input's parity; the output buffer
+  for (unsigned t = blockIdx.x; t < g.tiles; t += gridDim.x) {
+    if (V == kTensor) wait_full(&full, phase);
+    else load_tile_plain(img, g, t, stage);
+    mix_columns(stage, cross, mix, b, x);
+    if (warp == 1) bulk_wait_read<1>();  // the stores of tile t - 2 grid have read its buffer
+    __syncthreads();
+    // the columns are read: the CTA's next tile comes in under the rows
+    if (V == kTensor && threadIdx.x == 0) load_tile(&tin, g, t + gridDim.x, stage, &full);
+    uint8_t* rec = recs + half * kTileRec;
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      float c[8], q[8];
+      row_pass(cross, ch, x, b, c);
+      row_scales(sq + (ch == 0 ? 0 : 64), x, q);
+      uint8_t* slot = rec + (ch * kTileGroups + (b >> 3)) * kGroupStride + x * 64 + (b & 7);
+#pragma unroll
+      for (int v = 0; v < 8; ++v) slot[v * 8] = quantize_byte<R>(c[v], q[v]);
+    }
+    fence_async_shared();
+    __syncthreads();
+    if (warp == 1) store_records(out, g, t, rec, lane);
+    phase ^= 1;
+    half ^= 1;
+  }
+  if (warp == 1) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// Replaces simd_dct_tpu/kernels/color32.py _roundtrip_rgb_kernel.
+// Bound: operations, 3 x (16.5 + 3 + 3) FMAs per pixel position against 6
+// bytes; the matrix form the identities require sets a floor above it
+// (PERF.md).  Design: see the head of this file.  The quantized level never
+// leaves registers (clip(rint(z*q)) on [-127, 128], then times the dequant
+// scale, color32.py:229-231).  One crossing buffer serves the three
+// crossings: a barrier before each write keeps the last one's readers safe.
+__global__ void __launch_bounds__(kTileThreads, kRoundtripCtas)
+roundtrip32_rgb_kernel(const uint8_t* __restrict__ img, uint8_t* __restrict__ out, Scales ql,
+                       Scales qc, Scales qil, Scales qic, ColorMix mix, TileGeom g,
+                       const __grid_constant__ CUtensorMap tin,
+                       const __grid_constant__ CUtensorMap tout) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ __align__(8) uint64_t full;
+  float* sq = reinterpret_cast<float*>(smem);
+  uint8_t* stage = smem + 4 * 64 * 4;
+  uint8_t* pixs = stage + kTileIn;
+  float* cross = reinterpret_cast<float*>(pixs + 2 * kTileIn);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = lane & 15, x = 2 * warp + (lane >> 4);  // block; column or row
+  put_scales(sq, ql);
+  put_scales(sq + 64, qc);
+  put_scales(sq + 128, qil);
+  put_scales(sq + 192, qic);
+  tile_prologue(&full);
+  if (threadIdx.x == 0) load_tile(&tin, g, blockIdx.x, stage, &full);
+  unsigned phase = 0, half = 0;  // the input's parity; the output buffer
+  for (unsigned t = blockIdx.x; t < g.tiles; t += gridDim.x) {
+    wait_full(&full, phase);
+    // columns: mix, dct2d's column pass
+    mix_columns(stage, cross, mix, b, x);
+    if (warp == 1) bulk_wait_read<1>();  // the stores of tile t - 2 grid have read its buffer
+    __syncthreads();
+    if (threadIdx.x == 0) load_tile(&tin, g, t + gridDim.x, stage, &full);
+    // rows: dct2d's row pass, quantize, dequantize (c[u][v] at u = x)
+    float c[3][8];
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      float q[8], qi[8];
+      row_pass(cross, ch, x, b, c[ch]);
+      row_scales(sq + (ch == 0 ? 0 : 64), x, q);
+      row_scales(sq + (ch == 0 ? 128 : 192), x, qi);
+#pragma unroll
+      for (int v = 0; v < 8; ++v)
+        c[ch][v] = __fmul_rn(rint_small(fminf(fmaxf(__fmul_rn(c[ch][v], q[v]), -127.0f), 128.0f)),
+                             qi[v]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch)
+#pragma unroll
+      for (int v = 0; v < 8; ++v) cross[cross_at(ch, x, v, b)] = c[ch][v];
+    __syncthreads();
+    // columns: idct2d's column pass, t[j][v] = sum_u D[u][j] c[u][v] at v = x
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      float cu[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) cu[u] = cross[cross_at(ch, u, x, b)];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        float acc = __fmul_rn(kD[r], cu[0]);
+#pragma unroll
+        for (int u = 1; u < 8; ++u) acc = __fmaf_rn(kD[u * 8 + r], cu[u], acc);
+        c[ch][r] = acc;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch)
+#pragma unroll
+      for (int r = 0; r < 8; ++r) cross[cross_at(ch, r, x, b)] = c[ch][r];
+    __syncthreads();
+    // rows: idct2d's row pass x[j][k] = sum_v t[j][v] D[v][k] at j = x,
+    // bias off, inverse mix, round and clip into the pixel tile
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      float tv[8];
+#pragma unroll
+      for (int v = 0; v < 8; ++v) tv[v] = cross[cross_at(ch, x, v, b)];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        float acc = __fmul_rn(tv[0], kD[k]);
+#pragma unroll
+        for (int v = 1; v < 8; ++v) acc = __fmaf_rn(tv[v], kD[v * 8 + k], acc);
+        c[ch][k] = __fsub_rn(acc, mix.bias[ch]);
+      }
+    }
+    uint8_t* pix = pixs + half * kTileIn;
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      uint32_t px[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        px[k] = rint_bits(fminf(fmaxf(mix3(mix.inv[p * 3], mix.inv[p * 3 + 1], mix.inv[p * 3 + 2],
+                                           c[0][k], c[1][k], c[2][k]),
+                                      0.0f),
+                                255.0f));
+      uint2 v;
+      v.x = __byte_perm(__byte_perm(px[0], px[1], 0x0040), __byte_perm(px[2], px[3], 0x0040),
+                        0x5410);
+      v.y = __byte_perm(__byte_perm(px[4], px[5], 0x0040), __byte_perm(px[6], px[7], 0x0040),
+                        0x5410);
+      *reinterpret_cast<uint2*>(pix + (p * 8 + x) * kTileRow + b * 8) = v;
+    }
+    fence_async_shared();
+    __syncthreads();
+    if (warp == 1 && lane == 0) store_rows(&tout, g, t, pix);
+    phase ^= 1;
+    half ^= 1;
+  }
+  if (warp == 1 && lane == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
 unsigned color_grid_x(int h2, int w) {
@@ -219,41 +564,140 @@ unsigned color_grid_x(int h2, int w) {
   return (unsigned)((nblk + kColorBlocks - 1) / kColorBlocks);
 }
 
+// The tile geometry of a launch, or false where the plan does not fit it:
+// grid, the shared bytes the host computed, and kTensor only on 16-byte
+// addresses and plane strides.
+bool tile_launch_ok(const void* img, int batch, int h2, int w, long long plane_stride, int grid,
+                    int variant, int smem, int want_smem, TileGeom* g) {
+  if (!mode32_geometry_ok(batch, h2, w) || grid <= 0 || smem != want_smem ||
+      (variant != kPlain && variant != kTensor))
+    return false;
+  const uintptr_t align = (uintptr_t)img | (uintptr_t)plane_stride;
+  if ((align & 7) || (variant == kTensor && (align & 15))) return false;
+  const unsigned tps = (w / 8 + kTileBlocks - 1) / kTileBlocks;
+  const long long tiles = (long long)batch * (h2 / 8) * tps;
+  if (tiles >= (1ll << 31) || grid > tiles) return false;
+  g->w = w;
+  g->bw = w / 8;
+  g->tps = tps;
+  g->strips = (unsigned)(h2 / 8);
+  g->tiles = (unsigned)tiles;
+  g->ps = plane_stride;
+  g->plane = (long long)h2 * w;
+  return true;
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (no link to
+// the driver library); null where the driver has none.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &q);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// The (batch, 3, h2, w) u8 planes at `base`, rows w bytes apart, planes
+// plane_stride and frames 3*plane_stride, as a tensor map whose box is one
+// tile: 8*kTileBlocks columns, 8 rows, 3 planes, 1 frame.
+bool planes_map(CUtensorMap* m, const void* base, int batch, int h2, int w,
+                long long plane_stride) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)w, (cuuint64_t)h2, 3, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)w, (cuuint64_t)plane_stride,
+                                 (cuuint64_t)(3 * plane_stride)};
+  const cuuint32_t box[4] = {kTileRow, 8, 3, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(base), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Let `fn` take `smem` dynamic shared bytes (above the 48 KB default).
+cudaError_t allow_smem(const void* fn, int smem) {
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+template <int R>
+const void* enc_fn(int variant) {
+  return variant == kTensor ? (const void*)enc32_rgb_kernel<R, kTensor>
+                            : (const void*)enc32_rgb_kernel<R, kPlain>;
+}
+
+const void* enc_kernel_of(int rounding, int variant) {
+  if (variant != kPlain && variant != kTensor) return nullptr;
+  switch (rounding) {
+    case kRne: return enc_fn<kRne>(variant);
+    case kScalar: return enc_fn<kScalar>(variant);
+    case kClampFirst: return enc_fn<kClampFirst>(variant);
+    default: return nullptr;
+  }
+}
+
 }  // namespace
 
 extern "C" {
+
+// The launch of a tile kernel: the shared bytes a CTA of it takes and how
+// many such CTAs an SM holds, and the SMs of the current card.  kind 0 is
+// the encode (`rounding` and `variant` pick its instantiation), 1 the
+// round trip.
+int sdct_color_capacity(int kind, int rounding, int variant, int* smem, int* per_sm, int* sms) {
+  const void* fn =
+      kind == 0 ? enc_kernel_of(rounding, variant) : (const void*)roundtrip32_rgb_kernel;
+  if (!fn) return (int)cudaErrorInvalidValue;
+  *smem = tile_smem(kind == 1);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = allow_smem(fn, *smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fn, kTileThreads, *smem);
+  return (int)e;
+}
 
 // img: (batch, 3, >= h2 rows, w) u8 planar RGB, planes plane_stride bytes
 // apart and frames 3*plane_stride; only the first h2 rows of each plane are
 // read.  out: (batch, 3, h2*w) u8 records.  ql, qc: 64 host f32 quant
 // scales of the luma and chroma LUTs; mix: 21 host f32, the ColorMix.
+// grid, variant (Variant) and smem: the host's launch plan
+// (cuda_dct.color_plan); smem must equal what the kernel lays out.
 int sdct_enc32_rgb(const void* img, void* out, const float* ql, const float* qc,
                    const float* mix, int batch, int h2, int w, long long plane_stride,
-                   int rounding, void* stream) {
-  if (!mode32_geometry_ok(batch, h2, w)) return (int)cudaErrorInvalidValue;
-  const dim3 grid(color_grid_x(h2, w), batch);
-  cudaStream_t st = (cudaStream_t)stream;
+                   int rounding, int grid, int variant, int smem, void* stream) {
+  TileGeom g;
+  if (!tile_launch_ok(img, batch, h2, w, plane_stride, grid, variant, smem, tile_smem(false),
+                      &g))
+    return (int)cudaErrorInvalidValue;
+  const void* fn = enc_kernel_of(rounding, variant);
+  if (!fn) return (int)cudaErrorInvalidValue;
+  cudaError_t e = allow_smem(fn, smem);
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap tin = {};
+  if (variant == kTensor && !planes_map(&tin, img, batch, h2, w, plane_stride))
+    return (int)cudaErrorInvalidValue;
   const uint8_t* in = (const uint8_t*)img;
   uint8_t* o = (uint8_t*)out;
-  const Scales sl = to_scales(ql), sc = to_scales(qc);
-  const ColorMix m = to_mix(mix);
-  switch (rounding) {
-    case kRne:
-      enc32_rgb_kernel<kRne><<<grid, kColorThreads, 0, st>>>(in, o, sl, sc, m, h2, w,
-                                                             plane_stride);
-      break;
-    case kScalar:
-      enc32_rgb_kernel<kScalar><<<grid, kColorThreads, 0, st>>>(in, o, sl, sc, m, h2, w,
-                                                                plane_stride);
-      break;
-    case kClampFirst:
-      enc32_rgb_kernel<kClampFirst><<<grid, kColorThreads, 0, st>>>(in, o, sl, sc, m, h2, w,
-                                                                    plane_stride);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  Scales sl = to_scales(ql), sc = to_scales(qc);
+  ColorMix m = to_mix(mix);
+  void* args[] = {(void*)&in, (void*)&o, &sl, &sc, &m, &g, &tin};
+  return (int)cudaLaunchKernel(fn, dim3(grid), dim3(kTileThreads), args, (size_t)smem,
+                               (cudaStream_t)stream);
 }
 
 // records: (batch, 3, h2*w) u8.  out: (batch, 3, h2, w) u8.  qil, qic: 64
@@ -268,16 +712,30 @@ int sdct_dec32_rgb(const void* records, void* out, const float* qil, const float
   return (int)cudaGetLastError();
 }
 
-// img as for sdct_enc32_rgb; out: (batch, 3, h2, w) u8.
+// img as for sdct_enc32_rgb, on 16-byte addresses and plane strides;
+// out: (batch, 3, h2, w) u8.  grid and smem: the host's plan.
 int sdct_roundtrip32_rgb(const void* img, void* out, const float* ql, const float* qc,
                          const float* qil, const float* qic, const float* mix, int batch,
-                         int h2, int w, long long plane_stride, void* stream) {
-  if (!mode32_geometry_ok(batch, h2, w)) return (int)cudaErrorInvalidValue;
-  const dim3 grid(color_grid_x(h2, w), batch);
-  roundtrip32_rgb_kernel<<<grid, kColorThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)img, (uint8_t*)out, to_scales(ql), to_scales(qc), to_scales(qil),
-      to_scales(qic), to_mix(mix), h2, w, plane_stride);
-  return (int)cudaGetLastError();
+                         int h2, int w, long long plane_stride, int grid, int smem,
+                         void* stream) {
+  TileGeom g;
+  if (!tile_launch_ok(img, batch, h2, w, plane_stride, grid, kTensor, smem, tile_smem(true),
+                      &g))
+    return (int)cudaErrorInvalidValue;
+  const void* fn = (const void*)roundtrip32_rgb_kernel;
+  cudaError_t e = allow_smem(fn, smem);
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap tin = {}, tout = {};
+  if (!planes_map(&tin, img, batch, h2, w, plane_stride) ||
+      !planes_map(&tout, out, batch, h2, w, (long long)h2 * w))
+    return (int)cudaErrorInvalidValue;
+  const uint8_t* in = (const uint8_t*)img;
+  uint8_t* o = (uint8_t*)out;
+  Scales sl = to_scales(ql), sc = to_scales(qc), sil = to_scales(qil), sic = to_scales(qic);
+  ColorMix m = to_mix(mix);
+  void* args[] = {(void*)&in, (void*)&o, &sl, &sc, &sil, &sic, &m, &g, &tin, &tout};
+  return (int)cudaLaunchKernel(fn, dim3(grid), dim3(kTileThreads), args, (size_t)smem,
+                               (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -97,12 +98,13 @@ def supports_mode(mode: str, h: int, w: int, layout: str = "scalar") -> bool:
 
 
 def _check_tensor(t, name: str, ndims: tuple[int, ...],
-                  strided_lead: bool = False) -> None:
+                  strided_lead: bool = False, align: int = 16) -> None:
     """Device, dtype, dims, contiguity and alignment.  ``strided_lead``
     takes a view whose rows are contiguous but whose leading axis may be
     strided, as a row range of a larger image is (the view-level kernels
-    take that frame or plane stride: a whole number of 16-byte units, no
-    smaller than one view)."""
+    take that frame or plane stride: a whole number of ``align``-byte
+    units, no smaller than one view).  A CUDA tensor starts on an
+    ``align``-byte boundary."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
     if t.device.type not in ("cpu", "cuda"):
@@ -118,13 +120,13 @@ def _check_tensor(t, name: str, ndims: tuple[int, ...],
         if t.stride(-1) != 1 or (h2 > 1 and t.stride(-2) != w):
             raise ValueError(f"{name} must have contiguous rows")
         if t.ndim == 3 and t.shape[0] > 1 and (t.stride(0) < h2 * w
-                                               or t.stride(0) % 16):
+                                               or t.stride(0) % align):
             raise ValueError(f"{name}'s leading stride {t.stride(0)} must be "
-                             f"a multiple of 16 and at least {h2 * w}")
+                             f"a multiple of {align} and at least {h2 * w}")
     elif not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.device.type == "cuda" and t.data_ptr() % 16:
-        raise ValueError(f"{name} must start on a 16-byte boundary")
+    if t.device.type == "cuda" and t.data_ptr() % align:
+        raise ValueError(f"{name} must start on a {align}-byte boundary")
 
 
 def _check_geometry(mode: str, h: int, w: int,
@@ -426,20 +428,32 @@ def encode_quantize32_ycbcr(planes: torch.Tensor, luma, chroma,
         raise ValueError(f"rounding must be one of {ROUNDING_MODES}")
     if planes.device.type == "cpu":
         return _tp.encode_ycbcr32(planes, luma, chroma, rounding)
-    batch = _batch_of(planes, 3)
     h2 = h // 2
     out = torch.empty(planes.shape[:-2] + (h2 * w,), dtype=torch.uint8,
                       device=planes.device)
+    _enc32_rgb(planes, out, _batch_of(planes, 3), h2, w, h * w, luma, chroma,
+               rounding)
+    return out
+
+
+def _enc32_rgb(src: torch.Tensor, out: torch.Tensor, batch: int, h2: int,
+               w: int, plane_stride: int, luma, chroma, rounding: str) -> None:
     if out.numel() == 0:
-        return out
+        return
     ql, _ = _host_scales(luma)
     qc, _ = _host_scales(chroma)
-    _launch("enc32_rgb", (planes, out), batch,
-            lambda lib, src, dst, n: lib.sdct_enc32_rgb(
-                src, dst, ql.ctypes.data, qc.ctypes.data,
-                _COLOR_MIX.ctypes.data, n, h2, w, h * w,
-                _ROUNDING_CODE[rounding], _stream(planes)))
-    return out
+
+    def launch(lib, src_p, dst_p, n):
+        plan = _color_plan_of("enc32_rgb", src, src_p, n, h2, w, plane_stride,
+                              rounding)
+        return lib.sdct_enc32_rgb(
+            src_p, dst_p, ql.ctypes.data, qc.ctypes.data,
+            _COLOR_MIX.ctypes.data, n, h2, w, plane_stride,
+            _ROUNDING_CODE[rounding], plan.grid, _VARIANT_CODE[plan.variant],
+            plan.smem, _stream(src))
+
+    _launch("enc32_rgb", (src, out), batch, launch,
+            frame_bytes=[3 * plane_stride, 3 * h2 * w])
 
 
 def decode_quantize32_ycbcr(data: torch.Tensor, luma, chroma, size_x: int,
@@ -485,12 +499,125 @@ def roundtrip_quantize32_ycbcr(planes: torch.Tensor, luma,
         return out
     ql, qil = _host_scales(luma)
     qc, qic = _host_scales(chroma)
-    _launch("roundtrip32_rgb", (planes, out), batch,
-            lambda lib, src, dst, n: lib.sdct_roundtrip32_rgb(
-                src, dst, ql.ctypes.data, qc.ctypes.data, qil.ctypes.data,
-                qic.ctypes.data, _COLOR_MIX.ctypes.data, n, h2, w, h * w,
-                _stream(planes)))
+
+    def launch(lib, src, dst, n):
+        plan = _color_plan_of("roundtrip32_rgb", planes, src, n, h2, w, h * w)
+        return lib.sdct_roundtrip32_rgb(
+            src, dst, ql.ctypes.data, qc.ctypes.data, qil.ctypes.data,
+            qic.ctypes.data, _COLOR_MIX.ctypes.data, n, h2, w, h * w,
+            plan.grid, plan.smem, _stream(planes))
+
+    _launch("roundtrip32_rgb", (planes, out), batch, launch)
     return out
+
+
+# -- the colour tile kernels' launch plan (csrc/color32.cu) -------------------
+
+COLOR_TILE_BLOCKS = 16    # 8x8 blocks of one strip a tile (kTileBlocks)
+SMEM_LIMIT = 232448       # 227 KB: dynamic shared memory a CTA may take
+_COLOR_SCALES = {"enc32_rgb": 2, "roundtrip32_rgb": 4}   # 64-f32 tables
+_COLOR_TILE_IN = 24 * 8 * COLOR_TILE_BLOCKS      # 3 planes x 8 rows
+_COLOR_TILE_REC = 3 * (COLOR_TILE_BLOCKS // 8) * 528   # padded records
+_COLOR_CROSS = 3 * 64 * COLOR_TILE_BLOCKS * 4    # the crossing buffer
+# input loads: one tensor copy a tile, or (the encode of a view whose base
+# or plane stride is not a multiple of 16) the threads' 8-byte loads
+_VARIANT_CODE = {"plain": 0, "tensor": 1}
+_KIND_CODE = {"enc32_rgb": 0, "roundtrip32_rgb": 1}
+
+
+class ColorPlan(NamedTuple):
+    """A launch of ``enc32_rgb_kernel`` or ``roundtrip32_rgb_kernel``."""
+    variant: str          # "tensor" or "plain"
+    tile_blocks: int      # 8x8 blocks a tile
+    tiles_per_strip: int
+    tail_blocks: int      # blocks of each strip's last tile
+    tiles: int            # of the launch, over (frame, strip, tile)
+    smem: int             # dynamic shared bytes of a CTA
+    ctas_per_sm: int
+    grid: int             # persistent CTAs, each taking every grid-th tile
+
+
+def color_variant(base: int, plane_stride: int) -> str:
+    """Tensor copies need 16-byte addresses and strides: every row of the
+    input lies at base + k*plane_stride + a multiple of 64 (W % 64 == 0)."""
+    return "tensor" if (base | plane_stride) % 16 == 0 else "plain"
+
+
+def color_smem(kind: str) -> int:
+    """Dynamic shared bytes of a CTA (``tile_smem`` in color32.cu): the
+    scales, the input tile, two output tiles (records, or pixels for the
+    round trip) and the crossing buffer."""
+    out = _COLOR_TILE_IN if kind == "roundtrip32_rgb" else _COLOR_TILE_REC
+    return (_COLOR_SCALES[kind] * 256 + _COLOR_TILE_IN + 2 * out
+            + _COLOR_CROSS)
+
+
+def color_plan(kind: str, batch: int, h2: int, w: int, *, base: int,
+               plane_stride: int,
+               capacity: Callable[[str], tuple[int, int]]) -> ColorPlan:
+    """The launch for ``batch`` frames of a (3, h2, W) view whose input
+    starts at address ``base`` with planes ``plane_stride`` bytes apart.
+    Tiles of ``COLOR_TILE_BLOCKS`` blocks never cross a strip (the last of
+    a strip holds the rest); the variant follows the alignment (the round
+    trip, whose wrapper takes whole aligned tensors, has only tensor
+    copies); ``capacity(variant)`` gives (CTAs of that launch an SM holds,
+    SMs); the grid is as many CTAs as the card holds at once, at most one
+    a tile."""
+    if kind not in _KIND_CODE:
+        raise ValueError(f"no tile plan for {kind!r}")
+    variant = color_variant(base, plane_stride)
+    if variant == "plain" and kind == "roundtrip32_rgb":
+        raise ValueError(f"{kind} needs 16-byte addresses and plane strides, "
+                         f"got base {base} and plane stride {plane_stride}")
+    smem = color_smem(kind)
+    bw = w // 8
+    tps = -(-bw // COLOR_TILE_BLOCKS)
+    tiles = batch * (h2 // 8) * tps
+    if tiles >= 1 << 31:
+        raise ValueError(f"{kind}: {tiles} tiles in one launch exceed "
+                         "2^31 - 1")
+    per_sm, sms = capacity(variant)
+    if per_sm < 1:
+        raise ValueError(f"{kind}: no CTA of {smem} shared bytes fits an SM")
+    return ColorPlan(variant, COLOR_TILE_BLOCKS, tps,
+                     bw - (tps - 1) * COLOR_TILE_BLOCKS, tiles, smem, per_sm,
+                     min(tiles, sms * per_sm))
+
+
+@functools.lru_cache(maxsize=16)
+def _color_capacity(device: int, kind: str, rounding: str,
+                    variant: str) -> tuple[int, int]:
+    lib = _build.load()
+    out = np.zeros(3, np.int32)
+    with torch.cuda.device(device):
+        _build.check(lib, lib.sdct_color_capacity(
+            _KIND_CODE[kind], _ROUNDING_CODE[rounding], _VARIANT_CODE[variant],
+            out.ctypes.data, out.ctypes.data + 4, out.ctypes.data + 8),
+            f"{kind} capacity")
+    if int(out[0]) != color_smem(kind):
+        raise RuntimeError(f"{kind}: the kernel lays out {int(out[0])} "
+                           f"shared bytes, the plan {color_smem(kind)}")
+    return int(out[1]), int(out[2])
+
+
+def _color_plan_of(kind: str, t: torch.Tensor, base: int, batch: int,
+                   h2: int, w: int, plane_stride: int,
+                   rounding: str = "rne") -> ColorPlan:
+    dev = t.device.index if t.device.index is not None else \
+        torch.cuda.current_device()
+    return color_plan(kind, batch, h2, w, base=base, plane_stride=plane_stride,
+                      capacity=lambda v: _color_capacity(dev, kind, rounding,
+                                                         v))
+
+
+def color_launch_plan(kind: str, planes: torch.Tensor,
+                      rounding: str = "rne") -> ColorPlan:
+    """The plan ``encode_quantize32_ycbcr`` (kind "enc32_rgb") or
+    ``roundtrip_quantize32_ycbcr`` ("roundtrip32_rgb") launches for a
+    (3, H, W) or (B, 3, H, W) CUDA tensor of at most 65,535 frames."""
+    h, w = planes.shape[-2:]
+    return _color_plan_of(kind, planes, planes.data_ptr(),
+                          _batch_of(planes, 3), h // 2, w, h * w, rounding)
 
 
 def encode_quantize32_ycbcr420(planes: torch.Tensor, luma, chroma,
@@ -622,8 +749,9 @@ def encode_stereo_view(views: torch.Tensor, lut, rounding: str = "rne",
     return out
 
 
-def _check_rgb_view(view, geometry: str) -> tuple[int, int]:
-    _check_tensor(view, "view", (3,), strided_lead=True)
+def _check_rgb_view(view, geometry: str,
+                    align: int = 16) -> tuple[int, int]:
+    _check_tensor(view, "view", (3,), strided_lead=True, align=align)
     if view.shape[0] != 3:
         raise ValueError(f"view must be (3, H2, W) planar RGB, got shape "
                          f"{tuple(view.shape)}")
@@ -636,22 +764,17 @@ def encode32_rgb_view(view: torch.Tensor, luma, chroma,
                       rounding: str = "rne") -> torch.Tensor:
     """Colour mode32 encode of a bare (3, H2, W) planar RGB view, whose
     planes may lie a stride apart (a shard's rows of a (3, H, W) image) ->
-    (3, H2*W) u8 records; one launch."""
-    h2, w = _check_rgb_view(view, "enc_quant32_ycbcr")
+    (3, H2*W) u8 records; one launch.  The base and the plane stride need
+    only be multiples of 8: where either is not a multiple of 16 the plan
+    takes the plain-load variant (``color_plan``)."""
+    h2, w = _check_rgb_view(view, "enc_quant32_ycbcr", align=8)
     if rounding not in ROUNDING_MODES:
         raise ValueError(f"rounding must be one of {ROUNDING_MODES}")
     if view.device.type == "cpu":
         return _tp.encode_ycbcr32_view(view, luma, chroma, rounding)
     out = torch.empty((3, h2 * w), dtype=torch.uint8, device=view.device)
-    if out.numel() == 0:
-        return out
-    ql, _ = _host_scales(luma)
-    qc, _ = _host_scales(chroma)
-    _launch("enc32_rgb", (view, out), 1,
-            lambda lib, src, dst, n: lib.sdct_enc32_rgb(
-                src, dst, ql.ctypes.data, qc.ctypes.data,
-                _COLOR_MIX.ctypes.data, n, h2, w, _lead_stride(view),
-                _ROUNDING_CODE[rounding], _stream(view)))
+    _enc32_rgb(view, out, 1, h2, w, _lead_stride(view), luma, chroma,
+               rounding)
     return out
 
 

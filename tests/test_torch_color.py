@@ -447,3 +447,120 @@ def test_wrappers_reject_bad_tensors(fn):
     if fn != "decode":
         with pytest.raises(ValueError):
             call(torch.from_numpy(_planes(32, 96)))
+
+
+# -- the tile kernels' launch plan (csrc/color32.cu), pure Python ------------
+
+PLAN_VIEWS = [(2048, 3840), (544, 1920), (128, 192), (136, 64), (8, 1984)]
+KINDS = ("enc32_rgb", "roundtrip32_rgb")
+TB = K.COLOR_TILE_BLOCKS
+
+
+def _h100(variant):
+    """A card of 132 SMs holding 4 CTAs of any launch an SM."""
+    return 4, 132
+
+
+def _tile_at(plan, h2, t):
+    """(frame, strip, first block, blocks) of tile ``t`` (an int or an
+    integer array), numbered as ``tile_at`` in color32.cu numbers them."""
+    fs, x = divmod(t, plan.tiles_per_strip)
+    frame, strip = divmod(fs, h2 // 8)
+    last = x == plan.tiles_per_strip - 1
+    nb = np.where(last, plan.tail_blocks, plan.tile_blocks)
+    return frame, strip, x * plan.tile_blocks, nb
+
+
+def _frames_to_check(batch):
+    return sorted({0, 1, batch - 2, batch - 1} & set(range(batch)))
+
+
+@pytest.mark.parametrize("batch", [1, 64, 65535])
+@pytest.mark.parametrize("h2,w", PLAN_VIEWS)
+def test_color_plan_covers_each_block_once_in_strip_tiles(h2, w, batch):
+    bw, strips = w // 8, h2 // 8
+    for kind in KINDS:
+        plan = K.color_plan(kind, batch, h2, w, base=0, plane_stride=2 * h2 * w,
+                            capacity=_h100)
+        assert plan.variant == "tensor" and plan.tile_blocks == TB
+        assert plan.tiles == batch * strips * plan.tiles_per_strip
+        assert 1 <= plan.grid == min(plan.tiles, 132 * plan.ctas_per_sm)
+        assert plan.smem == K.color_smem(kind) <= K.SMEM_LIMIT
+        # every tile goes to one CTA: CTA c takes c, c + grid, ...
+        ctas = np.arange(plan.grid)
+        assert ((plan.tiles - ctas + plan.grid - 1) // plan.grid).sum() \
+            == plan.tiles
+        per_frame = strips * plan.tiles_per_strip
+        for f in _frames_to_check(batch):
+            t = np.arange(f * per_frame, (f + 1) * per_frame)
+            frame, strip, bx0, nb = _tile_at(plan, h2, t)
+            assert (frame == f).all()
+            # inside one strip, whole record groups
+            assert ((nb > 0) & (nb <= TB) & (nb % 8 == 0)).all()
+            assert (bx0 + nb <= bw).all()
+            # each block of the frame in exactly one tile
+            first = strip * bw + bx0
+            blocks = (first[:, None] + np.arange(TB)[None])[
+                np.arange(TB)[None] < nb[:, None]]
+            np.testing.assert_array_equal(
+                np.bincount(blocks, minlength=strips * bw),
+                np.ones(strips * bw))
+            # a channel's record spans, 64 bytes a block, never overlap
+            order = np.argsort(first)
+            start, end = first[order] * 64, (first + nb)[order] * 64
+            assert (end[:-1] <= start[1:]).all()
+        last = _tile_at(plan, h2, np.array([plan.tiles - 1]))
+        assert [int(v[0]) for v in last] == [
+            batch - 1, strips - 1, (plan.tiles_per_strip - 1) * TB,
+            plan.tail_blocks]
+
+
+def test_color_plan_tails():
+    assert TB == 16
+    for w, tps, tail in [(3840, 30, 16), (1920, 15, 16), (192, 2, 8),
+                         (64, 1, 8), (1984, 16, 8)]:
+        plan = K.color_plan("enc32_rgb", 1, 8, w, base=0, plane_stride=8 * w,
+                            capacity=_h100)
+        assert (plan.tiles_per_strip, plan.tail_blocks) == (tps, tail)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_color_plan_shared_bytes_and_refusals(kind):
+    # scales, one input tile, two output tiles, the crossing buffer
+    out = 24 * 8 * TB if kind == "roundtrip32_rgb" else 3 * (TB // 8) * 528
+    assert K.color_smem(kind) == (
+        (4 if kind == "roundtrip32_rgb" else 2) * 256 + 24 * 8 * TB + 2 * out
+        + 3 * 64 * TB * 4) <= K.SMEM_LIMIT
+    with pytest.raises(ValueError):
+        K.color_plan(kind, 1, 8, 64, base=0, plane_stride=1024,
+                     capacity=lambda v: (0, 132))
+    with pytest.raises(ValueError):
+        K.color_plan(kind, 65535, 65536, 1 << 14, base=0, plane_stride=0,
+                     capacity=_h100)
+    with pytest.raises(ValueError):
+        K.color_plan("enc32", 1, 8, 64, base=0, plane_stride=1024,
+                     capacity=_h100)
+
+
+@pytest.mark.parametrize("base,stride", [(8, 1024), (0, 1032), (24, 4104),
+                                         (16, 1040)])
+def test_color_plan_misaligned_input_takes_plain_loads(base, stride):
+    plan = K.color_plan("enc32_rgb", 2, 128, 192, base=base,
+                        plane_stride=stride, capacity=_h100)
+    want = "tensor" if (base | stride) % 16 == 0 else "plain"
+    assert plan.variant == K.color_variant(base, stride) == want
+    if want == "plain":
+        # the round trip's wrapper takes only whole, aligned tensors
+        with pytest.raises(ValueError):
+            K.color_plan("roundtrip32_rgb", 2, 128, 192, base=base,
+                         plane_stride=stride, capacity=_h100)
+
+
+def test_color_plan_never_exceeds_the_tiles():
+    small = K.color_plan("roundtrip32_rgb", 1, 8, 64, base=0, plane_stride=512,
+                         capacity=_h100)
+    assert small.tiles == small.grid == 1
+    one_sm = K.color_plan("enc32_rgb", 64, 544, 1920, base=0,
+                          plane_stride=1088 * 1920,
+                          capacity=lambda v: (2, 1))
+    assert (one_sm.ctas_per_sm, one_sm.grid) == (2, 2)

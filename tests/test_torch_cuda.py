@@ -247,16 +247,50 @@ LUMA = default_quant_lut(100) * np.float32(255.0)   # mode32's raw domain
 CHROMA = BASE_CHROMA_QUANT_TABLE * np.float32(100 * 255)
 
 
+def _enc32_rgb_ok(got, planes, rounding):
+    """rne and clamp_first equal the plain version byte for byte; scalar
+    (an IEEE division there, a reciprocal in the plain version) within the
+    +-1 contract."""
+    want = TP.encode_ycbcr32(planes, LUMA, CHROMA, rounding)
+    if rounding == "scalar":
+        _ok(got, want)
+    else:
+        assert torch.equal(got, want)
+
+
+# (3, 16, 1984): bw = 248, so each strip ends in a short tile of 8 blocks
 @pytest.mark.parametrize("shape", [(3, 256, 192), (3, 272, 64),
-                                   (3, 3, 1088, 1920)])
+                                   (3, 16, 1984), (3, 3, 1088, 1920)])
 @pytest.mark.parametrize("rounding", ["rne", "scalar", "clamp_first"])
 def test_enc32_rgb_against_plain(gen, shape, rounding):
     planes = _img(gen, *shape)
-    _ok(K.encode_quantize32_ycbcr(planes, LUMA, CHROMA, rounding),
-        TP.encode_ycbcr32(planes, LUMA, CHROMA, rounding))
+    _enc32_rgb_ok(K.encode_quantize32_ycbcr(planes, LUMA, CHROMA, rounding),
+                  planes, rounding)
 
 
-@pytest.mark.parametrize("shape", [(3, 256, 192), (2, 3, 1088, 1920)])
+@pytest.mark.parametrize("rounding", ["rne", "scalar", "clamp_first"])
+@pytest.mark.parametrize("shift,pad", [(8, 0), (0, 8), (8, 24)])
+def test_enc32_rgb_view_misaligned_takes_plain_loads(gen, rounding, shift,
+                                                     pad):
+    """A view whose base (shift) or plane stride (H*W + pad) is 8 bytes
+    off a 16-byte boundary runs the plain-load variant, with the same
+    bytes."""
+    h, w = 32, 1984
+    flat = _img(gen, 3 * (h * w + pad) + 64)
+    view = flat[shift:].as_strided((3, h // 2, w), (h * w + pad, w, 1))
+    plan = K.color_plan("enc32_rgb", 1, h // 2, w, base=view.data_ptr(),
+                        plane_stride=view.stride(0),
+                        capacity=lambda v: (1, 1))
+    assert plan.variant == "plain"
+    got = K.encode32_rgb_view(view, LUMA, CHROMA, rounding)
+    planes = torch.stack([view[c] for c in range(3)]).contiguous()
+    _enc32_rgb_ok(got, torch.cat([planes, planes], dim=1), rounding)
+    assert torch.equal(got, K.encode32_rgb_view(view.contiguous(), LUMA,
+                                                CHROMA, rounding))
+
+
+@pytest.mark.parametrize("shape", [(3, 256, 192), (3, 16, 1984),
+                                   (2, 3, 1088, 1920)])
 def test_dec32_rgb_and_roundtrip_rgb(gen, shape):
     planes = _img(gen, *shape)
     h, w = shape[-2:]
