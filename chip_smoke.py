@@ -38,11 +38,17 @@ result line):
      on the smooth 4K view at quality 50 within 0.1 dB of the plain
      version's;
   8. the stereo kernels against their plain versions (+-1 on at most 0.2%
-     of bytes) at 4096x3840, 1088x1920, 256x200 (W % 128 != 0: the
-     byte-wide plane-row path) and an 8-frame 1088x1920 batch, in the
+     of bytes) at 4096x3840, 1088x1920, 256x200 (W % 128 != 0: the plain
+     variant, byte-wide records) and an 8-frame 1088x1920 batch, in the
      interleaved, planar and native view layouts, every rounding mode at
-     4K; strip ranges ([16, 16], [64, 191] and one that drops the last
-     strip) and the 1096x1920 spill geometry; exact identities on the
+     4K; at 4096x3840 and 1088x1920 the tensor variant equals the plain
+     variant forced on the same image (encode and decode, every layout),
+     views 8 bytes off a 16-byte boundary (the plain variant the plan
+     picks) equal the aligned image, and a shard's row range of both
+     views, a view stride apart, through encode_stereo_view equals the
+     same rows encoded whole, all byte for byte; strip ranges ([16, 16],
+     [64, 191] and one that drops the last strip) and the 1096x1920 spill
+     geometry; exact identities on the
      card: planar == stereo_interleaved_to_views(interleaved), native[...,
      :BW] == planar, native pad 127 in included strips and 0 in excluded
      ones, zero bytes outside the strip range (from the strip geometry),
@@ -62,9 +68,11 @@ result line):
       plain version by torch.profiler device time, and the CUDA-event wall
       of back-to-back calls for each (the 4:2:0 rows beside the colour
       rows' copy of the three channels' top view); the launch plan of
-      enc32_rgb and roundtrip32_rgb (``cuda_dct.color_plan``) beside their
-      4K times before the strip-tile design (``EARLIER_US``) and their
-      exact-arithmetic floor (``EXACT_OPS_PER_PX``);
+      enc32_rgb, roundtrip32_rgb and the stereo kernels in each layout
+      (``cuda_dct.color_plan``, ``cuda_dct.stereo_plan``) beside their 4K
+      times before the strip-tile designs (``EARLIER_US``) and their
+      exact-arithmetic floor (``EXACT_OPS_PER_PX``), and for stereo the
+      ptxas registers of the instantiation that ran;
   11. the YCbCr 4:4:4 colour kernels against their plain versions (+-1 on
       at most 0.2% of bytes) on (3, H, W) planar RGB at 4096x3840 (every
       rounding mode), 1088x1920, 256x192 (W % 128 != 0), 16x1984 (each
@@ -215,7 +223,9 @@ GEOMETRIES_420 = [(4096, 3840, 1), (1088, 1920, 1), (64, 384, 1),
 # colour: W = 1984 (248 blocks a strip) ends each strip in a tile of 8
 # blocks where enc32_rgb and roundtrip32_rgb tile strips by 16
 COLOR_GEOMETRIES = GEOMETRIES + [(16, 1984, 1)]
-# stereo: W = 200 (BW = 25) takes the kernels' byte-wide plane-row path
+# stereo: W = 200 (BW = 25) takes the plain variant (byte-wide records);
+# 4096x3840 and 1088x1920 take the tensor variant, and phase 8 runs the
+# plain one on them too
 STEREO_GEOMETRIES = [(4096, 3840, 1), (1088, 1920, 1), (256, 200, 1),
                      (1088, 1920, 8)]
 # tiles: (H2, W, frames) of the views (H2 % 128 == 0, W % 128 == 0)
@@ -229,9 +239,11 @@ REPS = 25
 # the plain versions' walls, logged beside their profiler times (which the
 # rows use): a few milliseconds a call, so fewer repetitions
 PLAIN_WALL_REPS = 5
-# the redesigned colour kernels' 4K times before the redesign (queued
-# events, PERF.md rows 12 and 14: the thread-per-(block, channel) design)
-EARLIER_US = {"enc32_rgb": 52.84, "roundtrip32_rgb": 86.72}
+# the redesigned kernels' 4K times before their redesign (queued events,
+# PERF.md rows 12 and 14: the thread-per-(block, channel) design; rows 9
+# and 10: the thread-per-block stereo design, interleaved)
+EARLIER_US = {"enc32_rgb": 52.84, "roundtrip32_rgb": 86.72,
+              "enc_stereo": 26.76, "dec_stereo": 28.00}
 # The exact-arithmetic floor of the colour tile kernels: the instructions a
 # pixel position that their bytes require, issued at one instruction a lane
 # a clock (132 SMs x 128 lanes at the 1980 MHz the card holds under them,
@@ -244,11 +256,23 @@ EARLIER_US = {"enc32_rgb": 52.84, "roundtrip32_rgb": 86.72}
 # round (8 a channel) and packing (0.75); and the design's shared-memory
 # traffic (3 input loads; 6 a crossing, one in the encode and three in the
 # round trip; the encode's 3 record stores, the round trip's 3/8).
+# The stereo tile kernels count per pixel of both views.  The encode: the
+# exact u8 -> f32 (2), the 1/255 scale (1), the matrix-form transform (16
+# FMAs: 8 a pass, fixed by the identities with the plain version, the tile
+# records and the sharded path), the quantizer (multiply, 2 clamps, round,
+# +127: 5), and the design's shared-memory traffic (input read 1, crossing
+# 2, record staging 1): 28.  The decode: record read 1, exact (b - 127) 2,
+# dequant multiply 1, 16 FMAs, times 255 1, 2 clamps, round 1, packing
+# 0.75 and staging 1/8, crossing 2: 26.875.
 EXACT_OPS_PER_PX = {
     "enc32_rgb": 3 * (2 + 6 + 16 + 5) + 3 + 6 + 3,
     "roundtrip32_rgb": 3 * (2 + 6 + 32 + 6 + 1 + 8 + 0.75) + 3 + 18 + 3 / 8,
+    "enc_stereo": 2 + 1 + 16 + 5 + 1 + 2 + 1,
+    "dec_stereo": 1 + 2 + 1 + 16 + 1 + 2 + 1 + 0.75 + 1 / 8 + 2,
 }
 ISSUE_PER_S = 132 * 128 * 1.98e9
+# ptxas -v of each kernel instantiation, from the build (phase 2)
+PTXAS: dict[str, str] = {}
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FMA/s on the CUDA
 # cores (67 TFLOP/s)
 PEAK_BYTES_S = 3.35e12
@@ -549,6 +573,57 @@ def check_stereo_identities(img, lut, tag):
         "pad == 127, three decodes equal: exact")
 
 
+def check_stereo_variants(img, lut, tag):
+    """The tensor variant the plan picks for an aligned image against the
+    plain variant forced on it, byte for byte, in every layout and (at 4K)
+    rounding, encode and decode; the plain variant the plan picks for the
+    same views 8 bytes off a 16-byte boundary; and a shard's row range of
+    both views, a view stride apart, through encode_stereo_view against the
+    plain version."""
+    h, w = img.shape
+    roundings = ROUNDINGS if h == 4096 else ("rne",)
+    for vl in VIEW_LAYOUTS:
+        for rounding in roundings:
+            plan = cuda_dct.stereo_launch_plan("enc_stereo", img, vl,
+                                               rounding=rounding)
+            require(plan.variant == "tensor", f"{tag}: the tensor variant")
+            tensor = cuda_dct.encode_quantize_stereo(
+                img, lut, rounding=rounding, view_layout=vl)
+            plain = cuda_dct.encode_quantize_stereo(
+                img, lut, rounding=rounding, view_layout=vl, variant="plain")
+            require(torch.equal(tensor, plain),
+                    f"enc_stereo {tag} {vl} {rounding}: tensor == plain")
+        rec = cuda_dct.encode_quantize_stereo(img, lut, view_layout=vl)
+        require(torch.equal(
+            cuda_dct.decode_quantize_stereo(rec, lut, w, h, vl),
+            cuda_dct.decode_quantize_stereo(rec, lut, w, h, vl,
+                                            variant="plain")),
+            f"dec_stereo {tag} {vl}: tensor == plain")
+    flat = torch.empty(h * w + 64, dtype=torch.uint8, device=DEV)
+    off = flat[8:8 + h * w].view(2, h // 2, w)
+    off.copy_(img.view(2, h // 2, w))
+    plan = cuda_dct._stereo_plan_of("enc_stereo", off, 1, h, w, "native",
+                                    off.data_ptr(), 0, off.stride(0))
+    require(plan.variant == "plain", "views 8 bytes off take the plain variant")
+    for vl in VIEW_LAYOUTS:
+        require(torch.equal(cuda_dct.encode_stereo_view(off, lut,
+                                                        view_layout=vl),
+                            cuda_dct.encode_quantize_stereo(img, lut,
+                                                            view_layout=vl)),
+                f"enc_stereo {tag} {vl}: views 8 bytes off == aligned")
+    shard = img.view(2, h // 2, w)[:, 64:192]     # strips 8..23 of each view
+    whole = shard.reshape(256, w)                 # a contiguous copy
+    got = cuda_dct.encode_stereo_view(shard, lut)
+    require(torch.equal(got, cuda_dct.encode_quantize_stereo(whole, lut)),
+            f"enc_stereo {tag}: a shard's views (stride {shard.stride(0)}) "
+            "== the same rows encoded whole")
+    agree(f"enc_stereo {tag} shard views", got,
+          torch_path.encode_quantize_stereo(whole, lut), {}, "enc_stereo")
+    log(f"  {tag}: tensor == plain variant in every layout, encode and "
+        "decode; views 8 bytes off (plain) == aligned; a shard's view "
+        "stride == the rows encoded whole: exact")
+
+
 def phase_compare_stereo(gen, lut, errs):
     log("phase 8: stereo kernels against the plain version on the card")
     for h, w, frames in STEREO_GEOMETRIES:
@@ -572,6 +647,8 @@ def phase_compare_stereo(gen, lut, errs):
                   errs, "dec_stereo")
         if frames > 1 or h != 1088:
             check_stereo_identities(img, lut, tag)
+        if frames == 1 and w % 128 == 0:
+            check_stereo_variants(img, lut, tag)
     # [16, 16] keeps strip 1 only; [0, H - 32] drops the last strip
     for h, w in [(512, 3840), (256, 200)]:
         img = random_images(gen, h, w, 2)
@@ -1661,14 +1738,25 @@ def phase_timing(gen, lut, lut_q, chroma, reps):
             if frames == 1:
                 rows[name] = (k_us / 1e3, p_us / 1e3, c_us / 1e3, n_bytes,
                               n_px)
-            if name in EARLIER_US:
-                plan = cuda_dct.color_launch_plan(name, inputs[0])
-                floor_us = EXACT_OPS_PER_PX[name] * n_px / ISSUE_PER_S * 1e6
+            if kernel in EARLIER_US:
+                if kernel in ("enc_stereo", "dec_stereo"):
+                    vl = name[len(kernel) + 1:] or "interleaved"
+                    plan = cuda_dct.stereo_launch_plan(kernel, inputs[0], vl,
+                                                       w, h)
+                else:
+                    plan = cuda_dct.color_launch_plan(kernel, inputs[0])
+                floor_us = EXACT_OPS_PER_PX[kernel] * n_px / ISSUE_PER_S * 1e6
                 table[-1].update(plan=plan._asdict(), floor_us=floor_us)
                 log(f"  {name} plan {plan._asdict()}; earlier (4K) "
-                    f"{EARLIER_US[name]} us; exact-arithmetic floor "
-                    f"{floor_us:.2f} us ({EXACT_OPS_PER_PX[name]} "
+                    f"{EARLIER_US[kernel]} us; exact-arithmetic floor "
+                    f"{floor_us:.2f} us ({EXACT_OPS_PER_PX[kernel]} "
                     "instructions a pixel position)")
+                if kernel in ("enc_stereo", "dec_stereo"):
+                    # the rne (0) instantiation of the plan's variant
+                    code = cuda_dct._VARIANT_CODE[plan.variant]
+                    inst = (f"{kernel}_kernel<0,{code}>" if kernel ==
+                            "enc_stereo" else f"{kernel}_kernel<{code}>")
+                    log(f"  {name} ptxas {inst}: {PTXAS.get(inst)}")
             log(f"  {name:17s} {table[-1]['shape']:18s} kernel {k_us:8.3f} us "
                 f"(profiler {k_prof if k_prof is None else round(k_prof, 3)}"
                 f", wall {k_wall:7.2f})  plain {p_us:9.2f} us "
@@ -1832,7 +1920,8 @@ def kernel_rows(launches, errs, times, library):
 
 def log_ptxas(lines) -> None:
     """Registers, stack and spills per kernel instantiation from the
-    ``ptxas -v`` lines of the build log, e.g. ``encq_kernel<1,2>``."""
+    ``ptxas -v`` lines of the build log, e.g. ``encq_kernel<1,2>``; kept in
+    ``PTXAS`` for the timing phase."""
     name = "?"
     for line in lines:
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -1847,7 +1936,9 @@ def log_ptxas(lines) -> None:
             if k and k.group(2):
                 name += "<" + ",".join(re.findall(r"\d+", k.group(2))) + ">"
         elif "registers" in line or "spill" in line:
-            log(f"  ptxas {name}: {line.split(':', 1)[-1].strip()}")
+            text = line.split(":", 1)[-1].strip()
+            log(f"  ptxas {name}: {text}")
+            PTXAS[name] = "; ".join(filter(None, (PTXAS.get(name), text)))
 
 
 def main_cards(gen, kind, t_start) -> int:

@@ -13,7 +13,8 @@ and its bytes are checked against the package's kernels:
 * the package's kernels, and the encode's plain-load variant on (3, 2048,
   3840) views 8 bytes off a 16-byte boundary (4K only), against the same
   views aligned;
-* builds of ``csrc/color32.cu`` with a source edit, made at run time under
+* builds of ``csrc/color32.cu`` with a source edit (of it or of the
+  headers it includes), made at run time under
   the port's build directory (which git ignores) and never used by the
   package: the encode's ``__launch_bounds__`` given a least number of CTAs
   an SM (a register cap) or the round trip's taken away; the encode with
@@ -24,7 +25,8 @@ and its bytes are checked against the package's kernels:
   or its loads and stores skipped at run time;
 * with ``--parent``, a checkout of an earlier version of the repository:
   its ``simd_dct_tpu_torch/csrc/color32.cu`` built alone the same way and
-  its two kernels called through the C entry points of that version.
+  its two kernels called through the C entry points of that version (with
+  or without the launch plan's arguments, by its source).
 
 The SM clock and power under each kernel and the earlier version's
 (nvidia-smi samples while it runs back to back for 1.5 s) come first.  One
@@ -92,24 +94,31 @@ BUILDS = {
 }
 
 
-def build_lib(name: str, src_dir: str, edits=()) -> subprocess.Popen:
-    """Start nvcc on ``src_dir``'s color32.cu (``edits`` applied) alone."""
-    out_dir = os.path.join(_build.BUILD_ROOT, "color_variants",
-                           name.replace(" ", "_"))
+def build_lib(name: str, src_dir: str, edits=(), source: str = "color32.cu",
+              subdir: str = "color_variants") -> subprocess.Popen:
+    """Start nvcc on ``src_dir``'s ``source`` alone, with ``edits`` applied
+    to it or to the headers beside it (each edit to the first file that
+    holds its text), under ``_build/<subdir>/<name>``."""
+    out_dir = os.path.join(_build.BUILD_ROOT, subdir, name.replace(" ", "_"))
     os.makedirs(out_dir, exist_ok=True)
-    for f in ("color32.cu", "dct_common.cuh"):
-        with open(os.path.join(src_dir, f)) as fin:
-            text = fin.read()
-        if f == "color32.cu":
-            for old, new in edits:
-                if old not in text:
-                    raise RuntimeError(f"{name}: {old!r} not in color32.cu")
-                text = text.replace(old, new)
+    texts = {}
+    for f in (source, "dct_common.cuh", "tile_common.cuh"):
+        path = os.path.join(src_dir, f)
+        if os.path.exists(path):      # an earlier version may lack a header
+            with open(path) as fin:
+                texts[f] = fin.read()
+    for old, new in edits:
+        hits = [f for f, text in texts.items() if old in text]
+        if not hits:
+            raise RuntimeError(f"{name}: {old!r} not in {source} or its "
+                               "headers")
+        texts[hits[0]] = texts[hits[0]].replace(old, new)
+    for f, text in texts.items():
         with open(os.path.join(out_dir, f), "w") as fout:
             fout.write(text)
-    lib = os.path.join(out_dir, "libcolor32.so")
+    lib = os.path.join(out_dir, f"lib{source[:-3]}.so")
     cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", lib,
-           os.path.join(out_dir, "color32.cu")]
+           os.path.join(out_dir, source)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     proc.lib = lib
@@ -254,9 +263,12 @@ def main(argv=None) -> int:
     procs = {name: (build_lib(name, _build.CSRC, edits), False, kinds, timing)
              for name, (edits, kinds, timing) in BUILDS.items()}
     if args.parent:
-        procs["parent"] = (build_lib("parent", os.path.join(
-            args.parent, "simd_dct_tpu_torch", "csrc")), True, (ENC, RT),
-            False)
+        src = os.path.join(args.parent, "simd_dct_tpu_torch", "csrc")
+        with open(os.path.join(src, "color32.cu")) as f:
+            # an earlier interface takes no launch-plan arguments
+            old_abi = "sdct_color_capacity" not in f.read()
+        procs["parent"] = (build_lib("parent", src), old_abi, (ENC, RT),
+                           False)
     others = {name: (lib_calls(load_lib(proc, name, old), luma, chroma, old),
                      kinds, timing)
               for name, (proc, old, kinds, timing) in procs.items()}

@@ -56,9 +56,7 @@
 // records come in through shared memory with 16-byte loads and the three
 // channels meet in shared memory for the inverse mix.
 
-#include <cuda.h>  // CUtensorMap; the encoder comes from cudaGetDriverEntryPoint
-
-#include "dct_common.cuh"
+#include "tile_common.cuh"
 
 namespace {
 
@@ -149,13 +147,9 @@ constexpr int kCrossBytes = 3 * 64 * kTileBlocks * 4;  // f32 of the crossing bu
 // CTAs an SM the round trip is built for: a cap of 72 registers (uncapped
 // it takes 79, six CTAs an SM, and ran 0.8-2% slower on a 4K view)
 constexpr int kRoundtripCtas = 7;
-// Input loads: kTensor one 4-D tensor copy a tile (box 128 columns x 8
-// rows x 3 planes x 1 frame; 16-byte addresses and strides), kPlain the
-// threads' own 8-byte loads (the encode of a view that is not aligned so).
-enum Variant { kPlain = 0, kTensor = 1 };
-constexpr float kTwo23 = 8388608.0f;
-constexpr float kRound = 12582912.0f;  // 1.5 * 2^23
-constexpr unsigned long long kWaitNs = 2000000000ull;
+// Input loads (Variant, tile_common.cuh): kTensor one 4-D tensor copy a
+// tile (box 128 columns x 8 rows x 3 planes x 1 frame), kPlain the threads'
+// own 8-byte loads (the encode of a view that is not aligned to 16 bytes).
 
 // Shared bytes of a launch: scales (2 tables, 4 for the round trip), the
 // input tile, two output buffers, the crossing buffer.  The host's plan
@@ -191,36 +185,6 @@ __device__ __forceinline__ Tile tile_at(const TileGeom& g, unsigned t) {
   return a;
 }
 
-__device__ __forceinline__ unsigned saddr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ unsigned long long globaltimer() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Wait for the phase of `bar` with this parity.  A load that never lands
-// (a fault of this file) traps after kWaitNs instead of hanging the card.
-__device__ __forceinline__ void wait_full(uint64_t* bar, unsigned parity) {
-  const unsigned b = saddr(bar);
-  unsigned long long t0 = 0;
-  for (;;) {
-    unsigned done;
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(b), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (t0 == 0) t0 = globaltimer();
-    else if (globaltimer() - t0 > kWaitNs) __trap();
-  }
-}
-
 // Lane 0 of warp 0: tile t (if the launch has it) into `stage` by one
 // tensor copy, completing on `bar` with the whole box (a short tile's
 // columns past W come in as zeros).
@@ -252,41 +216,6 @@ __device__ __forceinline__ void load_tile_plain(const uint8_t* img, const TileGe
         __ldg(reinterpret_cast<const uint2*>(row + 8 * b));
   }
   __syncthreads();
-}
-
-template <int N>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
-}
-
-// The generic proxy's shared-memory writes, before the bulk stores read them.
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-// Exact u8 -> f32 without the conversion unit: 2^23 + b, less 2^23.
-__device__ __forceinline__ float u8f(uint32_t b) {
-  return __fsub_rn(__int_as_float(0x4B000000u | b), kTwo23);
-}
-
-// For |x| <= 2^22: the low bits of x + 1.5*2^23 are rint(x) (ties to even),
-// as a two's complement integer in the low byte.
-__device__ __forceinline__ uint32_t rint_bits(float x) {
-  return __float_as_uint(__fadd_rn(x, kRound));
-}
-
-// rint(x) as f32, exactly.
-__device__ __forceinline__ float rint_small(float x) {
-  return __fsub_rn(__fadd_rn(x, kRound), kRound);
-}
-
-// quantize<R> of dct_common.cuh, its bytes, without rintf and int casts.
-template <int R>
-__device__ __forceinline__ uint8_t quantize_byte(float c, float q) {
-  if (R == kScalar) return quantize<kScalar>(c, q);
-  const float x = __fmul_rn(c, q);
-  if (R == kRne) return (uint8_t)(rint_bits(fminf(fmaxf(x, -127.0f), 128.0f)) + 127u);
-  return (uint8_t)rint_bits(fminf(fmaxf(__fadd_rn(x, 127.0f), 0.0f), 255.0f));
 }
 
 // The crossing buffer: value (row index r, column index c) of block b of a
@@ -342,14 +271,6 @@ __device__ __forceinline__ void row_pass(const float* __restrict__ cross, int ch
   }
 }
 
-// Row u's 8 scales of a 64-entry table in shared memory (two 16-byte loads).
-__device__ __forceinline__ void row_scales(const float* table, int u, float (&q)[8]) {
-  const float4 lo = *reinterpret_cast<const float4*>(table + u * 8);
-  const float4 hi = *reinterpret_cast<const float4*>(table + u * 8 + 4);
-  q[0] = lo.x, q[1] = lo.y, q[2] = lo.z, q[3] = lo.w;
-  q[4] = hi.x, q[5] = hi.y, q[6] = hi.z, q[7] = hi.w;
-}
-
 // Warp 1 of the encode: the tile's records, a 512-byte group a store.
 __device__ __forceinline__ void store_records(uint8_t* out, const TileGeom& g, unsigned t,
                                               const uint8_t* rec, int lane) {
@@ -376,25 +297,6 @@ __device__ __forceinline__ void store_rows(const CUtensorMap* tout, const TileGe
       "r"(8 * a.bx0), "r"((int)(8 * a.strip)), "r"(0), "r"((int)a.frame), "r"(saddr(pix))
       : "memory");
   asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-
-// A table of scales into shared memory by thread 0, at compile-time
-// indices (the by-value table stays in parameter space: a thread indexes
-// the scales by its row, a runtime value).
-__device__ __forceinline__ void put_scales(float* sq, const Scales& q) {
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int i = 0; i < 64; ++i) sq[i] = q.v[i];
-  }
-}
-
-// Common prologue, after the scales: the input mbarrier, then a barrier.
-__device__ __forceinline__ void tile_prologue(uint64_t* full) {
-  if (threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(saddr(full)) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
 }
 
 // Replaces simd_dct_tpu/kernels/color32.py _enc32_rgb_kernel.
@@ -587,30 +489,6 @@ bool tile_launch_ok(const void* img, int batch, int h2, int w, long long plane_s
   return true;
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime (no link to
-// the driver library); null where the driver has none.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                           cudaEnableDefault, &q);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
-  }
-  return fn;
-}
-
 // The (batch, 3, h2, w) u8 planes at `base`, rows w bytes apart, planes
 // plane_stride and frames 3*plane_stride, as a tensor map whose box is one
 // tile: 8*kTileBlocks columns, 8 rows, 3 planes, 1 frame.
@@ -626,11 +504,6 @@ bool planes_map(CUtensorMap* m, const void* base, int batch, int h2, int w,
   return fn(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(base), dims, strides, box,
             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
             CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// Let `fn` take `smem` dynamic shared bytes (above the 48 KB default).
-cudaError_t allow_smem(const void* fn, int smem) {
-  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
 template <int R>

@@ -1,0 +1,184 @@
+// Device and host helpers of the strip-tile kernels (color32.cu, stereo.cu):
+// exact byte <-> f32 conversions that keep off the conversion unit, the
+// quantizer on them, the bulk-copy plumbing (shared addresses, the
+// mbarrier wait, the bulk-group waits and the proxy fence), the DCT basis
+// as compile-time values, the scales in shared memory, and the driver's
+// cuTensorMapEncodeTiled, reached through the runtime.
+//
+// Every helper keeps the bytes of dct_common.cuh's forms: u8f is exact,
+// rint_bits rounds half to even as rintf does, quantize_byte<R> equals
+// quantize<R> for every finite input.
+
+#pragma once
+
+#include <cuda.h>  // CUtensorMap; the encoder comes from cudaGetDriverEntryPoint
+
+#include "dct_common.cuh"
+
+namespace {
+
+// Input loads: kTensor one tensor copy a tile (16-byte addresses and
+// strides), kPlain the threads' own loads.
+enum Variant { kPlain = 0, kTensor = 1 };
+constexpr float kTwo23 = 8388608.0f;
+constexpr float kRound = 12582912.0f;  // 1.5 * 2^23
+constexpr unsigned long long kWaitNs = 2000000000ull;
+
+__device__ __forceinline__ unsigned saddr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Wait for the phase of `bar` with this parity.  A load that never lands
+// (a fault of the kernel) traps after kWaitNs instead of hanging the card.
+__device__ __forceinline__ void wait_full(uint64_t* bar, unsigned parity) {
+  const unsigned b = saddr(bar);
+  unsigned long long t0 = 0;
+  for (;;) {
+    unsigned done;
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(b), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (t0 == 0) t0 = globaltimer();
+    else if (globaltimer() - t0 > kWaitNs) __trap();
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+
+// The generic proxy's shared-memory writes, before the bulk stores read them.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Exact u8 -> f32 without the conversion unit: 2^23 + b, less 2^23.
+__device__ __forceinline__ float u8f(uint32_t b) {
+  return __fsub_rn(__int_as_float(0x4B000000u | b), kTwo23);
+}
+
+// Byte i of w, exactly as f32, the same way: the byte under the exponent
+// of 2^23, less 2^23.
+__device__ __forceinline__ float byte_f32(uint32_t w, int i) {
+  return __fsub_rn(__int_as_float(__byte_perm(w, 0x4B00u, 0x5440 + i)), kTwo23);
+}
+
+// For |x| <= 2^22: the low bits of x + 1.5*2^23 are rint(x) (ties to even),
+// as a two's complement integer in the low byte.
+__device__ __forceinline__ uint32_t rint_bits(float x) {
+  return __float_as_uint(__fadd_rn(x, kRound));
+}
+
+// rint(x) as f32, exactly.
+__device__ __forceinline__ float rint_small(float x) {
+  return __fsub_rn(__fadd_rn(x, kRound), kRound);
+}
+
+// quantize<R> of dct_common.cuh, its bytes, without rintf and int casts.
+// rne's +127 is added to the integer bits after the rounding (127 is odd:
+// rint(x + 127) is not rint(x) + 127 at ties).
+template <int R>
+__device__ __forceinline__ uint8_t quantize_byte(float c, float q) {
+  if (R == kScalar) return quantize<kScalar>(c, q);
+  const float x = __fmul_rn(c, q);
+  if (R == kRne) return (uint8_t)(rint_bits(fminf(fmaxf(x, -127.0f), 128.0f)) + 127u);
+  return (uint8_t)rint_bits(fminf(fmaxf(__fadd_rn(x, 127.0f), 0.0f), 255.0f));
+}
+
+// The DCT basis D[k][n] of dct_common.cuh's kD (the same 64 literals;
+// tests/test_torch_core.py holds the two lists equal) as compile-time
+// values.  At the constant indices of an unrolled loop each becomes an
+// FFMA immediate, where kD's constant bank costs a uniform load for every
+// two FMAs (measured on the stereo kernels: PERF.md).  A runtime
+// index would put the table in local memory: use constant ones only.
+__device__ __forceinline__ float basis(int i) {
+  constexpr float t[64] = {
+      0x1.6a09e6p-2f, 0x1.6a09e6p-2f, 0x1.6a09e6p-2f, 0x1.6a09e6p-2f,
+      0x1.6a09e6p-2f, 0x1.6a09e6p-2f, 0x1.6a09e6p-2f, 0x1.6a09e6p-2f,
+      0x1.f6297ep-2f, 0x1.a9b660p-2f, 0x1.1c73b4p-2f, 0x1.8f8b84p-4f,
+      -0x1.8f8b84p-4f, -0x1.1c73b4p-2f, -0x1.a9b660p-2f, -0x1.f6297ep-2f,
+      0x1.d906bep-2f, 0x1.87de2ap-3f, -0x1.87de2ap-3f, -0x1.d906bep-2f,
+      -0x1.d906bep-2f, -0x1.87de2ap-3f, 0x1.87de2ap-3f, 0x1.d906bep-2f,
+      0x1.a9b660p-2f, -0x1.8f8b84p-4f, -0x1.f6297ep-2f, -0x1.1c73b4p-2f,
+      0x1.1c73b4p-2f, 0x1.f6297ep-2f, 0x1.8f8b84p-4f, -0x1.a9b660p-2f,
+      0x1.6a09e6p-2f, -0x1.6a09e6p-2f, -0x1.6a09e6p-2f, 0x1.6a09e6p-2f,
+      0x1.6a09e6p-2f, -0x1.6a09e6p-2f, -0x1.6a09e6p-2f, 0x1.6a09e6p-2f,
+      0x1.1c73b4p-2f, -0x1.f6297ep-2f, 0x1.8f8b84p-4f, 0x1.a9b660p-2f,
+      -0x1.a9b660p-2f, -0x1.8f8b84p-4f, 0x1.f6297ep-2f, -0x1.1c73b4p-2f,
+      0x1.87de2ap-3f, -0x1.d906bep-2f, 0x1.d906bep-2f, -0x1.87de2ap-3f,
+      -0x1.87de2ap-3f, 0x1.d906bep-2f, -0x1.d906bep-2f, 0x1.87de2ap-3f,
+      0x1.8f8b84p-4f, -0x1.1c73b4p-2f, 0x1.a9b660p-2f, -0x1.f6297ep-2f,
+      0x1.f6297ep-2f, -0x1.a9b660p-2f, 0x1.1c73b4p-2f, -0x1.8f8b84p-4f,
+  };
+  return t[i];
+}
+
+// Row u's 8 values of a 64-entry table in shared memory (two 16-byte loads).
+__device__ __forceinline__ void row_scales(const float* table, int u, float (&q)[8]) {
+  const float4 lo = *reinterpret_cast<const float4*>(table + u * 8);
+  const float4 hi = *reinterpret_cast<const float4*>(table + u * 8 + 4);
+  q[0] = lo.x, q[1] = lo.y, q[2] = lo.z, q[3] = lo.w;
+  q[4] = hi.x, q[5] = hi.y, q[6] = hi.z, q[7] = hi.w;
+}
+
+// A table of scales into shared memory by thread 0, at compile-time
+// indices (the by-value table stays in parameter space: a thread indexes
+// the scales by its row, a runtime value).
+__device__ __forceinline__ void put_scales(float* sq, const Scales& q) {
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sq[i] = q.v[i];
+  }
+}
+
+// Common prologue, after the scales: the input mbarrier, then a barrier.
+__device__ __forceinline__ void tile_prologue(uint64_t* full) {
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(saddr(full)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (no link to
+// the driver library); null where the driver has none.
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &q);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// Let `fn` take `smem` dynamic shared bytes (above the 48 KB default).
+inline cudaError_t allow_smem(const void* fn, int smem) {
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+}  // namespace

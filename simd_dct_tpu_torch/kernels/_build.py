@@ -147,10 +147,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sdct_encq.restype = i
     lib.sdct_decq.argtypes = [p, p, p, i, i, i, i, p]
     lib.sdct_decq.restype = i
-    lib.sdct_enc_stereo.argtypes = [p, p, p, i, i, i, i, i, i, i, i, ll, p]
+    lib.sdct_enc_stereo.argtypes = [p, p, p, i, i, i, i, i, i, i, i, ll, i, i,
+                                    i, i, p]
     lib.sdct_enc_stereo.restype = i
-    lib.sdct_dec_stereo.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.sdct_dec_stereo.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, p]
     lib.sdct_dec_stereo.restype = i
+    lib.sdct_stereo_capacity.argtypes = [i, i, i, p, p, p, p]
+    lib.sdct_stereo_capacity.restype = i
     lib.sdct_enc32_rgb.argtypes = [p, p, p, p, p, i, i, i, ll, i, i, i, i, p]
     lib.sdct_enc32_rgb.restype = i
     lib.sdct_dec32_rgb.argtypes = [p, p, p, p, p, i, i, i, p]

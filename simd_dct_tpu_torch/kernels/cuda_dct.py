@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import logging
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -74,6 +75,9 @@ _COLOR_MIX.flags.writeable = False
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for counts in VARIANT_LAUNCHES.values():
+        for variant in counts:
+            counts[variant] = 0
 
 
 def supports_mode(mode: str, h: int, w: int, layout: str = "scalar") -> bool:
@@ -343,11 +347,14 @@ def decode_quantize(data: torch.Tensor, lut, size_x: int, size_y: int,
 
 def encode_quantize_stereo(img: torch.Tensor, lut, start_y: int = 0,
                            end_y: int = 1 << 30, rounding: str = "rne",
-                           view_layout: str = "interleaved") -> torch.Tensor:
+                           view_layout: str = "interleaved", *,
+                           variant: str | None = None) -> torch.Tensor:
     """Stereo encode of both views of a (H, W) or (B, H, W) dual-view image
     -> records in ``view_layout``: (..., H*W) interleaved,
     (..., 2, 64, H/16, W/8) planar or (..., 2, 64, H/16, BWP) native u8;
-    one launch per 65,535 frames."""
+    one launch per 65,535 frames.  ``variant`` ("tensor" or "plain")
+    overrides the plan's choice (``stereo_plan``); the bytes are the
+    same."""
     _check_tensor(img, "img", (2, 3))
     h, w = img.shape[-2:]
     frame = L_stereo.record_shape(view_layout, h, w)
@@ -360,30 +367,39 @@ def encode_quantize_stereo(img: torch.Tensor, lut, start_y: int = 0,
     out = torch.empty(img.shape[:-2] + frame, dtype=torch.uint8,
                       device=img.device)
     _enc_stereo(img, out, _batch_of(img, 2), h, w, (h // 2) * w, lut,
-                start_y, end_y, rounding, view_layout)
+                start_y, end_y, rounding, view_layout, variant)
     return out
 
 
 def _enc_stereo(img, out, batch: int, h: int, w: int, view_stride: int, lut,
-                start_y: int, end_y: int, rounding: str,
-                view_layout: str) -> None:
+                start_y: int, end_y: int, rounding: str, view_layout: str,
+                variant: str | None) -> None:
     if out.numel() == 0:
         return
     q, _ = _host_scales(lut)
-    _launch("enc_stereo", (img, out), batch,
-            lambda lib, src, dst, n: lib.sdct_enc_stereo(
-                src, dst, q.ctypes.data, n, h, w,
-                L_stereo.native_stereo_bwp(w), _clamp_i32(start_y),
-                _clamp_i32(end_y), _ROUNDING_CODE[rounding],
-                _VIEW_LAYOUT_CODE[view_layout], view_stride, _stream(img)),
+
+    def launch(lib, src, dst, n):
+        plan = _launching("enc_stereo", _stereo_plan_of(
+            "enc_stereo", img, n, h, w, view_layout, src, dst, view_stride,
+            rounding, variant), n, h, w, view_layout)
+        return lib.sdct_enc_stereo(
+            src, dst, q.ctypes.data, n, h, w, L_stereo.native_stereo_bwp(w),
+            _clamp_i32(start_y), _clamp_i32(end_y), _ROUNDING_CODE[rounding],
+            _VIEW_LAYOUT_CODE[view_layout], view_stride, plan.grid,
+            plan.tile_blocks, _VARIANT_CODE[plan.variant], plan.smem,
+            _stream(img))
+
+    _launch("enc_stereo", (img, out), batch, launch,
             frame_bytes=[h * w, out.numel() // batch])
 
 
 def decode_quantize_stereo(data: torch.Tensor, lut, size_x: int, size_y: int,
-                           view_layout: str = "interleaved") -> torch.Tensor:
+                           view_layout: str = "interleaved", *,
+                           variant: str | None = None) -> torch.Tensor:
     """Stereo records in ``view_layout`` (one frame's shape as
     ``encode_quantize_stereo`` returns it, with an optional batch axis) ->
-    (size_y, size_x) or (B, size_y, size_x) u8 pixels of both views."""
+    (size_y, size_x) or (B, size_y, size_x) u8 pixels of both views.
+    ``variant`` as for ``encode_quantize_stereo``."""
     frame = L_stereo.record_shape(view_layout, size_y, size_x)
     _check_tensor(data, "data", (len(frame), len(frame) + 1))
     _check_geometry("dec_quant_stereo", size_y, size_x)
@@ -400,12 +416,163 @@ def decode_quantize_stereo(data: torch.Tensor, lut, size_x: int, size_y: int,
     if out.numel() == 0:
         return out
     _, qi = _host_scales(lut)
-    _launch("dec_stereo", (data, out), batch,
-            lambda lib, src, dst, n: lib.sdct_dec_stereo(
-                src, dst, qi.ctypes.data, n, size_y, size_x,
-                L_stereo.native_stereo_bwp(size_x),
-                _VIEW_LAYOUT_CODE[view_layout], _stream(data)))
+
+    def launch(lib, src, dst, n):
+        plan = _launching("dec_stereo", _stereo_plan_of(
+            "dec_stereo", data, n, size_y, size_x, view_layout, dst, src,
+            (size_y // 2) * size_x, variant=variant), n, size_y, size_x,
+            view_layout)
+        return lib.sdct_dec_stereo(
+            src, dst, qi.ctypes.data, n, size_y, size_x,
+            L_stereo.native_stereo_bwp(size_x), _VIEW_LAYOUT_CODE[view_layout],
+            plan.grid, plan.tile_blocks, _VARIANT_CODE[plan.variant],
+            plan.smem, _stream(data))
+
+    _launch("dec_stereo", (data, out), batch, launch)
     return out
+
+
+# -- the stereo kernels' launch plan (csrc/stereo.cu) -------------------------
+
+STEREO_TILE_BLOCKS = 32   # block columns a tile, of one (frame, strip, view)
+_STEREO_KIND_CODE = {"enc_stereo": 0, "dec_stereo": 1}
+# launches of each stereo kernel by variant (counted beside LAUNCHES)
+VARIANT_LAUNCHES = {k: {"tensor": 0, "plain": 0} for k in _STEREO_KIND_CODE}
+_log = logging.getLogger(__name__)
+
+
+class StereoPlan(NamedTuple):
+    """A launch of ``enc_stereo_kernel`` or ``dec_stereo_kernel``."""
+    variant: str          # "tensor" or "plain"
+    tile_blocks: int      # nb: block columns a tile
+    tiles_per_row: int    # of a (frame, strip, view) row
+    tail_blocks: int      # columns of each row's last tile
+    tiles: int            # of the launch, over (frame, strip, view, tile)
+    smem: int             # dynamic shared bytes of a CTA
+    ctas_per_sm: int
+    grid: int             # persistent CTAs, each taking every grid-th tile
+
+
+def stereo_variant(w: int, pixels: int, records: int, view_stride: int) -> str:
+    """Tensor copies need rows of W % 128 == 0 (whole 16-byte record
+    segments, BW % 16 == 0) and 16-byte pixel and record addresses and view
+    stride; anything else takes the plain variant."""
+    aligned = (pixels | records | view_stride) % 16 == 0
+    return "tensor" if w % 128 == 0 and aligned else "plain"
+
+
+def stereo_smem() -> int:
+    """Dynamic shared bytes of a CTA (``kStereoSmem`` in stereo.cu): the
+    scales, the input tile and two output tiles (64 segments, or 8 pixel
+    rows, of nb bytes each) and the f32 crossing buffer."""
+    return 64 * 4 + 3 * 64 * STEREO_TILE_BLOCKS + 4 * 64 * STEREO_TILE_BLOCKS
+
+
+def stereo_plan(kind: str, batch: int, h: int, w: int, view_layout: str, *,
+                pixels: int, records: int, view_stride: int,
+                capacity: Callable[[str], tuple[int, int]],
+                variant: str | None = None) -> StereoPlan:
+    """The launch for ``batch`` (H, W) dual-view frames whose pixels start
+    at address ``pixels`` (the bottom view ``view_stride`` bytes after the
+    top one) and whose records start at ``records``.  A tile is
+    ``STEREO_TILE_BLOCKS`` block columns of one (frame, strip, view) row, never
+    crossing a strip or a view; the last of a row holds the rest.  The
+    encode's native rows are BWP columns long (the pad has its tiles), the
+    decode's BW (the pad is never read).  ``variant`` overrides the
+    alignment's choice ("tensor" only where it is possible);
+    ``capacity(variant)`` gives (CTAs of that launch an SM holds, SMs); the
+    grid is as many CTAs as the card holds at once, at most one a tile."""
+    if kind not in _STEREO_KIND_CODE:
+        raise ValueError(f"no stereo plan for {kind!r}")
+    L_stereo.check_view_layout(view_layout)
+    best = stereo_variant(w, pixels, records, view_stride)
+    if variant is None:
+        variant = best
+    elif variant not in _VARIANT_CODE or (variant == "tensor"
+                                          and best != "tensor"):
+        raise ValueError(f"{kind}: variant {variant!r} is not possible here "
+                         f"(W={w}, pixels at {pixels}, records at {records},"
+                         f" view stride {view_stride})")
+    bw = w // 8
+    row = (L_stereo.native_stereo_bwp(w)
+           if kind == "enc_stereo" and view_layout == "native" else bw)
+    nb = STEREO_TILE_BLOCKS
+    tpr = -(-row // nb)
+    tiles = batch * (h // 16) * 2 * tpr
+    if tiles >= 1 << 31:
+        raise ValueError(f"{kind}: {tiles} tiles in one launch exceed "
+                         "2^31 - 1")
+    per_sm, sms = capacity(variant)
+    smem = stereo_smem()
+    if per_sm < 1:
+        raise ValueError(f"{kind}: no CTA of {smem} shared bytes fits an SM")
+    return StereoPlan(variant, nb, tpr, row - (tpr - 1) * nb, tiles, smem,
+                      per_sm, min(tiles, sms * per_sm))
+
+
+@functools.lru_cache(maxsize=16)
+def _stereo_capacity(device: int, kind: str, rounding: str,
+                     variant: str) -> tuple[int, int]:
+    lib = _build.load()
+    out = np.zeros(4, np.int32)
+    with torch.cuda.device(device):
+        _build.check(lib, lib.sdct_stereo_capacity(
+            _STEREO_KIND_CODE[kind], _ROUNDING_CODE[rounding],
+            _VARIANT_CODE[variant], *(out.ctypes.data + 4 * i
+                                      for i in range(4))),
+            f"{kind} capacity")
+    nb, smem = int(out[0]), int(out[1])
+    if nb != STEREO_TILE_BLOCKS or smem != stereo_smem():
+        raise RuntimeError(f"{kind}: the kernel lays out tiles of {nb} blocks "
+                           f"in {smem} shared bytes, the plan "
+                           f"{STEREO_TILE_BLOCKS} in {stereo_smem()}")
+    return int(out[2]), int(out[3])
+
+
+def _stereo_plan_of(kind: str, t: torch.Tensor, batch: int, h: int, w: int,
+                    view_layout: str, pixels: int, records: int,
+                    view_stride: int, rounding: str = "rne",
+                    variant: str | None = None) -> StereoPlan:
+    dev = t.device.index if t.device.index is not None else \
+        torch.cuda.current_device()
+    return stereo_plan(kind, batch, h, w, view_layout, pixels=pixels,
+                       records=records, view_stride=view_stride,
+                       capacity=lambda v: _stereo_capacity(dev, kind,
+                                                           rounding, v),
+                       variant=variant)
+
+
+def _launching(kind: str, plan: StereoPlan, batch: int, h: int, w: int,
+               view_layout: str) -> StereoPlan:
+    """Count and log the variant of a stereo launch."""
+    VARIANT_LAUNCHES[kind][plan.variant] += 1
+    if _log.isEnabledFor(logging.DEBUG):
+        _log.debug("%s %dx%dx%d %s: %s", kind, batch, h, w, view_layout,
+                   plan)
+    return plan
+
+
+def stereo_launch_plan(kind: str, t: torch.Tensor, view_layout: str,
+                       size_x: int | None = None, size_y: int | None = None,
+                       rounding: str = "rne") -> StereoPlan:
+    """The plan ``encode_quantize_stereo`` (kind "enc_stereo", ``t`` the
+    image) or ``decode_quantize_stereo`` ("dec_stereo", ``t`` the records
+    of a ``size_y`` x ``size_x`` image) launches for a CUDA tensor of at
+    most 65,535 frames; the records' or the pixels' address is taken as
+    16-byte aligned, as the wrappers allocate them."""
+    if kind == "enc_stereo":
+        h, w = t.shape[-2:]
+        batch, pixels, records = _batch_of(t, 2), t.data_ptr(), 0
+    else:
+        h, w = size_y, size_x
+        frame = L_stereo.record_shape(view_layout, h, w)
+        batch, pixels, records = _batch_of(t, len(frame)), 0, t.data_ptr()
+    dev = t.device.index if t.device.index is not None else \
+        torch.cuda.current_device()
+    return stereo_plan(kind, batch, h, w, view_layout, pixels=pixels,
+                       records=records, view_stride=(h // 2) * w,
+                       capacity=lambda v: _stereo_capacity(dev, kind,
+                                                           rounding, v))
 
 
 def _check_planes(t, name: str) -> None:
@@ -724,13 +891,16 @@ def decode32_view(records: torch.Tensor, lut) -> torch.Tensor:
 
 
 def encode_stereo_view(views: torch.Tensor, lut, rounding: str = "rne",
-                       view_layout: str = "interleaved") -> torch.Tensor:
+                       view_layout: str = "interleaved", *,
+                       variant: str | None = None) -> torch.Tensor:
     """Stereo encode of a bare (2, H2, W) pair of views -- one row range of
     the top view and the same of the bottom view, rows contiguous, the two
     a stride apart (a shard's strips of a dual-view image go in as they
     are) -> the records ``encode_quantize_stereo`` gives for the (2*H2, W)
-    image they make; one launch."""
-    _check_tensor(views, "views", (3,), strided_lead=True)
+    image they make; one launch.  The base and the view stride need only
+    be multiples of 8: where either is not a multiple of 16 the plan takes
+    the plain variant (``stereo_plan``)."""
+    _check_tensor(views, "views", (3,), strided_lead=True, align=8)
     if views.shape[0] != 2:
         raise ValueError(f"views must be (2, H2, W), got shape "
                          f"{tuple(views.shape)}")
@@ -745,7 +915,7 @@ def encode_stereo_view(views: torch.Tensor, lut, rounding: str = "rne",
                                           1 << 30, rounding, view_layout)
     out = torch.empty(frame, dtype=torch.uint8, device=views.device)
     _enc_stereo(views, out, 1, h, w, _lead_stride(views), lut, 0, 1 << 30,
-                rounding, view_layout)
+                rounding, view_layout, variant)
     return out
 
 

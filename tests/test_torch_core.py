@@ -58,6 +58,19 @@ def test_cuda_source_basis_bit_identical():
     assert got.tobytes() == T_dct.dct_basis_np("float32").reshape(-1).tobytes()
 
 
+def test_tile_basis_bit_identical():
+    """The compile-time basis of the strip-tile kernels (tile_common.cuh
+    ``basis``) is the same f32 basis, literal for literal."""
+    text = CU_SOURCE.with_name("tile_common.cuh").read_text()
+    body = re.search(r"float basis\(int i\) \{\s*constexpr float t\[64\] = "
+                     r"\{(.*?)\};", text, re.S).group(1)
+    vals = [float.fromhex(v) for v in
+            re.findall(r"(-?0x[0-9a-f.]+p[-+]?\d+)f", body)]
+    got = np.array(vals, np.float64).astype(np.float32)
+    assert got.size == 64
+    assert got.tobytes() == T_dct.dct_basis_np("float32").reshape(-1).tobytes()
+
+
 def test_quant_tables_identical():
     assert T_q.BASE_QUANT_TABLE.tobytes() == J_q.BASE_QUANT_TABLE.tobytes()
     assert T_q.VR == J_q.VR and T_q.BIAS == J_q.BIAS

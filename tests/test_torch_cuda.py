@@ -226,6 +226,49 @@ def test_stereo_layout_identities(gen, w):
     assert torch.equal(dec[0], dec[1]) and torch.equal(dec[0], dec[2])
 
 
+@pytest.mark.parametrize("shape", [(1088, 1920), (2, 256, 128)])
+@pytest.mark.parametrize("view_layout", VIEW_LAYOUTS)
+def test_stereo_tensor_and_plain_variants_give_the_same_bytes(gen, shape,
+                                                              view_layout):
+    img = _img(gen, *shape)
+    h, w = shape[-2:]
+    assert K.stereo_launch_plan("enc_stereo", img, view_layout).variant \
+        == "tensor"
+    for rounding in ("rne", "scalar", "clamp_first"):
+        assert torch.equal(
+            K.encode_quantize_stereo(img, LUT_Q, rounding=rounding,
+                                     view_layout=view_layout),
+            K.encode_quantize_stereo(img, LUT_Q, rounding=rounding,
+                                     view_layout=view_layout,
+                                     variant="plain"))
+    rec = TP.encode_quantize_stereo(img, LUT_Q, view_layout=view_layout)
+    assert torch.equal(
+        K.decode_quantize_stereo(rec, LUT_Q, w, h, view_layout),
+        K.decode_quantize_stereo(rec, LUT_Q, w, h, view_layout,
+                                 variant="plain"))
+
+
+@pytest.mark.parametrize("view_layout", VIEW_LAYOUTS)
+def test_stereo_views_off_16_bytes_and_a_shard_stride(gen, view_layout):
+    img = _img(gen, 544, 1920)
+    flat = torch.empty(544 * 1920 + 64, dtype=torch.uint8, device="cuda")
+    off = flat[8:8 + 544 * 1920].view(2, 272, 1920)
+    off.copy_(img.view(2, 272, 1920))
+    before = dict(K.VARIANT_LAUNCHES["enc_stereo"])
+    assert torch.equal(K.encode_stereo_view(off, LUT_Q,
+                                            view_layout=view_layout),
+                       K.encode_quantize_stereo(img, LUT_Q,
+                                                view_layout=view_layout))
+    assert K.VARIANT_LAUNCHES["enc_stereo"]["plain"] == before["plain"] + 1
+    shard = img.view(2, 272, 1920)[:, 32:96]      # strips 4..11 of each view
+    assert shard.stride(0) == 272 * 1920
+    got = K.encode_stereo_view(shard, LUT_Q, view_layout=view_layout)
+    whole = shard.reshape(128, 1920)      # a contiguous copy of the rows
+    assert torch.equal(got, K.encode_quantize_stereo(
+        whole, LUT_Q, view_layout=view_layout))
+    _ok(got, TP.encode_quantize_stereo(whole, LUT_Q, view_layout=view_layout))
+
+
 def test_stereo_api_launches_kernels(gen):
     img = _img(gen, 2, 256, 128).cpu().numpy()
     K.reset_launch_counts()

@@ -479,3 +479,125 @@ def test_wrappers_on_cpu_take_the_plain_version():
         K.encode_quantize_stereo(img, _lut(), view_layout="stacked")
     with pytest.raises(TypeError):
         K.decode_quantize_stereo(rec.numpy(), _lut(), 200, 48, "native")
+
+
+# -- the stereo kernels' launch plan (csrc/stereo.cu), pure Python -----------
+
+PLAN_SHAPES = [(4096, 3840), (1088, 1920), (256, 200), (32, 128), (16, 1984)]
+SNB = K.STEREO_TILE_BLOCKS
+
+
+def _h100(variant):
+    """A card of 132 SMs holding 8 CTAs of any launch an SM."""
+    return 8, 132
+
+
+def _plan(kind, batch, h, w, vl, pixels=0, records=0, stride=None, **kw):
+    return K.stereo_plan(kind, batch, h, w, vl, pixels=pixels,
+                         records=records,
+                         view_stride=(h // 2) * w if stride is None else stride,
+                         capacity=_h100, **kw)
+
+
+def _row_len(kind, w, vl):
+    """Block columns a (frame, strip, view) row of tiles covers."""
+    if kind == "enc_stereo" and vl == "native":
+        return T_stereo.native_stereo_bwp(w)
+    return w // 8
+
+
+def _stereo_tile_at(plan, s_n, t):
+    """(frame, strip, view, first column, columns) of tile ``t`` (an
+    integer array), numbered as stereo.cu's TileWalk numbers them."""
+    row, x = np.divmod(t, plan.tiles_per_row)
+    frame, s = np.divmod(row >> 1, s_n)
+    last = x == plan.tiles_per_row - 1
+    n = np.where(last, plan.tail_blocks, plan.tile_blocks)
+    return frame, s, row & 1, x * plan.tile_blocks, n
+
+
+@pytest.mark.parametrize("kind", ["enc_stereo", "dec_stereo"])
+@pytest.mark.parametrize("h,w", PLAN_SHAPES)
+def test_stereo_plan_covers_each_block_column_once(kind, h, w):
+    s_n = h // 16
+    for vl in VIEW_LAYOUTS:
+        row_len = _row_len(kind, w, vl)
+        for batch in (1, 8, 65535):
+            plan = _plan(kind, batch, h, w, vl)
+            assert plan.tile_blocks == SNB
+            assert plan.tiles == batch * s_n * 2 * plan.tiles_per_row
+            assert 1 <= plan.grid == min(plan.tiles, 132 * plan.ctas_per_sm)
+            assert plan.smem == K.stereo_smem() <= K.SMEM_LIMIT
+            per_frame = s_n * 2 * plan.tiles_per_row
+            for f in sorted({0, 1, batch - 2, batch - 1} & set(range(batch))):
+                t = np.arange(f * per_frame, (f + 1) * per_frame)
+                frame, s, v, bx0, n = _stereo_tile_at(plan, s_n, t)
+                assert (frame == f).all()
+                # inside one (strip, view) row: never across either
+                assert ((n > 0) & (n <= SNB) & (bx0 + n <= row_len)).all()
+                # every (strip, view, column) of the frame exactly once;
+                # the encode's native rows run to BWP, the pad included
+                cols = np.arange(SNB)[None]
+                keys = ((s * 2 + v) * row_len + bx0)[:, None] + cols
+                np.testing.assert_array_equal(
+                    np.bincount(keys[cols < n[:, None]],
+                                minlength=s_n * 2 * row_len),
+                    np.ones(s_n * 2 * row_len))
+
+
+def test_stereo_plan_tails():
+    assert SNB == 32
+    # (W, tiles a row and last tile's columns: BW rows, then native BWP rows)
+    for w, bw_row, bwp_row in [(3840, (15, 32), (16, 32)),
+                               (1920, (8, 16), (8, 32)),
+                               (200, (1, 25), (4, 32)), (128, (1, 16), (4, 32)),
+                               (1984, (8, 24), (8, 32))]:
+        for kind in ("enc_stereo", "dec_stereo"):
+            for vl in VIEW_LAYOUTS:
+                plan = _plan(kind, 1, 32, w, vl)
+                want = (bwp_row if kind == "enc_stereo" and vl == "native"
+                        else bw_row)
+                assert (plan.tiles_per_row, plan.tail_blocks) == want
+
+
+@pytest.mark.parametrize("w,pixels,records,stride,want", [
+    (3840, 0, 0, None, "tensor"), (1920, 1024, 4096, None, "tensor"),
+    (200, 0, 0, None, "plain"),          # W % 128 != 0
+    (3840, 8, 0, None, "plain"),         # a base 8 bytes off
+    (3840, 0, 8, None, "plain"),
+    (3840, 0, 0, 2048 * 3840 + 8, "plain"),   # a view stride off 16
+    (1984, 0, 0, None, "plain")])
+def test_stereo_plan_variant_follows_width_and_alignment(w, pixels, records,
+                                                         stride, want):
+    for kind in ("enc_stereo", "dec_stereo"):
+        plan = _plan(kind, 1, 64, w, "interleaved", pixels, records, stride)
+        assert plan.variant == want
+        # plain can always be forced; tensor only where it is possible
+        assert _plan(kind, 1, 64, w, "interleaved", pixels, records, stride,
+                     variant="plain").variant == "plain"
+        if want == "plain":
+            with pytest.raises(ValueError):
+                _plan(kind, 1, 64, w, "interleaved", pixels, records, stride,
+                      variant="tensor")
+
+
+def test_stereo_plan_shared_bytes_grid_and_refusals():
+    # scales, one input and two output tiles of 64*nb bytes, the f32
+    # crossing buffer
+    assert K.stereo_smem() == 256 + 3 * 64 * SNB + 4 * 64 * SNB \
+        <= K.SMEM_LIMIT
+    small = _plan("enc_stereo", 1, 16, 128, "interleaved")
+    assert small.tiles == small.grid == 2
+    one_sm = K.stereo_plan("dec_stereo", 8, 1088, 1920, "planar", pixels=0,
+                           records=0, view_stride=544 * 1920,
+                           capacity=lambda v: (3, 1))
+    assert (one_sm.ctas_per_sm, one_sm.grid) == (3, 3)
+    with pytest.raises(ValueError):   # no CTA fits
+        K.stereo_plan("enc_stereo", 1, 64, 256, "planar", pixels=0, records=0,
+                      view_stride=32 * 256, capacity=lambda v: (0, 132))
+    with pytest.raises(ValueError):   # 2^31 tiles or more in one launch
+        _plan("dec_stereo", 65535, 1 << 16, 1 << 14, "interleaved")
+    with pytest.raises(ValueError):
+        _plan("enc32_rgb", 1, 64, 256, "planar")
+    with pytest.raises(ValueError):
+        _plan("enc_stereo", 1, 64, 256, "stacked")
