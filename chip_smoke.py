@@ -68,16 +68,19 @@ result line):
       plain version by torch.profiler device time, and the CUDA-event wall
       of back-to-back calls for each (the 4:2:0 rows beside the colour
       rows' copy of the three channels' top view); the launch plan of
-      enc32_rgb, roundtrip32_rgb and the stereo kernels in each layout
-      (``cuda_dct.color_plan``, ``cuda_dct.stereo_plan``) beside their 4K
-      times before the strip-tile designs (``EARLIER_US``) and their
-      exact-arithmetic floor (``EXACT_OPS_PER_PX``), and for stereo the
-      ptxas registers of the instantiation that ran;
+      every strip-tile kernel (enc32_rgb, dec32_rgb, roundtrip32_rgb,
+      enc420_rgb and the stereo kernels in each layout:
+      ``cuda_dct.color_plan``, ``cuda_dct.color420_plan``,
+      ``cuda_dct.stereo_plan``) beside its 4K time before its strip-tile
+      design (``EARLIER_US``), its exact-arithmetic floor
+      (``EXACT_OPS_PER_PX``) and the ptxas registers of the instantiation
+      that ran;
   11. the YCbCr 4:4:4 colour kernels against their plain versions (+-1 on
       at most 0.2% of bytes) on (3, H, W) planar RGB at 4096x3840 (every
       rounding mode), 1088x1920, 256x192 (W % 128 != 0), 16x1984 (each
-      strip ends in a short tile) and an 8-frame 1088x1920 batch, with the
-      launch plan of each; the rne and clamp_first encodes equal the plain
+      strip ends in a short tile, in the encode, the decode and the round
+      trip) and an 8-frame 1088x1920 batch, with the launch plan of each;
+      the rne and clamp_first encodes equal the plain
       version byte for byte; the plain-load variant: a (3, 544, 1920) view
       8 bytes off a 16-byte boundary through encode32_rgb_view (every
       rounding);
@@ -93,7 +96,8 @@ result line):
   13. the YCbCr 4:2:0 kernels against their plain versions (+-1 on at most
       0.2% of bytes) at 4096x3840 (every rounding mode), 1088x1920, 64x384
       (W % 256 != 0: a CUDA block's 32 macroblocks cross a macroblock row)
-      and an 8-frame 1088x1920 batch; the Y segment of each 4:2:0 stream
+      and an 8-frame 1088x1920 batch, with the encode's launch plan of
+      each; the Y segment of each 4:2:0 stream
       equals channel 0 of enc32_rgb's records byte for byte; round-trip
       PSNR on the config-3 gate's input within 0.1 dB of the plain
       version's;
@@ -240,9 +244,11 @@ REPS = 25
 # rows use): a few milliseconds a call, so fewer repetitions
 PLAIN_WALL_REPS = 5
 # the redesigned kernels' 4K times before their redesign (queued events,
-# PERF.md rows 12 and 14: the thread-per-(block, channel) design; rows 9
-# and 10: the thread-per-block stereo design, interleaved)
+# PERF.md rows 12 to 14: the thread-per-(block, channel) design; rows 9
+# and 10: the thread-per-block stereo design, interleaved; row 15: the
+# thread-per-block 4:2:0 encode)
 EARLIER_US = {"enc32_rgb": 52.84, "roundtrip32_rgb": 86.72,
+              "dec32_rgb": 45.85, "enc420_rgb": 37.25,
               "enc_stereo": 26.76, "dec_stereo": 28.00}
 # The exact-arithmetic floor of the colour tile kernels: the instructions a
 # pixel position that their bytes require, issued at one instruction a lane
@@ -264,9 +270,23 @@ EARLIER_US = {"enc32_rgb": 52.84, "roundtrip32_rgb": 86.72,
 # 2, record staging 1): 28.  The decode: record read 1, exact (b - 127) 2,
 # dequant multiply 1, 16 FMAs, times 255 1, 2 clamps, round 1, packing
 # 0.75 and staging 1/8, crossing 2: 26.875.
+# The colour decode, per pixel position and channel: the record byte read
+# (1), the exact (b - 127) (2), the dequant multiply (1), the matrix-form
+# idct2d (16 FMAs; roundtrip32_rgb == dec32_rgb(enc32_rgb) fixes them), the
+# bias (1), the inverse mix, 2 clamps and the round (8), packing (0.75);
+# then the crossing (6) and the pixel staging (3/8): 95.625.
+# The 4:2:0 encode, per pixel position: the 2-byte loads (1.5 for 3
+# bytes), the exact u8 -> f32 (6), the three mixes and their biases (18),
+# the pool (2: 3 adds and a multiply per 4 pixels, each chroma); Y's
+# transform (16), quantizer (5), crossing (2) and record staging (1); each
+# chroma plane at a quarter of the pixels: the pooled store and load (2),
+# the transform (16), the crossing (2), the quantizer (5) and the staging
+# (1), 26 a chroma pixel: 64.5.
 EXACT_OPS_PER_PX = {
     "enc32_rgb": 3 * (2 + 6 + 16 + 5) + 3 + 6 + 3,
+    "dec32_rgb": 3 * (1 + 2 + 1 + 16 + 1 + 8 + 0.75) + 6 + 3 / 8,
     "roundtrip32_rgb": 3 * (2 + 6 + 32 + 6 + 1 + 8 + 0.75) + 3 + 18 + 3 / 8,
+    "enc420_rgb": 1.5 + 6 + 18 + 2 + (16 + 5 + 2 + 1) + 2 * 26 / 4,
     "enc_stereo": 2 + 1 + 16 + 5 + 1 + 2 + 1,
     "dec_stereo": 1 + 2 + 1 + 16 + 1 + 2 + 1 + 0.75 + 1 / 8 + 2,
 }
@@ -785,6 +805,11 @@ def phase_compare_color(gen, luma, chroma, errs):
                                                       rounding),
                             rounding, errs)
         rec = torch_path.encode_ycbcr32(rgb, luma, chroma)
+        plan = cuda_dct.color_launch_plan("dec32_rgb", rec, size_x=w)
+        log(f"  dec32_rgb {tag} plan: {plan._asdict()}")
+        require(plan.tail_blocks == (8 if w % 128 else 16),
+                f"dec32_rgb {tag}: strips end in tiles of "
+                f"{plan.tail_blocks} blocks")
         agree(f"dec32_rgb {tag} (same records)",
               cuda_dct.decode_quantize32_ycbcr(rec, luma, chroma, w, h),
               torch_path.decode_ycbcr32(rec, luma, chroma, w, h), errs,
@@ -872,6 +897,8 @@ def phase_compare_color420(gen, luma, chroma, errs):
     for h, w, frames in GEOMETRIES_420:
         rgb = random_rgb(gen, h, w, frames)
         tag = f"{frames}x3x{h}x{w}"
+        log(f"  enc420_rgb {tag} plan: "
+            f"{cuda_dct.color420_launch_plan(rgb)._asdict()}")
         roundings = ROUNDINGS if h == 4096 else ("rne",)
         for rounding in roundings:
             stream = cuda_dct.encode_quantize32_ycbcr420(rgb, luma, chroma,
@@ -1739,24 +1766,15 @@ def phase_timing(gen, lut, lut_q, chroma, reps):
                 rows[name] = (k_us / 1e3, p_us / 1e3, c_us / 1e3, n_bytes,
                               n_px)
             if kernel in EARLIER_US:
-                if kernel in ("enc_stereo", "dec_stereo"):
-                    vl = name[len(kernel) + 1:] or "interleaved"
-                    plan = cuda_dct.stereo_launch_plan(kernel, inputs[0], vl,
-                                                       w, h)
-                else:
-                    plan = cuda_dct.color_launch_plan(kernel, inputs[0])
+                plan, inst = strip_tile_plan(kernel, name, inputs[0], h, w)
                 floor_us = EXACT_OPS_PER_PX[kernel] * n_px / ISSUE_PER_S * 1e6
-                table[-1].update(plan=plan._asdict(), floor_us=floor_us)
+                table[-1].update(plan=plan._asdict(), floor_us=floor_us,
+                                 ptxas=PTXAS.get(inst))
                 log(f"  {name} plan {plan._asdict()}; earlier (4K) "
                     f"{EARLIER_US[kernel]} us; exact-arithmetic floor "
                     f"{floor_us:.2f} us ({EXACT_OPS_PER_PX[kernel]} "
                     "instructions a pixel position)")
-                if kernel in ("enc_stereo", "dec_stereo"):
-                    # the rne (0) instantiation of the plan's variant
-                    code = cuda_dct._VARIANT_CODE[plan.variant]
-                    inst = (f"{kernel}_kernel<0,{code}>" if kernel ==
-                            "enc_stereo" else f"{kernel}_kernel<{code}>")
-                    log(f"  {name} ptxas {inst}: {PTXAS.get(inst)}")
+                log(f"  {name} ptxas {inst}: {PTXAS.get(inst)}")
             log(f"  {name:17s} {table[-1]['shape']:18s} kernel {k_us:8.3f} us "
                 f"(profiler {k_prof if k_prof is None else round(k_prof, 3)}"
                 f", wall {k_wall:7.2f})  plain {p_us:9.2f} us "
@@ -1774,6 +1792,28 @@ def phase_timing(gen, lut, lut_q, chroma, reps):
     library = timing_dist(gen, lut_q, reps, cycles_per_ms, rows, table)
     log("timing_table " + json.dumps(table))
     return rows, library
+
+
+def strip_tile_plan(kernel: str, name: str, x, h: int, w: int):
+    """The launch plan of a strip-tile kernel's timed job ``name`` on its
+    input ``x``, and the name of the (rne) instantiation that ran, as
+    ``log_ptxas`` keys it."""
+    if kernel in ("enc_stereo", "dec_stereo"):
+        vl = name[len(kernel) + 1:] or "interleaved"
+        plan = cuda_dct.stereo_launch_plan(kernel, x, vl, w, h)
+        code = cuda_dct._VARIANT_CODE[plan.variant]
+        return plan, (f"{kernel}_kernel<0,{code}>" if kernel == "enc_stereo"
+                      else f"{kernel}_kernel<{code}>")
+    if kernel == "enc420_rgb":
+        return cuda_dct.color420_launch_plan(x), "enc420_rgb_kernel<0>"
+    if kernel == "dec32_rgb":
+        return (cuda_dct.color_launch_plan(kernel, x, size_x=w),
+                "dec32_rgb_kernel")
+    plan = cuda_dct.color_launch_plan(kernel, x)
+    if kernel == "enc32_rgb":
+        code = cuda_dct._VARIANT_CODE[plan.variant]
+        return plan, f"enc32_rgb_kernel<0,{code}>"
+    return plan, f"{kernel}_kernel"
 
 
 def four_cats(seg):

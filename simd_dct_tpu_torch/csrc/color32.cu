@@ -14,7 +14,8 @@
 // IDCT, subtracts the bias and applies the inverse mix in f32 (the YCbCr
 // values are not rounded), then rounds half to even and clips to u8.
 //
-// Encode and round trip: strip tiles, eight threads a block.
+// Strip tiles, a persistent grid, eight threads a block (the decode's
+// threads a block are kDecBlockThreads).
 //   * A tile is kTileBlocks = 16 consecutive 8x8 blocks of one strip (8
 //     rows x 128 pixels of each plane); the last tile of a strip is short
 //     where 16 does not divide W/8.  Its records are one span of 64 bytes a
@@ -51,89 +52,25 @@
 //     rint(clip(x)) since the limits are integers); rne's +127 is added to
 //     the integer bits, after the rounding (127 is odd: rint(x + 127) is
 //     not rint(x) + 127 at ties).  The 'scalar' rounding keeps quantize<>.
-// Decode: one thread per (8x8 block, channel), kColorThreads = 96 threads a
-// CUDA block over kColorBlocks = 32 block numbers, a warp per channel; the
-// records come in through shared memory with 16-byte loads and the three
-// channels meet in shared memory for the inverse mix.
+//   * The decode takes the same tiles the other way, with kDecBlockThreads
+//     = 4 threads a block (64 a CTA): thread (b, q) takes columns, then
+//     rows, q and q + 4 of block b.  Thread 0 brings a tile's records, each
+//     channel's span a 512-byte group at a time, into padded groups in
+//     shared memory by 1-D bulk copies completing on one mbarrier, two
+//     tiles ahead (kDecStages buffers; a tensor box cannot carry the spans:
+//     a box dimension holds at most 256 elements).  The thread of
+//     coefficient column v reads its column straight out of the
+//     staged records (byte (u*8+v)*8 + (b & 7) holds (u, v)), dequantizes it
+//     exactly ((2^23 + b) - (2^23 + 127), times the scale) and runs idct2d's
+//     column pass; one crossing reaches the row pass, after which the
+//     thread of row j holds the three channels: bias, inverse mix, rounding
+//     and packing in registers, as in the round trip, and one tensor store
+//     a tile.  The DCT basis is compiled into its FMAs (tile_common.cuh
+//     basis).
 
 #include "tile_common.cuh"
 
 namespace {
-
-// -- decode: a thread per (block, channel) -----------------------------------
-
-constexpr int kColorBlocks = 32;                 // 8x8 blocks a CUDA block: one warp
-constexpr int kColorThreads = 3 * kColorBlocks;  // a warp per channel
-constexpr int kColorGroups = kColorBlocks / 8;   // 8-block record groups a channel
-constexpr int kRecSmem = 3 * kColorGroups * kGroupStride;
-constexpr int kYccPitch = 65;                    // floats per (channel, block) slab
-constexpr int kYccPlane = kColorBlocks * kYccPitch;
-
-// A thread's IDCT output, bias removed, into its shared-memory slab.
-__device__ __forceinline__ void put_ycc(float* __restrict__ slab, int c, const ColorMix& mix,
-                                       const float (&x)[64]) {
-  const float bias = pick(c, mix.bias[0], mix.bias[1], mix.bias[2]);
-#pragma unroll
-  for (int p = 0; p < 64; ++p) slab[p] = __fsub_rn(x[p], bias);
-}
-
-// Output channel c of the inverse mix of block b's three YCbCr slabs, as an
-// 8x8 u8 block at p (round half to even, clip).
-__device__ __forceinline__ void store_unmixed(uint8_t* __restrict__ p, int w, int c,
-                                              const ColorMix& mix,
-                                              const float* __restrict__ slab_y) {
-  const float m0 = pick(c, mix.inv[0], mix.inv[3], mix.inv[6]);
-  const float m1 = pick(c, mix.inv[1], mix.inv[4], mix.inv[7]);
-  const float m2 = pick(c, mix.inv[2], mix.inv[5], mix.inv[8]);
-  float x[64];
-#pragma unroll
-  for (int q = 0; q < 64; ++q)
-    x[q] = mix3(m0, m1, m2, slab_y[q], slab_y[kYccPlane + q], slab_y[2 * kYccPlane + q]);
-  store_block(p, w, x);
-}
-
-// Replaces simd_dct_tpu/kernels/color32.py _dec32_rgb_kernel.
-// Bound: memory, as enc32_rgb; 3 x (8.25 + 3) FMAs per pixel position.
-// Design: the records come in through shared memory with 16-byte loads as
-// dec32's do; the three channels meet in shared memory for the inverse mix.
-__global__ void __launch_bounds__(kColorThreads)
-dec32_rgb_kernel(const uint8_t* __restrict__ records, uint8_t* __restrict__ out, Scales qil,
-                 Scales qic, ColorMix mix, int h2, int w) {
-  __shared__ __align__(16) uint8_t rec[kRecSmem];
-  __shared__ float ycc[3 * kYccPlane];
-  const int c = threadIdx.x / kColorBlocks;
-  const int b = threadIdx.x % kColorBlocks;
-  const int bw = w >> 3;
-  const long long nblk = (long long)(h2 >> 3) * bw;
-  const long long blk0 = (long long)blockIdx.x * kColorBlocks;
-  const long long blk = blk0 + b;
-  const long long plane = (long long)h2 * w;
-  const long long frame = (long long)blockIdx.y * 3 * plane;
-  const int pieces = 4 * (int)(nblk - blk0 < kColorBlocks ? nblk - blk0 : kColorBlocks);
-  const uint8_t* src = records + frame + blk0 * 64;
-  uint4* r4 = reinterpret_cast<uint4*>(rec);
-  for (int i = threadIdx.x; i < 3 * pieces; i += kColorThreads) {
-    const int ch = i / pieces, j = i - ch * pieces;
-    r4[smem_piece(ch * kColorGroups * 32 + j)] =
-        __ldg(reinterpret_cast<const uint4*>(src + ch * plane) + j);
-  }
-  __syncthreads();
-  const bool live = blk < nblk;
-  if (live) {
-    const uint8_t* slot = rec + (c * kColorGroups + (b >> 3)) * kGroupStride + (b & 7);
-    float x[64];
-#pragma unroll
-    for (int p = 0; p < 64; ++p)
-      x[p] = __fmul_rn((float)slot[p * 8] - 127.0f, c == 0 ? qil.v[p] : qic.v[p]);
-    idct2d(x);
-    put_ycc(ycc + threadIdx.x * kYccPitch, c, mix, x);
-  }
-  __syncthreads();
-  if (!live) return;
-  const long long s = blk / bw;
-  const int bx = (int)(blk - s * bw);
-  store_unmixed(out + frame + c * plane + 8 * s * w + 8 * bx, w, c, mix, ycc + b * kYccPitch);
-}
 
 // -- encode and round trip: strip tiles --------------------------------------
 
@@ -147,6 +84,15 @@ constexpr int kCrossBytes = 3 * 64 * kTileBlocks * 4;  // f32 of the crossing bu
 // CTAs an SM the round trip is built for: a cap of 72 registers (uncapped
 // it takes 79, six CTAs an SM, and ran 0.8-2% slower on a 4K view)
 constexpr int kRoundtripCtas = 7;
+// The decode: threads an 8x8 block (8, 4 or 2; each takes 8 / that many
+// columns, then rows; four ran 4% faster than eight, PERF.md), the record
+// buffers it keeps in flight and its pixel tile buffers.
+constexpr int kDecBlockThreads = 4;
+constexpr int kDecLines = 8 / kDecBlockThreads;
+constexpr int kDecThreads = kDecBlockThreads * kTileBlocks;
+constexpr int kDecStages = 2;
+constexpr int kDecOutBuffers = 2;
+static_assert(kDecLines == 1 || kDecLines == 2 || kDecLines == 4, "8, 4 or 2 threads a block");
 // Input loads (Variant, tile_common.cuh): kTensor one 4-D tensor copy a
 // tile (box 128 columns x 8 rows x 3 planes x 1 frame), kPlain the threads'
 // own 8-byte loads (the encode of a view that is not aligned to 16 bytes).
@@ -158,6 +104,11 @@ inline int tile_smem(bool roundtrip) {
   return (roundtrip ? 4 : 2) * 64 * 4 + kTileIn + 2 * (roundtrip ? kTileIn : kTileRec) +
          kCrossBytes;
 }
+
+// The decode's: 2 scale tables, kDecOutBuffers pixel tiles, kDecStages
+// record buffers, the crossing buffer.
+constexpr int kDecSmem =
+    2 * 64 * 4 + kDecOutBuffers * kTileIn + kDecStages * kTileRec + kCrossBytes;
 
 struct TileGeom {
   int w, bw;           // W, blocks a row
@@ -216,14 +167,6 @@ __device__ __forceinline__ void load_tile_plain(const uint8_t* img, const TileGe
         __ldg(reinterpret_cast<const uint2*>(row + 8 * b));
   }
   __syncthreads();
-}
-
-// The crossing buffer: value (row index r, column index c) of block b of a
-// channel, in 32-float lines of a column pair, the pair's halves swapped on
-// odd r.  A warp writing (16 blocks x c in {2i, 2i+1}, fixed r) or reading
-// (16 blocks x r in {2i, 2i+1}, fixed c) touches 32 distinct banks.
-__device__ __forceinline__ int cross_at(int ch, int r, int c, int b) {
-  return ((ch * 8 + r) * 4 + (c >> 1)) * 32 + (((c ^ r) & 1) << 4) + b;
 }
 
 // As column k, thread (b, k): column k of block b of the three planes
@@ -461,9 +404,137 @@ roundtrip32_rgb_kernel(const uint8_t* __restrict__ img, uint8_t* __restrict__ ou
   if (warp == 1 && lane == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
-unsigned color_grid_x(int h2, int w) {
-  const long long nblk = (long long)(h2 / 8) * (w / 8);
-  return (unsigned)((nblk + kColorBlocks - 1) / kColorBlocks);
+// Thread 0: tile t's records (if the launch has it), each channel's span
+// of nb*64 bytes a 512-byte group at a time, into `stage` (padded groups,
+// kGroupStride apart, channel-major), completing on `bar`.
+__device__ __forceinline__ void load_records(const uint8_t* records, const TileGeom& g,
+                                             unsigned t, uint8_t* stage, uint64_t* bar) {
+  if (t >= g.tiles) return;
+  const Tile a = tile_at(g, t);
+  const int groups = a.nb >> 3;
+  arrive_expect(bar, 3 * 512 * groups);
+  const uint8_t* src = records + a.frame * 3 * g.plane + (a.strip * g.bw + a.bx0) * 64;
+  for (int ch = 0; ch < 3; ++ch)
+    for (int gi = 0; gi < groups; ++gi)
+      bulk_load(stage + (ch * kTileGroups + gi) * kGroupStride, src + ch * g.plane + gi * 512,
+                512, bar);
+}
+
+// Replaces simd_dct_tpu/kernels/color32.py _dec32_rgb_kernel.
+// Bound: memory, 3 bytes read + 3 bytes written per pixel position; the
+// matrix-form arithmetic its bytes need (roundtrip32_rgb == dec32_rgb of
+// enc32_rgb, byte for byte) sets a floor above it (PERF.md).  Design: see
+// the head of this file.  A short tile's blocks past W compute on stale
+// bytes, and the tensor store drops their columns.
+__global__ void __launch_bounds__(kDecThreads)
+dec32_rgb_kernel(const uint8_t* __restrict__ records, Scales qil, Scales qic, ColorMix mix,
+                 TileGeom g, const __grid_constant__ CUtensorMap tout) {
+  constexpr int T = kDecBlockThreads;
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ __align__(8) uint64_t full[kDecStages];
+  float* sq = reinterpret_cast<float*>(smem);  // transposed: sq[v*8 + u] = qi[u*8 + v]
+  uint8_t* pixs = smem + 2 * 64 * 4;  // 128-byte aligned, as the tensor store wants
+  uint8_t* stages = pixs + kDecOutBuffers * kTileIn;
+  float* cross = reinterpret_cast<float*>(stages + kDecStages * kTileRec);
+  // block b; columns, then rows, q + T*h: a warp's two threads of a block
+  // take neighbouring ones, as cross_at wants
+  const int b = threadIdx.x % kTileBlocks, q = threadIdx.x / kTileBlocks;
+  const bool storer = threadIdx.x == (kDecThreads > 32 ? 32 : 0);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      sq[(i & 7) * 8 + (i >> 3)] = qil.v[i];
+      sq[64 + (i & 7) * 8 + (i >> 3)] = qic.v[i];
+    }
+#pragma unroll
+    for (int s = 0; s < kDecStages; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(saddr(&full[s])) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kDecStages; ++s)
+      load_records(records, g, blockIdx.x + s * gridDim.x, stages + s * kTileRec, &full[s]);
+  }
+  unsigned i = 0, half = 0;  // the CTA's tile count; the output buffer
+  for (unsigned t = blockIdx.x; t < g.tiles; t += gridDim.x, ++i) {
+    const unsigned s = i % kDecStages;
+    wait_full(&full[s], (i / kDecStages) & 1);
+    const uint8_t* rec = stages + s * kTileRec;
+#pragma unroll
+    for (int h = 0; h < kDecLines; ++h) {
+      // column v of block b, each channel: c[u][v] = (b - 127) * qi exactly,
+      // then t[j][v] = sum_u D[u][j] c[u][v]
+      const int v = q + T * h;
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) {
+        float qv[8], c[8];
+        row_scales(sq + (ch == 0 ? 0 : 64), v, qv);
+        const uint8_t* slot = rec + (ch * kTileGroups + (b >> 3)) * kGroupStride + v * 8 + (b & 7);
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          c[u] = __fmul_rn(__fsub_rn(__int_as_float(0x4B000000u | slot[u * 64]), kTwo23 + 127.0f),
+                           qv[u]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float acc = __fmul_rn(basis(j), c[0]);
+#pragma unroll
+          for (int u = 1; u < 8; ++u) acc = __fmaf_rn(basis(u * 8 + j), c[u], acc);
+          cross[cross_at(ch, j, v, b)] = acc;
+        }
+      }
+    }
+    // the store of the tile kDecOutBuffers back has read its buffer
+    if (storer) bulk_wait_read<kDecOutBuffers - 1>();
+    __syncthreads();
+    // the records are read: the tile kDecStages ahead comes into their buffer
+    if (threadIdx.x == 0)
+      load_records(records, g, t + kDecStages * gridDim.x, stages + s * kTileRec, &full[s]);
+    uint8_t* pix = pixs + half * kTileIn;
+#pragma unroll
+    for (int h = 0; h < kDecLines; ++h) {
+      // row j of block b: x[j][k] = sum_v t[j][v] D[v][k], bias off, for the
+      // three channels; then the inverse mix, clipped and rounded half to
+      // even, packed 8 pixels a plane row
+      const int j = q + T * h;
+      float y[3][8];
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) {
+        float tv[8];
+#pragma unroll
+        for (int v = 0; v < 8; ++v) tv[v] = cross[cross_at(ch, j, v, b)];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          float acc = __fmul_rn(tv[0], basis(k));
+#pragma unroll
+          for (int v = 1; v < 8; ++v) acc = __fmaf_rn(tv[v], basis(v * 8 + k), acc);
+          y[ch][k] = __fsub_rn(acc, mix.bias[ch]);
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < 3; ++p) {
+        uint32_t px[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          px[k] = rint_bits(fminf(fmaxf(mix3(mix.inv[p * 3], mix.inv[p * 3 + 1], mix.inv[p * 3 + 2],
+                                             y[0][k], y[1][k], y[2][k]),
+                                        0.0f),
+                                  255.0f));
+        uint2 row;
+        row.x = __byte_perm(__byte_perm(px[0], px[1], 0x0040), __byte_perm(px[2], px[3], 0x0040),
+                            0x5410);
+        row.y = __byte_perm(__byte_perm(px[4], px[5], 0x0040), __byte_perm(px[6], px[7], 0x0040),
+                            0x5410);
+        *reinterpret_cast<uint2*>(pix + (p * 8 + j) * kTileRow + b * 8) = row;
+      }
+    }
+    fence_async_shared();
+    __syncthreads();
+    if (storer) store_rows(&tout, g, t, pix);
+    half = (half + 1) % kDecOutBuffers;
+  }
+  if (storer) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
 // The tile geometry of a launch, or false where the plan does not fit it:
@@ -489,23 +560,6 @@ bool tile_launch_ok(const void* img, int batch, int h2, int w, long long plane_s
   return true;
 }
 
-// The (batch, 3, h2, w) u8 planes at `base`, rows w bytes apart, planes
-// plane_stride and frames 3*plane_stride, as a tensor map whose box is one
-// tile: 8*kTileBlocks columns, 8 rows, 3 planes, 1 frame.
-bool planes_map(CUtensorMap* m, const void* base, int batch, int h2, int w,
-                long long plane_stride) {
-  const EncodeTiled fn = encode_tiled();
-  if (!fn) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)w, (cuuint64_t)h2, 3, (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)w, (cuuint64_t)plane_stride,
-                                 (cuuint64_t)(3 * plane_stride)};
-  const cuuint32_t box[4] = {kTileRow, 8, 3, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(base), dims, strides, box,
-            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-            CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int R>
 const void* enc_fn(int variant) {
   return variant == kTensor ? (const void*)enc32_rgb_kernel<R, kTensor>
@@ -529,18 +583,22 @@ extern "C" {
 // The launch of a tile kernel: the shared bytes a CTA of it takes and how
 // many such CTAs an SM holds, and the SMs of the current card.  kind 0 is
 // the encode (`rounding` and `variant` pick its instantiation), 1 the
-// round trip.
+// round trip, 2 the decode.
 int sdct_color_capacity(int kind, int rounding, int variant, int* smem, int* per_sm, int* sms) {
-  const void* fn =
-      kind == 0 ? enc_kernel_of(rounding, variant) : (const void*)roundtrip32_rgb_kernel;
+  const void* fn = kind == 0   ? enc_kernel_of(rounding, variant)
+                   : kind == 1 ? (const void*)roundtrip32_rgb_kernel
+                   : kind == 2 ? (const void*)dec32_rgb_kernel
+                               : nullptr;
   if (!fn) return (int)cudaErrorInvalidValue;
-  *smem = tile_smem(kind == 1);
+  *smem = kind == 2 ? kDecSmem : tile_smem(kind == 1);
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess) e = allow_smem(fn, *smem);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fn, kTileThreads, *smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fn,
+                                                      kind == 2 ? kDecThreads : kTileThreads,
+                                                      *smem);
   return (int)e;
 }
 
@@ -562,7 +620,7 @@ int sdct_enc32_rgb(const void* img, void* out, const float* ql, const float* qc,
   cudaError_t e = allow_smem(fn, smem);
   if (e != cudaSuccess) return (int)e;
   CUtensorMap tin = {};
-  if (variant == kTensor && !planes_map(&tin, img, batch, h2, w, plane_stride))
+  if (variant == kTensor && !planes_map(&tin, img, batch, h2, w, plane_stride, 8))
     return (int)cudaErrorInvalidValue;
   const uint8_t* in = (const uint8_t*)img;
   uint8_t* o = (uint8_t*)out;
@@ -573,16 +631,28 @@ int sdct_enc32_rgb(const void* img, void* out, const float* ql, const float* qc,
                                (cudaStream_t)stream);
 }
 
-// records: (batch, 3, h2*w) u8.  out: (batch, 3, h2, w) u8.  qil, qic: 64
-// host f32 dequant scales each; mix as for sdct_enc32_rgb.
+// records: (batch, 3, h2*w) u8 on a 16-byte address.  out: (batch, 3, h2,
+// w) u8, 16-byte aligned.  qil, qic: 64 host f32 dequant scales each; mix
+// as for sdct_enc32_rgb.  grid and smem: the host's plan.
 int sdct_dec32_rgb(const void* records, void* out, const float* qil, const float* qic,
-                   const float* mix, int batch, int h2, int w, void* stream) {
-  if (!mode32_geometry_ok(batch, h2, w)) return (int)cudaErrorInvalidValue;
-  const dim3 grid(color_grid_x(h2, w), batch);
-  dec32_rgb_kernel<<<grid, kColorThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)records, (uint8_t*)out, to_scales(qil), to_scales(qic), to_mix(mix), h2,
-      w);
-  return (int)cudaGetLastError();
+                   const float* mix, int batch, int h2, int w, int grid, int smem,
+                   void* stream) {
+  TileGeom g;
+  if (!tile_launch_ok(records, batch, h2, w, (long long)h2 * w, grid, kTensor, smem, kDecSmem,
+                      &g))
+    return (int)cudaErrorInvalidValue;
+  const void* fn = (const void*)dec32_rgb_kernel;
+  cudaError_t e = allow_smem(fn, smem);
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap tout = {};
+  if (!planes_map(&tout, out, batch, h2, w, (long long)h2 * w, 8))
+    return (int)cudaErrorInvalidValue;
+  const uint8_t* in = (const uint8_t*)records;
+  Scales sil = to_scales(qil), sic = to_scales(qic);
+  ColorMix m = to_mix(mix);
+  void* args[] = {(void*)&in, &sil, &sic, &m, &g, &tout};
+  return (int)cudaLaunchKernel(fn, dim3(grid), dim3(kDecThreads), args, (size_t)smem,
+                               (cudaStream_t)stream);
 }
 
 // img as for sdct_enc32_rgb, on 16-byte addresses and plane strides;
@@ -599,8 +669,8 @@ int sdct_roundtrip32_rgb(const void* img, void* out, const float* ql, const floa
   cudaError_t e = allow_smem(fn, smem);
   if (e != cudaSuccess) return (int)e;
   CUtensorMap tin = {}, tout = {};
-  if (!planes_map(&tin, img, batch, h2, w, plane_stride) ||
-      !planes_map(&tout, out, batch, h2, w, (long long)h2 * w))
+  if (!planes_map(&tin, img, batch, h2, w, plane_stride, 8) ||
+      !planes_map(&tout, out, batch, h2, w, (long long)h2 * w, 8))
     return (int)cudaErrorInvalidValue;
   const uint8_t* in = (const uint8_t*)img;
   uint8_t* o = (uint8_t*)out;

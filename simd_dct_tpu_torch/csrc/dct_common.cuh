@@ -213,10 +213,6 @@ __device__ __forceinline__ float mix3(float m0, float m1, float m2, float x0, fl
   return __fadd_rn(__fadd_rn(__fmul_rn(x0, m0), __fmul_rn(x1, m1)), __fmul_rn(x2, m2));
 }
 
-__device__ __forceinline__ float byte_of(const uint2& v, int i) {
-  return (float)(((i < 4 ? v.x : v.y) >> (8 * (i & 3))) & 0xffu);
-}
-
 inline ColorMix to_mix(const float* host) {
   ColorMix m;
   memcpy(&m, host, sizeof(m));

@@ -1,9 +1,11 @@
-// Device and host helpers of the strip-tile kernels (color32.cu, stereo.cu):
-// exact byte <-> f32 conversions that keep off the conversion unit, the
-// quantizer on them, the bulk-copy plumbing (shared addresses, the
-// mbarrier wait, the bulk-group waits and the proxy fence), the DCT basis
-// as compile-time values, the scales in shared memory, and the driver's
-// cuTensorMapEncodeTiled, reached through the runtime.
+// Device and host helpers of the strip-tile kernels (color32.cu,
+// color420.cu, stereo.cu): exact byte <-> f32 conversions that keep off the
+// conversion unit, the quantizer on them, the bulk-copy plumbing (shared
+// addresses, the mbarrier wait, bulk loads, the bulk-group waits and the
+// proxy fence), the DCT basis as compile-time values, the scales in shared
+// memory, the colour kernels' crossing buffer, and the driver's
+// cuTensorMapEncodeTiled, reached through the runtime, with the planar-RGB
+// tensor map built on it.
 //
 // Every helper keeps the bytes of dct_common.cuh's forms: u8f is exact,
 // rint_bits rounds half to even as rintf does, quantize_byte<R> equals
@@ -57,6 +59,32 @@ __device__ __forceinline__ void wait_full(uint64_t* bar, unsigned parity) {
 template <int N>
 __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+
+// Arm `bar` for `bytes` more bytes of bulk loads (its one arrival).
+__device__ __forceinline__ void arrive_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(saddr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// One 1-D bulk load of `bytes` (a multiple of 16, 16-byte addresses) into
+// shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+          saddr(dst)),
+      "l"(src), "r"(bytes), "r"(saddr(bar))
+      : "memory");
+}
+
+// One 1-D bulk store of `bytes` out of shared memory, in the thread's bulk
+// group.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, unsigned bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(dst),
+               "r"(saddr(src)), "r"(bytes)
+               : "memory");
 }
 
 // The generic proxy's shared-memory writes, before the bulk stores read them.
@@ -152,6 +180,15 @@ __device__ __forceinline__ void tile_prologue(uint64_t* full) {
   __syncthreads();
 }
 
+// The colour kernels' crossing buffer: value (row index r, column index c)
+// of block b of a channel, in 32-float lines of a column pair, the pair's
+// halves swapped on odd r.  A warp writing (16 blocks x c in {2i, 2i+1},
+// fixed r) or reading (16 blocks x r in {2i, 2i+1}, fixed c) touches 32
+// distinct banks.
+__device__ __forceinline__ int cross_at(int ch, int r, int c, int b) {
+  return ((ch * 8 + r) * 4 + (c >> 1)) * 32 + (((c ^ r) & 1) << 4) + b;
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -174,6 +211,24 @@ inline EncodeTiled encode_tiled() {
     if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
   }
   return fn;
+}
+
+// The (batch, 3, h2, w) u8 planes at `base`, rows w bytes apart, planes
+// plane_stride and frames 3*plane_stride, as a tensor map whose box is 128
+// columns x `rows` rows x 3 planes x 1 frame (a tile of the colour
+// kernels).
+inline bool planes_map(CUtensorMap* m, const void* base, int batch, int h2, int w,
+                       long long plane_stride, unsigned rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)w, (cuuint64_t)h2, 3, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)w, (cuuint64_t)plane_stride,
+                                 (cuuint64_t)(3 * plane_stride)};
+  const cuuint32_t box[4] = {128, rows, 3, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(base), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // Let `fn` take `smem` dynamic shared bytes (above the 48 KB default).

@@ -156,15 +156,17 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sdct_stereo_capacity.restype = i
     lib.sdct_enc32_rgb.argtypes = [p, p, p, p, p, i, i, i, ll, i, i, i, i, p]
     lib.sdct_enc32_rgb.restype = i
-    lib.sdct_dec32_rgb.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.sdct_dec32_rgb.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
     lib.sdct_dec32_rgb.restype = i
     lib.sdct_roundtrip32_rgb.argtypes = [p, p, p, p, p, p, p, i, i, i, ll, i,
                                          i, p]
     lib.sdct_roundtrip32_rgb.restype = i
     lib.sdct_color_capacity.argtypes = [i, i, i, p, p, p]
     lib.sdct_color_capacity.restype = i
-    lib.sdct_enc420_rgb.argtypes = [p, p, p, p, p, i, i, i, ll, i, p]
+    lib.sdct_enc420_rgb.argtypes = [p, p, p, p, p, i, i, i, ll, i, i, i, p]
     lib.sdct_enc420_rgb.restype = i
+    lib.sdct_color420_capacity.argtypes = [i, p, p, p]
+    lib.sdct_color420_capacity.restype = i
     lib.sdct_dec420_rgb.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.sdct_dec420_rgb.restype = i
     lib.sdct_tiles.argtypes = [p, p, p, i, i, i, i, i, i, p]

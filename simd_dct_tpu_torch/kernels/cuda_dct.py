@@ -207,6 +207,11 @@ def _on_device_of(t: torch.Tensor):
     return torch.cuda.device(t.device)
 
 
+def _device_index(t: torch.Tensor) -> int:
+    return t.device.index if t.device.index is not None else \
+        torch.cuda.current_device()
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -533,8 +538,7 @@ def _stereo_plan_of(kind: str, t: torch.Tensor, batch: int, h: int, w: int,
                     view_layout: str, pixels: int, records: int,
                     view_stride: int, rounding: str = "rne",
                     variant: str | None = None) -> StereoPlan:
-    dev = t.device.index if t.device.index is not None else \
-        torch.cuda.current_device()
+    dev = _device_index(t)
     return stereo_plan(kind, batch, h, w, view_layout, pixels=pixels,
                        records=records, view_stride=view_stride,
                        capacity=lambda v: _stereo_capacity(dev, kind,
@@ -567,8 +571,7 @@ def stereo_launch_plan(kind: str, t: torch.Tensor, view_layout: str,
         h, w = size_y, size_x
         frame = L_stereo.record_shape(view_layout, h, w)
         batch, pixels, records = _batch_of(t, len(frame)), 0, t.data_ptr()
-    dev = t.device.index if t.device.index is not None else \
-        torch.cuda.current_device()
+    dev = _device_index(t)
     return stereo_plan(kind, batch, h, w, view_layout, pixels=pixels,
                        records=records, view_stride=(h // 2) * w,
                        capacity=lambda v: _stereo_capacity(dev, kind,
@@ -642,10 +645,16 @@ def decode_quantize32_ycbcr(data: torch.Tensor, luma, chroma, size_x: int,
         return out
     _, qil = _host_scales(luma)
     _, qic = _host_scales(chroma)
-    _launch("dec32_rgb", (data, out), batch,
-            lambda lib, src, dst, n: lib.sdct_dec32_rgb(
-                src, dst, qil.ctypes.data, qic.ctypes.data,
-                _COLOR_MIX.ctypes.data, n, h2, size_x, _stream(data)))
+
+    def launch(lib, src, dst, n):
+        plan = _color_plan_of("dec32_rgb", data, src, n, h2, size_x,
+                              h2 * size_x)
+        return lib.sdct_dec32_rgb(
+            src, dst, qil.ctypes.data, qic.ctypes.data,
+            _COLOR_MIX.ctypes.data, n, h2, size_x, plan.grid, plan.smem,
+            _stream(data))
+
+    _launch("dec32_rgb", (data, out), batch, launch)
     return out
 
 
@@ -681,19 +690,22 @@ def roundtrip_quantize32_ycbcr(planes: torch.Tensor, luma,
 # -- the colour tile kernels' launch plan (csrc/color32.cu) -------------------
 
 COLOR_TILE_BLOCKS = 16    # 8x8 blocks of one strip a tile (kTileBlocks)
+COLOR_DEC_STAGES = 2      # record buffers the decode keeps in flight
+COLOR_DEC_OUT_BUFFERS = 2   # the decode's pixel tile buffers
 SMEM_LIMIT = 232448       # 227 KB: dynamic shared memory a CTA may take
-_COLOR_SCALES = {"enc32_rgb": 2, "roundtrip32_rgb": 4}   # 64-f32 tables
+_COLOR_SCALES = {"enc32_rgb": 2, "roundtrip32_rgb": 4, "dec32_rgb": 2}
 _COLOR_TILE_IN = 24 * 8 * COLOR_TILE_BLOCKS      # 3 planes x 8 rows
 _COLOR_TILE_REC = 3 * (COLOR_TILE_BLOCKS // 8) * 528   # padded records
 _COLOR_CROSS = 3 * 64 * COLOR_TILE_BLOCKS * 4    # the crossing buffer
 # input loads: one tensor copy a tile, or (the encode of a view whose base
 # or plane stride is not a multiple of 16) the threads' 8-byte loads
 _VARIANT_CODE = {"plain": 0, "tensor": 1}
-_KIND_CODE = {"enc32_rgb": 0, "roundtrip32_rgb": 1}
+_KIND_CODE = {"enc32_rgb": 0, "roundtrip32_rgb": 1, "dec32_rgb": 2}
 
 
 class ColorPlan(NamedTuple):
-    """A launch of ``enc32_rgb_kernel`` or ``roundtrip32_rgb_kernel``."""
+    """A launch of ``enc32_rgb_kernel``, ``roundtrip32_rgb_kernel`` or
+    ``dec32_rgb_kernel``."""
     variant: str          # "tensor" or "plain"
     tile_blocks: int      # 8x8 blocks a tile
     tiles_per_strip: int
@@ -711,9 +723,14 @@ def color_variant(base: int, plane_stride: int) -> str:
 
 
 def color_smem(kind: str) -> int:
-    """Dynamic shared bytes of a CTA (``tile_smem`` in color32.cu): the
-    scales, the input tile, two output tiles (records, or pixels for the
-    round trip) and the crossing buffer."""
+    """Dynamic shared bytes of a CTA (``tile_smem`` and ``kDecSmem`` in
+    color32.cu): the scales, the input tile (the decode: its
+    ``COLOR_DEC_STAGES`` record buffers), two output tiles (records, or
+    pixels for the round trip; the decode's ``COLOR_DEC_OUT_BUFFERS``)
+    and the crossing buffer."""
+    if kind == "dec32_rgb":
+        return (_COLOR_SCALES[kind] * 256 + COLOR_DEC_STAGES * _COLOR_TILE_REC
+                + COLOR_DEC_OUT_BUFFERS * _COLOR_TILE_IN + _COLOR_CROSS)
     out = _COLOR_TILE_IN if kind == "roundtrip32_rgb" else _COLOR_TILE_REC
     return (_COLOR_SCALES[kind] * 256 + _COLOR_TILE_IN + 2 * out
             + _COLOR_CROSS)
@@ -723,17 +740,18 @@ def color_plan(kind: str, batch: int, h2: int, w: int, *, base: int,
                plane_stride: int,
                capacity: Callable[[str], tuple[int, int]]) -> ColorPlan:
     """The launch for ``batch`` frames of a (3, h2, W) view whose input
-    starts at address ``base`` with planes ``plane_stride`` bytes apart.
-    Tiles of ``COLOR_TILE_BLOCKS`` blocks never cross a strip (the last of
-    a strip holds the rest); the variant follows the alignment (the round
-    trip, whose wrapper takes whole aligned tensors, has only tensor
-    copies); ``capacity(variant)`` gives (CTAs of that launch an SM holds,
-    SMs); the grid is as many CTAs as the card holds at once, at most one
-    a tile."""
+    starts at address ``base`` with planes ``plane_stride`` bytes apart
+    (the decode: its records, planes h2*W apart).  Tiles of
+    ``COLOR_TILE_BLOCKS`` blocks never cross a strip (the last of a strip
+    holds the rest); the variant follows the alignment (the round trip and
+    the decode, whose wrappers take whole aligned tensors, have only tensor
+    or bulk copies); ``capacity(variant)`` gives (CTAs of that launch an SM
+    holds, SMs); the grid is as many CTAs as the card holds at once, at
+    most one a tile."""
     if kind not in _KIND_CODE:
         raise ValueError(f"no tile plan for {kind!r}")
     variant = color_variant(base, plane_stride)
-    if variant == "plain" and kind == "roundtrip32_rgb":
+    if variant == "plain" and kind != "enc32_rgb":
         raise ValueError(f"{kind} needs 16-byte addresses and plane strides, "
                          f"got base {base} and plane stride {plane_stride}")
     smem = color_smem(kind)
@@ -770,21 +788,124 @@ def _color_capacity(device: int, kind: str, rounding: str,
 def _color_plan_of(kind: str, t: torch.Tensor, base: int, batch: int,
                    h2: int, w: int, plane_stride: int,
                    rounding: str = "rne") -> ColorPlan:
-    dev = t.device.index if t.device.index is not None else \
-        torch.cuda.current_device()
+    dev = _device_index(t)
     return color_plan(kind, batch, h2, w, base=base, plane_stride=plane_stride,
                       capacity=lambda v: _color_capacity(dev, kind, rounding,
                                                          v))
 
 
-def color_launch_plan(kind: str, planes: torch.Tensor,
-                      rounding: str = "rne") -> ColorPlan:
+def color_launch_plan(kind: str, t: torch.Tensor, rounding: str = "rne", *,
+                      size_x: int | None = None) -> ColorPlan:
     """The plan ``encode_quantize32_ycbcr`` (kind "enc32_rgb") or
     ``roundtrip_quantize32_ycbcr`` ("roundtrip32_rgb") launches for a
-    (3, H, W) or (B, 3, H, W) CUDA tensor of at most 65,535 frames."""
+    (3, H, W) or (B, 3, H, W) CUDA tensor, or ``decode_quantize32_ycbcr``
+    ("dec32_rgb") for (3, H2*W) or (B, 3, H2*W) records of width
+    ``size_x``; at most 65,535 frames."""
+    if kind == "dec32_rgb":
+        if size_x is None:
+            raise ValueError("the dec32_rgb plan needs size_x")
+        h2, w = t.shape[-1] // size_x, size_x
+        return _color_plan_of(kind, t, t.data_ptr(), _batch_of(t, 2), h2, w,
+                              h2 * w, rounding)
+    h, w = t.shape[-2:]
+    return _color_plan_of(kind, t, t.data_ptr(), _batch_of(t, 3), h // 2, w,
+                          h * w, rounding)
+
+
+# -- the 4:2:0 encode's launch plan (csrc/color420.cu) ------------------------
+
+COLOR420_TILE_MACROBLOCKS = 8   # 16x16 macroblocks of one row a tile
+COLOR420_STAGES = 1             # input tiles the encode keeps in flight
+COLOR420_REC_BUFFERS = 1        # its record staging buffers
+_COLOR420_TILE_IN = 3 * 16 * 128                 # 3 planes x 16 rows
+_COLOR420_TILE_REC = 6 * 528                     # 4 Y groups, Cb, Cr: padded
+_COLOR420_CROSS = 4 * (2 * 64 * 16 + 2 * 64 * 16)   # Y, pooled, chroma (f32)
+
+
+class Color420Plan(NamedTuple):
+    """A launch of ``enc420_rgb_kernel``."""
+    tile_macroblocks: int   # 16x16 macroblocks of one macroblock row a tile
+    tiles_per_row: int      # of a macroblock row: W / 128
+    tail_macroblocks: int   # macroblocks of each row's last tile
+    tiles: int              # of the launch, over (frame, row, tile)
+    smem: int               # dynamic shared bytes of a CTA
+    ctas_per_sm: int
+    grid: int               # persistent CTAs, each taking every grid-th tile
+
+
+def color420_smem() -> int:
+    """Dynamic shared bytes of a CTA (``k420Smem`` in color420.cu): luma
+    and chroma scales, ``COLOR420_STAGES`` input tiles,
+    ``COLOR420_REC_BUFFERS`` record buffers and the Y crossing, pooled
+    chroma and chroma crossing buffers."""
+    return (2 * 256 + COLOR420_STAGES * _COLOR420_TILE_IN
+            + COLOR420_REC_BUFFERS * _COLOR420_TILE_REC + _COLOR420_CROSS)
+
+
+def color420_plan(kind: str, batch: int, h2: int, w: int, *, base: int,
+                  plane_stride: int,
+                  capacity: Callable[[], tuple[int, int]]) -> Color420Plan:
+    """The launch of the 4:2:0 encode (kind "enc420_rgb") for ``batch``
+    frames of a (3, h2, W) view at address ``base``, planes
+    ``plane_stride`` bytes apart (both multiples of 16: one tensor copy a
+    tile).  A tile is ``COLOR420_TILE_MACROBLOCKS`` macroblocks of one
+    macroblock row, 16 rows x 128 columns; W % 128 == 0 makes every row a
+    whole number of tiles.  ``capacity()`` gives (CTAs an SM holds, SMs);
+    the grid is as many CTAs as the card holds at once, at most one a
+    tile."""
+    if kind != "enc420_rgb":
+        raise ValueError(f"no 4:2:0 tile plan for {kind!r}")
+    if (base | plane_stride) % 16:
+        raise ValueError(f"{kind} needs 16-byte addresses and plane strides, "
+                         f"got base {base} and plane stride {plane_stride}")
+    if h2 % 16 or w % 128:
+        raise ValueError(f"{kind} needs H2 % 16 == 0 and W % 128 == 0, got "
+                         f"H2={h2}, W={w}")
+    smem = color420_smem()
+    mbw = w // 16
+    tpr = mbw // COLOR420_TILE_MACROBLOCKS
+    tiles = batch * (h2 // 16) * tpr
+    if tiles >= 1 << 31:
+        raise ValueError(f"{kind}: {tiles} tiles in one launch exceed "
+                         "2^31 - 1")
+    per_sm, sms = capacity()
+    if per_sm < 1:
+        raise ValueError(f"{kind}: no CTA of {smem} shared bytes fits an SM")
+    return Color420Plan(COLOR420_TILE_MACROBLOCKS, tpr,
+                        mbw - (tpr - 1) * COLOR420_TILE_MACROBLOCKS, tiles,
+                        smem, per_sm, min(tiles, sms * per_sm))
+
+
+@functools.lru_cache(maxsize=16)
+def _color420_capacity(device: int, rounding: str) -> tuple[int, int]:
+    lib = _build.load()
+    out = np.zeros(3, np.int32)
+    with torch.cuda.device(device):
+        _build.check(lib, lib.sdct_color420_capacity(
+            _ROUNDING_CODE[rounding], out.ctypes.data, out.ctypes.data + 4,
+            out.ctypes.data + 8), "enc420_rgb capacity")
+    if int(out[0]) != color420_smem():
+        raise RuntimeError(f"enc420_rgb: the kernel lays out {int(out[0])} "
+                           f"shared bytes, the plan {color420_smem()}")
+    return int(out[1]), int(out[2])
+
+
+def _color420_plan_of(t: torch.Tensor, base: int, batch: int, h2: int,
+                      w: int, plane_stride: int,
+                      rounding: str = "rne") -> Color420Plan:
+    dev = _device_index(t)
+    return color420_plan("enc420_rgb", batch, h2, w, base=base,
+                         plane_stride=plane_stride,
+                         capacity=lambda: _color420_capacity(dev, rounding))
+
+
+def color420_launch_plan(planes: torch.Tensor,
+                         rounding: str = "rne") -> Color420Plan:
+    """The plan ``encode_quantize32_ycbcr420`` launches for a (3, H, W) or
+    (B, 3, H, W) CUDA tensor of at most 65,535 frames."""
     h, w = planes.shape[-2:]
-    return _color_plan_of(kind, planes, planes.data_ptr(),
-                          _batch_of(planes, 3), h // 2, w, h * w, rounding)
+    return _color420_plan_of(planes, planes.data_ptr(), _batch_of(planes, 3),
+                             h // 2, w, h * w, rounding)
 
 
 def encode_quantize32_ycbcr420(planes: torch.Tensor, luma, chroma,
@@ -800,20 +921,31 @@ def encode_quantize32_ycbcr420(planes: torch.Tensor, luma, chroma,
         raise ValueError(f"rounding must be one of {ROUNDING_MODES}")
     if planes.device.type == "cpu":
         return _tp.encode_ycbcr420(planes, luma, chroma, rounding)
-    batch = _batch_of(planes, 3)
     h2 = h // 2
     out = torch.empty(planes.shape[:-3] + (record_bytes_420(h2, w),),
                       dtype=torch.uint8, device=planes.device)
+    _enc420_rgb(planes, out, _batch_of(planes, 3), h2, w, h * w, luma,
+                chroma, rounding)
+    return out
+
+
+def _enc420_rgb(src: torch.Tensor, out: torch.Tensor, batch: int, h2: int,
+                w: int, plane_stride: int, luma, chroma,
+                rounding: str) -> None:
     if out.numel() == 0:
-        return out
+        return
     ql, _ = _host_scales(luma)
     qc, _ = _host_scales(chroma)
-    _launch("enc420_rgb", (planes, out), batch,
-            lambda lib, src, dst, n: lib.sdct_enc420_rgb(
-                src, dst, ql.ctypes.data, qc.ctypes.data,
-                _COLOR_MIX.ctypes.data, n, h2, w, h * w,
-                _ROUNDING_CODE[rounding], _stream(planes)))
-    return out
+
+    def launch(lib, src_p, dst_p, n):
+        plan = _color420_plan_of(src, src_p, n, h2, w, plane_stride, rounding)
+        return lib.sdct_enc420_rgb(
+            src_p, dst_p, ql.ctypes.data, qc.ctypes.data,
+            _COLOR_MIX.ctypes.data, n, h2, w, plane_stride,
+            _ROUNDING_CODE[rounding], plan.grid, plan.smem, _stream(src))
+
+    _launch("enc420_rgb", (src, out), batch, launch,
+            frame_bytes=[3 * plane_stride, record_bytes_420(h2, w)])
 
 
 def decode_quantize32_ycbcr420(data: torch.Tensor, luma, chroma, size_x: int,
@@ -960,15 +1092,8 @@ def encode420_rgb_view(view: torch.Tensor, luma, chroma,
         return _tp.encode_ycbcr420_view(view, luma, chroma, rounding)
     out = torch.empty((record_bytes_420(h2, w),), dtype=torch.uint8,
                       device=view.device)
-    if out.numel() == 0:
-        return out
-    ql, _ = _host_scales(luma)
-    qc, _ = _host_scales(chroma)
-    _launch("enc420_rgb", (view, out), 1,
-            lambda lib, src, dst, n: lib.sdct_enc420_rgb(
-                src, dst, ql.ctypes.data, qc.ctypes.data,
-                _COLOR_MIX.ctypes.data, n, h2, w, _lead_stride(view),
-                _ROUNDING_CODE[rounding], _stream(view)))
+    _enc420_rgb(view, out, 1, h2, w, _lead_stride(view), luma, chroma,
+                rounding)
     return out
 
 

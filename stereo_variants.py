@@ -26,7 +26,8 @@ rotation queued behind a device sleep and by the profiler, as
   stores;
 * with ``--parent``, a checkout of an earlier version of the repository:
   its ``simd_dct_tpu_torch/csrc/stereo.cu`` built alone the same way and
-  called through the C entry points of that version.  The package's
+  called through the C entry points of that version (with or without the
+  launch plan's arguments, by its source).  The package's
   kernels, in both variants, must give its bytes at every geometry, view
   layout, rounding and strip range of ``chip_smoke.py``'s phase 8 (the
   encode of each, and the decode of the plain version's records).
@@ -286,9 +287,13 @@ def main(argv=None) -> int:
                               "stereo_variants"), False, kinds, timing)
              for name, (edits, kinds, timing) in builds.items()}
     if args.parent:
-        procs["parent"] = (build_lib("parent", os.path.join(
-            args.parent, "simd_dct_tpu_torch", "csrc"), (), "stereo.cu",
-            "stereo_variants"), True, (ENC, DEC), False)
+        src = os.path.join(args.parent, "simd_dct_tpu_torch", "csrc")
+        with open(os.path.join(src, "stereo.cu")) as f:
+            # an earlier interface takes no launch-plan arguments
+            old_abi = "sdct_stereo_capacity" not in f.read()
+        procs["parent"] = (build_lib("parent", src, (), "stereo.cu",
+                                     "stereo_variants"), old_abi, (ENC, DEC),
+                           False)
     _build.load()
     others = {name: (lib_calls(load_lib(proc, name, old), lut, old), kinds,
                      timing)

@@ -564,3 +564,64 @@ def test_color_plan_never_exceeds_the_tiles():
                           plane_stride=1088 * 1920,
                           capacity=lambda v: (2, 1))
     assert (one_sm.ctas_per_sm, one_sm.grid) == (2, 2)
+
+
+# -- the strip-tile decode's launch plan (dec32_rgb_kernel), pure Python -----
+
+def _dec_plan(batch, h2, w, capacity=_h100, base=0):
+    return K.color_plan("dec32_rgb", batch, h2, w, base=base,
+                        plane_stride=h2 * w, capacity=capacity)
+
+
+@pytest.mark.parametrize("batch", [1, 64, 65535])
+@pytest.mark.parametrize("h2,w", PLAN_VIEWS)
+def test_dec32_rgb_plan_covers_each_block_once_in_strip_tiles(h2, w, batch):
+    bw, strips = w // 8, h2 // 8
+    plan = _dec_plan(batch, h2, w)
+    assert plan.variant == "tensor" and plan.tile_blocks == TB
+    assert plan.tiles == batch * strips * plan.tiles_per_strip
+    assert 1 <= plan.grid == min(plan.tiles, 132 * plan.ctas_per_sm)
+    assert plan.grid <= plan.tiles
+    assert plan.smem == K.color_smem("dec32_rgb") <= K.SMEM_LIMIT
+    per_frame = strips * plan.tiles_per_strip
+    for f in _frames_to_check(batch):
+        t = np.arange(f * per_frame, (f + 1) * per_frame)
+        frame, strip, bx0, nb = _tile_at(plan, h2, t)
+        assert (frame == f).all()
+        # a tile's records are whole 512-byte groups of one strip
+        assert ((nb > 0) & (nb <= TB) & (nb % 8 == 0)).all()
+        assert (bx0 + nb <= bw).all()
+        first = strip * bw + bx0
+        blocks = (first[:, None] + np.arange(TB)[None])[
+            np.arange(TB)[None] < nb[:, None]]
+        np.testing.assert_array_equal(
+            np.bincount(blocks, minlength=strips * bw), np.ones(strips * bw))
+        # a channel's record spans, read 512 bytes at a time, never overlap
+        # and stay inside the channel's h2*w bytes
+        order = np.argsort(first)
+        start, end = first[order] * 64, (first + nb)[order] * 64
+        assert (end[:-1] <= start[1:]).all() and end[-1] <= h2 * w
+        assert ((end - start) % 512 == 0).all()
+
+
+def test_dec32_rgb_plan_tails():
+    for w, tps, tail in [(3840, 30, 16), (1920, 15, 16), (192, 2, 8),
+                         (64, 1, 8), (1984, 16, 8)]:
+        plan = _dec_plan(1, 8, w)
+        assert (plan.tiles_per_strip, plan.tail_blocks) == (tps, tail)
+
+
+def test_dec32_rgb_plan_shared_bytes_and_refusals():
+    # scales, the pixel tiles, the record buffers, the crossing buffer
+    assert K.color_smem("dec32_rgb") == (
+        2 * 256 + K.COLOR_DEC_OUT_BUFFERS * 24 * 8 * TB
+        + K.COLOR_DEC_STAGES * 3 * (TB // 8) * 528
+        + 3 * 64 * TB * 4) <= K.SMEM_LIMIT
+    with pytest.raises(ValueError):     # no CTA fits an SM
+        _dec_plan(1, 8, 64, capacity=lambda v: (0, 132))
+    with pytest.raises(ValueError):     # 2^31 tiles or more
+        _dec_plan(65535, 65536, 1 << 14)
+    with pytest.raises(ValueError):     # records 8 bytes off 16
+        _dec_plan(1, 8, 64, base=8)
+    small = _dec_plan(1, 8, 64)
+    assert small.tiles == small.grid == 1

@@ -441,3 +441,93 @@ def test_wrappers_reject_bad_tensors(fn):
             call(torch.from_numpy(_planes(48, 128)))
         with pytest.raises(ValueError):
             call(torch.from_numpy(_planes(32, 192)))
+
+
+# -- the strip-tile encode's launch plan (enc420_rgb_kernel), pure Python ----
+
+# the top views of chip_smoke.py's GEOMETRIES_420, and one macroblock row
+PLAN_VIEWS_420 = [(2048, 3840), (544, 1920), (32, 384), (16, 128)]
+TM = K.COLOR420_TILE_MACROBLOCKS
+
+
+def _h100():
+    """A card of 132 SMs holding 4 CTAs an SM."""
+    return 4, 132
+
+
+def _plan420(batch, h2, w, capacity=_h100, base=0, plane_stride=None):
+    return K.color420_plan("enc420_rgb", batch, h2, w, base=base,
+                           plane_stride=2 * h2 * w if plane_stride is None
+                           else plane_stride, capacity=capacity)
+
+
+@pytest.mark.parametrize("batch", [1, 64, 65535])
+@pytest.mark.parametrize("h2,w", PLAN_VIEWS_420)
+def test_color420_plan_covers_each_macroblock_once(h2, w, batch):
+    mbw, rows, bw = w // 16, h2 // 16, w // 8
+    plan = _plan420(batch, h2, w)
+    assert plan.tile_macroblocks == TM == 8
+    assert plan.tiles_per_row * TM == mbw and plan.tail_macroblocks == TM
+    assert plan.tiles == batch * rows * plan.tiles_per_row
+    assert 1 <= plan.grid == min(plan.tiles, 132 * plan.ctas_per_sm)
+    assert plan.grid <= plan.tiles
+    assert plan.smem == K.color420_smem() <= K.SMEM_LIMIT
+    per_frame = rows * plan.tiles_per_row
+    y_plane = h2 * w
+    for f in sorted({0, 1, batch - 2, batch - 1} & set(range(batch))):
+        # tile t as tile420_at in color420.cu numbers it
+        t = np.arange(f * per_frame, (f + 1) * per_frame)
+        fr, x = np.divmod(t, plan.tiles_per_row)
+        frame, my = np.divmod(fr, rows)
+        assert (frame == f).all()
+        mbs = (my * mbw + TM * x)[:, None] + np.arange(TM)[None]
+        np.testing.assert_array_equal(
+            np.bincount(mbs.ravel(), minlength=rows * mbw),
+            np.ones(rows * mbw))
+        # the six 512-byte groups a tile stores: two of each Y block row,
+        # one of Cb, one of Cr; none overlaps another, each lies in its
+        # segment of the 1.5*h2*w-byte stream
+        y = [((2 * my + r) * bw + 16 * x + 8 * g) * 64
+             for r in (0, 1) for g in (0, 1)]
+        c = [y_plane + k * (y_plane // 4) + (my * mbw + TM * x) * 64
+             for k in (0, 1)]
+        starts = np.sort(np.concatenate(y + c))
+        assert (starts[1:] - starts[:-1] >= 512).all()
+        assert all((s % 512 == 0).all() for s in y + c)
+        assert all((s + 512 <= y_plane).all() for s in y)
+        assert ((c[0] >= y_plane) & (c[0] + 512 <= 5 * y_plane // 4)).all()
+        assert ((c[1] + 512 <= 3 * y_plane // 2)).all()
+        assert len(starts) * 512 == 3 * y_plane // 2
+
+
+@pytest.mark.parametrize("w", [128, 384, 1920, 3840])
+def test_color420_plan_has_no_tails(w):
+    plan = _plan420(1, 16, w)
+    assert plan.tail_macroblocks == TM
+    assert plan.tiles_per_row == w // 128
+
+
+def test_color420_plan_shared_bytes_and_refusals():
+    # scales, the input tiles, the record buffers (4 Y groups, Cb, Cr,
+    # padded), the Y crossing, the pooled chroma, the chroma crossing
+    assert K.color420_smem() == (
+        2 * 256 + K.COLOR420_STAGES * 3 * 16 * 128
+        + K.COLOR420_REC_BUFFERS * 6 * 528
+        + 4 * (2 * 64 * 16 + 64 * 16 + 64 * 16)) <= K.SMEM_LIMIT
+    with pytest.raises(ValueError):     # no CTA fits an SM
+        _plan420(1, 16, 128, capacity=lambda: (0, 132))
+    with pytest.raises(ValueError):     # 2^31 tiles or more
+        _plan420(65535, 1 << 16, 1 << 14)
+    for base, stride in [(8, 4096), (0, 4104)]:   # off 16 bytes
+        with pytest.raises(ValueError):
+            _plan420(1, 16, 128, base=base, plane_stride=stride)
+    with pytest.raises(ValueError):
+        _plan420(1, 24, 128)
+    with pytest.raises(ValueError):
+        K.color420_plan("dec420_rgb", 1, 16, 128, base=0, plane_stride=4096,
+                        capacity=_h100)
+    # a shard's rows: planes a whole image apart
+    shard = _plan420(1, 64, 1920, plane_stride=4096 * 1920)
+    assert shard.tiles == 4 * 15
+    small = _plan420(1, 16, 128)
+    assert small.tiles == small.grid == 1

@@ -347,6 +347,24 @@ def test_dec32_rgb_and_roundtrip_rgb(gen, shape):
     _ok(fused, TP.roundtrip_ycbcr32(planes, LUMA, CHROMA))
 
 
+# the strip-tile decode: each strip of 1984 columns ends in a tile of 8
+# blocks; an 8-frame batch walks its frames' tiles in one persistent grid
+@pytest.mark.parametrize("shape", [(3, 16, 1984), (8, 3, 1088, 1920)])
+def test_dec32_rgb_strip_tiles(gen, shape):
+    planes = _img(gen, *shape)
+    h, w = shape[-2:]
+    rec = TP.encode_ycbcr32(planes, LUMA, CHROMA)
+    plan = K.color_launch_plan("dec32_rgb", rec, size_x=w)
+    assert plan.variant == "tensor" and plan.grid <= plan.tiles
+    assert plan.tail_blocks == (8 if w == 1984 else 16)
+    _ok(K.decode_quantize32_ycbcr(rec, LUMA, CHROMA, w, h),
+        TP.decode_ycbcr32(rec, LUMA, CHROMA, w, h))
+    fused = K.roundtrip_quantize32_ycbcr(planes, LUMA, CHROMA)
+    composed = K.decode_quantize32_ycbcr(
+        K.encode_quantize32_ycbcr(planes, LUMA, CHROMA), LUMA, CHROMA, w, h)
+    assert torch.equal(fused, composed)
+
+
 def test_color_api_launches_kernels(gen):
     planes = _img(gen, 2, 3, 256, 128).cpu().numpy()
     K.reset_launch_counts()
@@ -388,6 +406,34 @@ def test_420_y_segment_is_enc32_rgb_luma(gen, shape):
     stream = K.encode_quantize32_ycbcr420(planes, LUMA, CHROMA)
     luma = K.encode_quantize32_ycbcr(planes, LUMA, CHROMA)[..., 0, :]
     assert torch.equal(stream[..., : (h // 2) * w], luma)
+
+
+@pytest.mark.parametrize("rounding", ["rne", "scalar", "clamp_first"])
+def test_420_y_segment_is_enc32_rgb_luma_on_a_batch(gen, rounding):
+    planes = _img(gen, 8, 3, 1088, 1920)
+    stream = K.encode_quantize32_ycbcr420(planes, LUMA, CHROMA, rounding)
+    luma = K.encode_quantize32_ycbcr(planes, LUMA, CHROMA, rounding)
+    assert torch.equal(stream[:, : 544 * 1920], luma[:, 0])
+
+
+@pytest.mark.parametrize("rows", [(0, 64), (64, 160), (960, 1024)])
+def test_enc420_rgb_shard_rows_equal_the_whole(gen, rows):
+    """A shard's rows of the top view, planes a whole image apart, through
+    encode420_rgb_view: the strips of the whole image's stream."""
+    from simd_dct_tpu_torch.layout.color420 import unpack_records
+    h, w = 2048, 1920
+    planes = _img(gen, 3, h, w)
+    r0, r1 = rows
+    view = planes[:, r0:r1]
+    plan = K._color420_plan_of(view, view.data_ptr(), 1, r1 - r0, w,
+                               view.stride(0))
+    assert plan.tiles == (r1 - r0) // 16 * (w // 128)
+    y, c = unpack_records(K.encode420_rgb_view(view, LUMA, CHROMA), w,
+                          r1 - r0)
+    y_all, c_all = unpack_records(
+        K.encode_quantize32_ycbcr420(planes, LUMA, CHROMA), w, h // 2)
+    assert torch.equal(y, y_all[r0 // 8:r1 // 8])
+    assert torch.equal(c, c_all[:, r0 // 16:r1 // 16])
 
 
 def test_color420_api_launches_kernels(gen):
