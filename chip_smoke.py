@@ -69,9 +69,10 @@ result line):
       of back-to-back calls for each (the 4:2:0 rows beside the colour
       rows' copy of the three channels' top view); the launch plan of
       every strip-tile kernel (enc32_rgb, dec32_rgb, roundtrip32_rgb,
-      enc420_rgb and the stereo kernels in each layout:
-      ``cuda_dct.color_plan``, ``cuda_dct.color420_plan``,
-      ``cuda_dct.stereo_plan``) beside its 4K time before its strip-tile
+      enc420_rgb, dec420_rgb, detile and the stereo kernels in each
+      layout: ``cuda_dct.color_plan``, ``cuda_dct.color420_plan``,
+      ``cuda_dct.detile_plan``, ``cuda_dct.stereo_plan``) beside its 4K
+      time before its strip-tile
       design (``EARLIER_US``), its exact-arithmetic floor
       (``EXACT_OPS_PER_PX``) and the ptxas registers of the instantiation
       that ran;
@@ -96,8 +97,8 @@ result line):
   13. the YCbCr 4:2:0 kernels against their plain versions (+-1 on at most
       0.2% of bytes) at 4096x3840 (every rounding mode), 1088x1920, 64x384
       (W % 256 != 0: a CUDA block's 32 macroblocks cross a macroblock row)
-      and an 8-frame 1088x1920 batch, with the encode's launch plan of
-      each; the Y segment of each 4:2:0 stream
+      and an 8-frame 1088x1920 batch, with the launch plan of each
+      kernel; the Y segment of each 4:2:0 stream
       equals channel 0 of enc32_rgb's records byte for byte; round-trip
       PSNR on the config-3 gate's input within 0.1 dB of the plain
       version's;
@@ -108,7 +109,8 @@ result line):
   15. the tile kernels against their plain versions (+-1 on at most 0.2%
       of bytes) on 2048x3840 (the 4K top view), 1024x1920, 128x128 and an
       8-frame 1024x1920 batch of views, raw + fy (mode32), normalized + fx
-      (enc-quant) and normalized + fy (stereo), every rounding mode; and the
+      (enc-quant) and normalized + fy (stereo), every rounding mode, with
+      the detile's launch plan of each geometry; and the
       identities with the kernels ported earlier, each with its mismatch
       count: tiles_to_group8 == enc32, tiles_to_block_contiguous == encq
       scalar, tiles_to_pair == encq pair, tiles_to_planar of both views ==
@@ -246,10 +248,12 @@ PLAIN_WALL_REPS = 5
 # the redesigned kernels' 4K times before their redesign (queued events,
 # PERF.md rows 12 to 14: the thread-per-(block, channel) design; rows 9
 # and 10: the thread-per-block stereo design, interleaved; row 15: the
-# thread-per-block 4:2:0 encode)
+# thread-per-block 4:2:0 encode; row 16: the 4:2:0 decode of 32
+# macroblocks a CUDA block; row 6: the tile inverse of a block a thread)
 EARLIER_US = {"enc32_rgb": 52.84, "roundtrip32_rgb": 86.72,
               "dec32_rgb": 45.85, "enc420_rgb": 37.25,
-              "enc_stereo": 26.76, "dec_stereo": 28.00}
+              "dec420_rgb": 35.10, "enc_stereo": 26.76,
+              "dec_stereo": 28.00, "detile": 14.65}
 # The exact-arithmetic floor of the colour tile kernels: the instructions a
 # pixel position that their bytes require, issued at one instruction a lane
 # a clock (132 SMs x 128 lanes at the 1980 MHz the card holds under them,
@@ -282,13 +286,29 @@ EARLIER_US = {"enc32_rgb": 52.84, "roundtrip32_rgb": 86.72,
 # chroma plane at a quarter of the pixels: the pooled store and load (2),
 # the transform (16), the crossing (2), the quantizer (5) and the staging
 # (1), 26 a chroma pixel: 64.5.
+# The 4:2:0 decode, per pixel position: Y's record byte read (1), exact
+# (b - 127) (2), dequant multiply (1), idct2d (16 FMAs), crossing (2) and
+# bias (1); the inverse mix of the three channels (3 multiplies and 2
+# adds each: 15), 2 clamps and the round each (9), packing (3 x 0.75) and
+# the pixel staging (3/8); the chroma values' loads, one 16-byte load of
+# each plane over 8 pixels (2/8); each chroma plane at a quarter of the
+# pixels: record read (1), exact (2), dequant (1), idct2d (16), crossing
+# (2), bias (1) and the 16-byte store into the chroma values (1/4),
+# 23.25 a chroma pixel: 61.5.
+# The tile inverse (timed raw: no times 255), per pixel: record read (1),
+# exact (b - 127) (2), dequant multiply (1), idct2d (16 FMAs), crossing
+# (2), 2 clamps and the round (3), packing (0.75) and staging (1/8):
+# dec_stereo's count less its times 255, 25.875.
 EXACT_OPS_PER_PX = {
     "enc32_rgb": 3 * (2 + 6 + 16 + 5) + 3 + 6 + 3,
     "dec32_rgb": 3 * (1 + 2 + 1 + 16 + 1 + 8 + 0.75) + 6 + 3 / 8,
     "roundtrip32_rgb": 3 * (2 + 6 + 32 + 6 + 1 + 8 + 0.75) + 3 + 18 + 3 / 8,
     "enc420_rgb": 1.5 + 6 + 18 + 2 + (16 + 5 + 2 + 1) + 2 * 26 / 4,
+    "dec420_rgb": (1 + 2 + 1 + 16 + 2 + 1) + 15 + 9 + 3 * 0.75 + 3 / 8
+                  + 2 / 8 + 2 * (1 + 2 + 1 + 16 + 2 + 1 + 1 / 4) / 4,
     "enc_stereo": 2 + 1 + 16 + 5 + 1 + 2 + 1,
     "dec_stereo": 1 + 2 + 1 + 16 + 1 + 2 + 1 + 0.75 + 1 / 8 + 2,
+    "detile": 1 + 2 + 1 + 16 + 2 + 1 + 0.75 + 1 / 8 + 2,
 }
 ISSUE_PER_S = 132 * 128 * 1.98e9
 # ptxas -v of each kernel instantiation, from the build (phase 2)
@@ -914,6 +934,8 @@ def phase_compare_color420(gen, luma, chroma, errs):
             log(f"  {tag} {rounding}: Y segment == enc32_rgb channel 0 byte "
                 "for byte")
         rec = torch_path.encode_ycbcr420(rgb, luma, chroma)
+        log(f"  dec420_rgb {tag} plan: "
+            f"{cuda_dct.color420_launch_plan(rec, size_x=w)._asdict()}")
         agree(f"dec420_rgb {tag} (same records)",
               cuda_dct.decode_quantize32_ycbcr420(rec, luma, chroma, w, h),
               torch_path.decode_ycbcr420(rec, luma, chroma, w, h), errs,
@@ -1001,6 +1023,9 @@ def phase_compare_tiles(gen, luts, errs):
         img = random_images(gen, 2 * h2, w, frames)    # dual view
         top = img[..., :h2, :].contiguous()
         tag = f"{frames}x{h2}x{w}"
+        shape = top.shape[:-2] + (h2 // 128, 128, w // 128, 128)
+        log(f"  detile {tag} plan: "
+            f"{cuda_dct.detile_launch_plan(top.view(shape))._asdict()}")
         for name, normalize, orientation, key in TILE_CONFIGS:
             q, qi = tile_scales(luts[key])
             view = img.view(*img.shape[:-2], 2, h2, w) \
@@ -1806,6 +1831,12 @@ def strip_tile_plan(kernel: str, name: str, x, h: int, w: int):
                       else f"{kernel}_kernel<{code}>")
     if kernel == "enc420_rgb":
         return cuda_dct.color420_launch_plan(x), "enc420_rgb_kernel<0>"
+    if kernel == "dec420_rgb":
+        return (cuda_dct.color420_launch_plan(x, size_x=w),
+                "dec420_rgb_kernel")
+    if kernel == "detile":
+        # the timed job: raw, fy
+        return cuda_dct.detile_launch_plan(x), "detile_kernel<0,0>"
     if kernel == "dec32_rgb":
         return (cuda_dct.color_launch_plan(kernel, x, size_x=w),
                 "dec32_rgb_kernel")

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time variants of the colour tile kernels (``enc32_rgb_kernel``,
 ``roundtrip32_rgb_kernel`` and ``dec32_rgb_kernel`` in ``csrc/color32.cu``,
-``enc420_rgb_kernel`` in ``csrc/color420.cu``) against each other on one
-CUDA card, in turns, in one process.
+``enc420_rgb_kernel`` and ``dec420_rgb_kernel`` in ``csrc/color420.cu``)
+against each other on one CUDA card, in turns, in one process.
 
     python3 color_variants.py [--rounds N] [--parent DIR] [--kernels K,...]
 
@@ -22,12 +22,13 @@ and its bytes are checked against the package's kernels:
   its byte conversions on the conversion unit (``(float)b``, and ``rintf``
   and an int cast in the rne quantizer: the same bytes); the decode with
   eight or two threads an 8x8 block, or one record buffer, or one of each
-  buffer, and the 4:2:0 encode with two input buffers or two record
-  buffers (the same bytes); and, for timing only
-  (their bytes are logged, not required), no proxy fence before the bulk
-  stores, and the encodes and the decode with their arithmetic, or their
-  loads and stores, skipped at run time (the colour encode also its
-  column or its row phase alone);
+  buffer, the 4:2:0 encode with two input buffers or two record
+  buffers, and the 4:2:0 decode with 2 or 8 warps a CTA (64 or 256
+  threads), one record buffer, two pixel buffers or two of each (the same
+  bytes); and, for timing only (their bytes are logged, not required), no
+  proxy fence before the bulk stores, and the encodes and the decodes
+  with their arithmetic, or their loads and stores, skipped at run time
+  (the colour encode also its column or its row phase alone);
 * with ``--parent``, a checkout of an earlier version of the repository:
   its ``color32.cu`` and ``color420.cu`` built alone the same way, their
   kernels called through that version's C entry points (with or without
@@ -65,7 +66,7 @@ CASES = [("4096x3840 image", 4096, 3840, 1, 8),
          ("8x1088x1920 batch", 1088, 1920, 8, 3)]
 ENC, RT, DEC = "enc32_rgb", "roundtrip32_rgb", "dec32_rgb"
 E420, D420 = "enc420_rgb", "dec420_rgb"
-KINDS = (ENC, RT, DEC, E420)          # timed
+KINDS = (ENC, RT, DEC, E420, D420)    # timed
 SOURCE = {ENC: "color32.cu", RT: "color32.cu", DEC: "color32.cu",
           E420: "color420.cu", D420: "color420.cu"}
 _BOUNDS = "__launch_bounds__(kTileThreads)"
@@ -106,6 +107,20 @@ _E420_NO_MATH = [
     (_E420_CROWS, _E420_CROWS.replace("{", "if (g.tiles == 0) {"))]
 _E420_NO_MEMORY = [("  arrive_expect(bar, k420TileIn);\n", _ARRIVE),
                    ("  if (lane < 6) {", "  if (lane < 0) {")]
+# the 4:2:0 decode (color420.cu dec420_rgb_kernel): its five loops of
+# arithmetic (Y and chroma columns, Y and chroma rows, the mix) skipped
+_D420_LOOPS = [
+    "for (int e = 0; e < k420DecY; ++e) {\n      // Y column",
+    "for (int e = 0; e < k420DecC; ++e) {\n      // chroma column",
+    "for (int h = 0; h < k420DecY; ++h) {\n      float tv[8];",
+    "for (int e = 0; e < k420DecC; ++e) {\n      // chroma row",
+    "for (int h = 0; h < k420DecY; ++h) {\n      // pixel row"]
+_D420_NO_MATH = [(loop, loop.replace(" < k420Dec",
+                                     " < (g.tiles == 0) * k420Dec"))
+                 for loop in _D420_LOOPS]
+_D420_NO_MEMORY = [("  arrive_expect(bar, 6 * 512);\n", _ARRIVE),
+                   ("if (storer) store_pixels420(",
+                    "if (storer && g.tiles == 0) store_pixels420(")]
 # name -> (edits, the kernels it is timed for, timing only)
 BUILDS = {
     "conversions by the unit": (
@@ -143,6 +158,21 @@ BUILDS = {
         [("k420RecBuffers = 1;", "k420RecBuffers = 2;")], (E420,), False),
     "420 without arithmetic": (_E420_NO_MATH, (E420,), True),
     "420 without memory": (_E420_NO_MEMORY, (E420,), True),
+    "420 decode 2 warps": (
+        [("k420DecWarps = 4;", "k420DecWarps = 2;")], (D420,), False),
+    "420 decode 8 warps": (
+        [("k420DecWarps = 4;", "k420DecWarps = 8;")], (D420,), False),
+    "420 decode one record buffer": (
+        [("k420DecStages = 2;", "k420DecStages = 1;")], (D420,), False),
+    "420 decode two pixel buffers": (
+        [("k420DecOutBuffers = 1;", "k420DecOutBuffers = 2;")], (D420,),
+        False),
+    "420 decode one record and two pixel buffers": (
+        [("k420DecStages = 2;", "k420DecStages = 1;"),
+         ("k420DecOutBuffers = 1;", "k420DecOutBuffers = 2;")], (D420,),
+        False),
+    "420 decode without arithmetic": (_D420_NO_MATH, (D420,), True),
+    "420 decode without memory": (_D420_NO_MEMORY, (D420,), True),
 }
 
 
@@ -181,11 +211,12 @@ def build_lib(name: str, src_dir: str, edits=(), source: str = "color32.cu",
 
 def abi_of(text: str) -> dict:
     """Which C interfaces a version of a source has: the colour encode and
-    round trip with or without the launch plan's arguments, the decode and
-    the 4:2:0 encode as strip tiles (grid and smem) or not."""
+    round trip with or without the launch plan's arguments, the decodes
+    and the 4:2:0 encode as strip tiles (grid and smem) or not."""
     return {"plan": "sdct_color_capacity" in text,
             "dec_tiles": "kDecSmem" in text,
-            "enc420_tiles": "sdct_color420_capacity" in text}
+            "enc420_tiles": "sdct_color420_capacity" in text,
+            "dec420_tiles": "sdct_dec420_capacity" in text}
 
 
 def load_lib(proc: subprocess.Popen, name: str) -> ctypes.CDLL:
@@ -288,9 +319,13 @@ def lib_calls(dll, luma, chroma) -> dict:
         dll.sdct_enc420_rgb.argtypes = [
             p, p, p, p, p, i, i, i, ll, i,
             *([i, i] if abi["enc420_tiles"] else []), p]
-        dll.sdct_dec420_rgb.argtypes = [p, p, p, p, p, i, i, i, p]
+        dll.sdct_dec420_rgb.argtypes = [
+            p, p, p, p, p, i, i, i, *([i, i] if abi["dec420_tiles"] else []),
+            p]
         if abi["enc420_tiles"]:
             dll.sdct_color420_capacity.argtypes = [i, p, p, p]
+        if abi["dec420_tiles"]:
+            dll.sdct_dec420_capacity.argtypes = [p, p, p]
 
         def enc420(x, rounding="rne"):
             n, h2, w, ps = top(x)
@@ -317,9 +352,19 @@ def lib_calls(dll, luma, chroma) -> dict:
             h2 = rec.shape[-1] * 2 // (3 * w)
             out = torch.empty(rec.shape[:-1] + (3, h2, w), dtype=torch.uint8,
                               device=rec.device)
+            extra = ()
+            if abi["dec420_tiles"]:
+                cap = np.zeros(3, np.int32)
+                check(dll.sdct_dec420_capacity(
+                    cap.ctypes.data, cap.ctypes.data + 4,
+                    cap.ctypes.data + 8), "capacity")
+                plan = K.color420_plan(
+                    D420, n, h2, w, base=rec.data_ptr(), plane_stride=h2 * w,
+                    capacity=lambda: (int(cap[1]), int(cap[2])))
+                extra = (plan.grid, int(cap[0]))
             check(dll.sdct_dec420_rgb(
                 rec.data_ptr(), out.data_ptr(), qil.ctypes.data,
-                qic.ctypes.data, mix, n, h2, w, K._stream(rec)), D420)
+                qic.ctypes.data, mix, n, h2, w, *extra, K._stream(rec)), D420)
             return out
 
         calls.update({E420: enc420, D420: dec420})
@@ -467,10 +512,11 @@ def main(argv=None) -> int:
     for label, h, w, frames, n_rot in CASES:
         rgbs = [cs.random_rgb(gen, h, w, frames) for _ in range(n_rot)]
         recs = [TP.encode_ycbcr32(x, luma, chroma) for x in rgbs]
+        recs420 = [TP.encode_ycbcr420(x, luma, chroma) for x in rgbs]
         for name in timed_kinds:
             # one-argument calls on this case's inputs
-            if name == DEC:
-                inputs = recs
+            if name in (DEC, D420):
+                inputs = recs if name == DEC else recs420
 
                 def bind(fn):
                     return lambda r: fn(r, w)

@@ -49,90 +49,34 @@
 //   * Every product and sum of the mix, the pool, dct2d and the quantizer
 //     is kept in its order: the Y segment equals enc32_rgb's channel 0 and
 //     the whole stream the thread-per-block form, byte for byte.
-// Decode.  The unit is a 16x16 macroblock: 4 Y blocks, 1 Cb block and 1 Cr
-// block.  A CUDA block of k420Threads = 192 threads covers kMacro = 32
-// consecutive macroblocks, in six warps whose roles are uniform: warps 0-3
-// hold Y blocks, warp 0 and 1 the top 8 rows of macroblocks 0-15 and 16-31
-// (two neighbouring lanes per macroblock, left and right block), warps 2
-// and 3 the bottom 8 rows; warp 4 holds the Cb blocks and warp 5 the Cr
-// blocks, a lane per macroblock.  Every thread holds one 64-float block.
-// The records come in through shared memory with 16-byte loads;
-//     the chroma warps run the IDCT and write their values, bias removed,
-//     to the chroma slabs; after a barrier each Y thread reads its
-//     quadrant's 4x4 Cb and Cr values, gives each to 2x2 pixels and stores
-//     the three RGB channels of its 64 pixels.
-// Records: 8 macroblocks in a row are 16 Y blocks of each block row (two
-// 512-byte groups) and 8 chroma blocks (one group per chroma plane).  W/16
-// is a multiple of 8, so such a unit of 8 never crosses a macroblock row,
-// and a CUDA block's 32 macroblocks are 4 units, each whole or past the end
-// of the plane (the tail mask).  grid = (ceil(macroblocks / 32), batch): one
-// launch covers a (B, 3, H, W) batch.
+// Decode: the mirror of the encode, on the same tiles and the same walk.
+//   * Thread 0 brings a tile's records in by six 512-byte bulk copies (the
+//     two Y spans of block rows 2my and 2my+1, two groups each, the Cb and
+//     the Cr span) into padded groups (kGroupStride), completing on one
+//     mbarrier, k420DecStages tiles ahead.
+//   * Three phases, 128 threads (k420DecWarps).  First every thread runs
+//     idct2d's first pass over coefficient columns: Y columns cp and cp + 4
+//     of Y block (br, bc) and chroma column x of chroma block cb (the
+//     encode's threads), each column read straight from the staged records
+//     and dequantized exactly ((2^23 + b) - (2^23 + 127), times the scale).
+//     After a barrier, the row passes: two Y rows (cp, cp + 4), kept in
+//     registers with the bias off, and one chroma row, whose values, bias
+//     off, go to the chroma buffer (chroma_at).  After a second barrier
+//     each Y row thread reads its square's four Cb and four Cr values (one
+//     16-byte load each), gives each to its 2x2 pixels, runs the inverse
+//     mix, rounds half to even, clips and packs into the pixel stage,
+//     which leaves by one 4-D tensor store a tile (box 128 columns x 16
+//     rows x 3 planes x 1 frame; k420DecOutBuffers buffers, each reused
+//     only after cp.async.bulk.wait_group.read).  The crossings are
+//     cross_at's, the block row as the channel for Y; every shared access
+//     is free of bank conflicts.
+//   * Every product and sum of idct2d and of the mix is kept in its order
+//     and every conversion is exact: the bytes equal the thread-per-block
+//     form.
 
 #include "tile_common.cuh"
 
 namespace {
-
-constexpr int kMacro = 32;                          // 16x16 macroblocks a CUDA block
-constexpr int k420Threads = 6 * 32;                 // 4 Y warps, a Cb warp, a Cr warp
-constexpr int kUnits = kMacro / 8;                  // 8-macroblock record units
-constexpr int kYGroups = 4 * kUnits;                // Y groups: 2 block rows x 2 a unit
-constexpr int k420Groups = kYGroups + 2 * kUnits;  // then the Cb groups, then Cr
-constexpr int k420RecSmem = k420Groups * kGroupStride;
-constexpr int kChromaPitch = 65;                    // floats per chroma block slab
-constexpr int kChromaPlane = kMacro * kChromaPitch;
-
-// The role of a thread of a 192-thread CUDA block.
-struct Role {
-  int m;       // macroblock in the CUDA block, 0..31
-  int c;       // plane: 0 Y, 1 Cb, 2 Cr (uniform in a warp)
-  int dy, dx;  // Y: the block's quadrant of its macroblock
-};
-
-__device__ __forceinline__ Role role_of(int t) {
-  const int warp = t >> 5, lane = t & 31;
-  Role r;
-  if (warp < 4) {
-    r.m = 16 * (warp & 1) + (lane >> 1);
-    r.c = 0;
-    r.dy = warp >> 1;
-    r.dx = lane & 1;
-  } else {
-    r.m = lane;
-    r.c = warp - 3;
-    r.dy = r.dx = 0;
-  }
-  return r;
-}
-
-// This thread's block slot in the record staging: its 512-byte group and
-// its byte within each 8-byte coefficient row of the group.
-__device__ __forceinline__ uint8_t* staged_slot(uint8_t* rec, const Role& r) {
-  const int u = r.m >> 3;
-  if (r.c == 0) {
-    const int k = 2 * (r.m & 7) + r.dx;  // Y block of the unit's block row
-    return rec + ((u * 2 + r.dy) * 2 + (k >> 3)) * kGroupStride + (k & 7);
-  }
-  return rec + (kYGroups + (r.c - 1) * kUnits + u) * kGroupStride + (r.m & 7);
-}
-
-// Thread t's 16-byte piece of record unit u, whose first macroblock is mb:
-// returns its byte offset in the frame's stream and sets its index among
-// the staging's pieces (smem_piece order).  Threads 0-127 move the unit's
-// 1024 Y bytes of each block row, 128-159 its 512 Cb bytes, 160-191 its
-// 512 Cr bytes.
-__device__ __forceinline__ long long unit_piece(int t, int u, long long mb, int mbw, int h2,
-                                                int w, int& piece) {
-  if (t < 128) {
-    const int dy = t >> 6, j = t & 63;
-    const long long my = mb / mbw, mx = mb - my * mbw;
-    piece = (u * 2 + dy) * 64 + j;
-    return ((2 * my + dy) * (w >> 3) + 2 * mx) * 64 + 16 * j;
-  }
-  const int c = (t - 128) >> 5, j = t & 31;
-  const long long y_plane = (long long)h2 * w;
-  piece = (kYGroups + c * kUnits + u) * 32 + j;
-  return y_plane + c * (y_plane >> 2) + mb * 64 + 16 * j;
-}
 
 // -- encode: strip tiles of 8 macroblocks -------------------------------------
 
@@ -204,20 +148,20 @@ __device__ __forceinline__ int pooled_at(int j, int k, int cb) {
   return (j * 8 + k) * 16 + (cb ^ ((k >> 2) << 3));
 }
 
+// Offset in a frame's stream of record group k of tile a: k < 4 the Y
+// group k & 1 of block row 2my + (k >> 1), 4 the Cb group, 5 the Cr group.
+__device__ __forceinline__ long long group420_at(const Geom420& g, const Tile420& a, int k) {
+  if (k < 4) return ((2LL * a.my + (k >> 1)) * g.bw + 16 * a.x + 8 * (k & 1)) * 64;
+  return g.y_plane + (k - 4) * (g.y_plane >> 2) + ((long long)a.my * g.mbw + 8 * a.x) * 64;
+}
+
 // Lanes 0-5 of warp 1: the tile's six record groups, one bulk store each.
 __device__ __forceinline__ void store420(uint8_t* out, const Geom420& g, unsigned t,
                                          const uint8_t* rec, int lane) {
   if (lane < 6) {
     const Tile420 a = tile420_at(g, t);
     uint8_t* frame = out + a.frame * 3 * (g.y_plane >> 1);
-    uint8_t* dst;
-    if (lane < 4) {  // Y block row 2my + (lane >> 1), group lane & 1
-      dst = frame + ((2LL * a.my + (lane >> 1)) * g.bw + 16 * a.x + 8 * (lane & 1)) * 64;
-    } else {  // Cb, then Cr
-      dst = frame + g.y_plane + (lane - 4) * (g.y_plane >> 2) +
-            ((long long)a.my * g.mbw + 8 * a.x) * 64;
-    }
-    bulk_store(dst, rec + lane * kGroupStride, 512);
+    bulk_store(frame + group420_at(g, a, lane), rec + lane * kGroupStride, 512);
   }
   asm volatile("cp.async.bulk.commit_group;" ::: "memory");
 }
@@ -366,87 +310,221 @@ enc420_rgb_kernel(uint8_t* __restrict__ out, Scales ql, Scales qc, ColorMix mix,
   if (warp == 1) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
+// -- decode: the same tiles, the other way -------------------------------------
+
+// Warps a CTA (2, 4 or 8): a Y block has k420DecWarps threads, each
+// taking 8 / k420DecWarps columns, then rows; a chroma block 2*k420DecWarps
+// (at 8 warps, half the threads sit out the chroma passes).
+constexpr int k420DecWarps = 4;
+constexpr int k420DecThreads = 32 * k420DecWarps;
+constexpr int k420DecY = 8 / k420DecWarps;
+constexpr int k420DecC = (8 + 2 * k420DecWarps - 1) / (2 * k420DecWarps);
+static_assert(k420DecWarps == 2 || k420DecWarps == 4 || k420DecWarps == 8, "2, 4 or 8 warps");
+constexpr int k420DecStages = 2;       // record buffers in flight
+constexpr int k420DecOutBuffers = 1;   // pixel tile buffers
+constexpr int kChromaValues = 2 * 8 * 64;  // f32: Cb and Cr, 8 rows of 64 a tile
+// Shared bytes of a launch: luma and chroma scales, the pixel buffers, the
+// record buffers, the Y and chroma crossings and the chroma values.  The
+// host's plan (cuda_dct.color420_smem("dec420_rgb")) computes the same and
+// the entry point compares.
+constexpr int k420DecSmem = 2 * 64 * 4 + k420DecOutBuffers * k420TileIn +
+                            k420DecStages * k420TileRec +
+                            4 * (kYCross + kChromaCross + kChromaValues);
+
+// Thread 0: tile t's six record groups (if the launch has it) into `stage`
+// by bulk copies, kGroupStride apart, completing on `bar`.
+__device__ __forceinline__ void load420(const uint8_t* records, const Geom420& g, unsigned t,
+                                        uint8_t* stage, uint64_t* bar) {
+  if (t >= g.tiles) return;
+  const Tile420 a = tile420_at(g, t);
+  const uint8_t* frame = records + a.frame * 3 * (g.y_plane >> 1);
+  arrive_expect(bar, 6 * 512);
+#pragma unroll
+  for (int k = 0; k < 6; ++k)
+    bulk_load(stage + k * kGroupStride, frame + group420_at(g, a, k), 512, bar);
+}
+
+// The storing thread: the tile's pixels by one tensor store.
+__device__ __forceinline__ void store_pixels420(const CUtensorMap* tout, const Geom420& g,
+                                                unsigned t, const uint8_t* pix) {
+  const Tile420 a = tile420_at(g, t);
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.tile.bulk_group [%0, {%1, %2, %3, %4}], "
+      "[%5];" ::"l"(tout),
+      "r"(k420TileRow * a.x), "r"(16 * a.my), "r"(0), "r"((int)a.frame), "r"(saddr(pix))
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// The chroma values: (row r, column k) of plane c (0 Cb, 1 Cr) of the
+// tile, its 8 chroma blocks side by side in 64 columns, the two 4-float
+// halves of blocks 4-7 swapped.  A chroma row thread writes its block's
+// halves (a quarter warp: 8 blocks, one row) and a Y row thread reads the
+// 4 columns over its 8 pixels (a quarter warp: 32 columns, one row), each
+// over 32 distinct banks.
+__device__ __forceinline__ int chroma_at(int c, int r, int k) {
+  return (c * 8 + r) * 64 + (k ^ (((k >> 5) & 1) << 2));
+}
+
 // Replaces simd_dct_tpu/kernels/color420.py _dec420_kernel.
-// Bound: memory, 1.5 bytes read and 3 written per pixel position; about 21
-// FMAs per pixel position (the transforms, dequantization and the inverse
-// mix).  Design: the records come in through shared memory; the chroma
-// warps' IDCT output meets the Y threads in the chroma slabs.  Three CUDA
-// blocks an SM: uncapped, ptxas takes 126 registers, which fit two; the cap
-// (96 registers, 24 bytes of spills) ran 10% faster on an H100 (PERF.md).
-__global__ void __launch_bounds__(k420Threads, 3)
-dec420_rgb_kernel(const uint8_t* __restrict__ records, uint8_t* __restrict__ out,
-                  Scales qil, Scales qic, ColorMix mix, int h2, int w) {
-  __shared__ __align__(16) uint8_t rec[k420RecSmem];
-  __shared__ float chroma[2 * kChromaPlane];
-  const Role r = role_of(threadIdx.x);
-  const int mbw = w >> 4;
-  const long long nmb = (long long)(h2 >> 4) * mbw;
-  const long long mb0 = (long long)blockIdx.x * kMacro;
-  const long long mb = mb0 + r.m;
-  const bool live = mb < nmb;
-  const uint8_t* frame = records + (long long)blockIdx.y * (3LL * h2 * w / 2);
-  uint4* r4 = reinterpret_cast<uint4*>(rec);
+// Bound: memory, 1.5 bytes read and 3 written per pixel position; the
+// matrix-form arithmetic its bytes need sets a floor above it (PERF.md).
+// Design: see the head of this file.
+__global__ void __launch_bounds__(k420DecThreads)
+dec420_rgb_kernel(const uint8_t* __restrict__ records, Scales qil, Scales qic, ColorMix mix,
+                  Geom420 g, const __grid_constant__ CUtensorMap tout) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ __align__(8) uint64_t full[k420DecStages];
+  float* sq = reinterpret_cast<float*>(smem);  // transposed: sq[v*8 + u] = qi[u*8 + v]
+  uint8_t* pixs = smem + 2 * 64 * 4;            // 128-byte aligned, as the tensor store wants
+  uint8_t* stages = pixs + k420DecOutBuffers * k420TileIn;
+  float* yx = reinterpret_cast<float*>(stages + k420DecStages * k420TileRec);
+  float* cx = yx + kYCross;
+  float* cv = cx + kChromaCross;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // Y block (br, bc): columns, then rows, cp + k420DecWarps*e
+  const int br = warp / (k420DecWarps / 2), bc = lane & 15;
+  const int cp = 2 * (warp % (k420DecWarps / 2)) + (lane >> 4);
+  // chroma block cb (Cb 0-7, Cr 8-15): columns, then rows, x + 2*k420DecWarps*e
+  const int cb = lane & 15, x = 2 * warp + (lane >> 4);
+  const bool storer = threadIdx.x == 32;  // lane 0 of warp 1
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int u = 0; u < kUnits && mb0 + 8 * u < nmb; ++u) {
-    int piece;
-    const long long off = unit_piece(threadIdx.x, u, mb0 + 8 * u, mbw, h2, w, piece);
-    r4[smem_piece(piece)] = __ldg(reinterpret_cast<const uint4*>(frame + off));
+    for (int i = 0; i < 64; ++i) {
+      sq[(i & 7) * 8 + (i >> 3)] = qil.v[i];
+      sq[64 + (i & 7) * 8 + (i >> 3)] = qic.v[i];
+    }
+#pragma unroll
+    for (int s = 0; s < k420DecStages; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(saddr(&full[s])) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  float x[64];
-  if (live) {
-    const uint8_t* slot = staged_slot(rec, r);
+  if (threadIdx.x == 0) {
 #pragma unroll
-    for (int p = 0; p < 64; ++p)
-      x[p] = __fmul_rn((float)slot[p * 8] - 127.0f, r.c == 0 ? qil.v[p] : qic.v[p]);
-    idct2d(x);
-    const float bias = pick(r.c, mix.bias[0], mix.bias[1], mix.bias[2]);
-    if (r.c != 0) {
-      float* slab = chroma + (r.c - 1) * kChromaPlane + r.m * kChromaPitch;
-#pragma unroll
-      for (int p = 0; p < 64; ++p) slab[p] = __fsub_rn(x[p], bias);
-    } else {
-#pragma unroll
-      for (int p = 0; p < 64; ++p) x[p] = __fsub_rn(x[p], bias);
-    }
+    for (int s = 0; s < k420DecStages; ++s)
+      load420(records, g, blockIdx.x + s * gridDim.x, stages + s * k420TileRec, &full[s]);
   }
-  __syncthreads();
-  if (!live || r.c != 0) return;
-  const long long my = mb / mbw, mx = mb - my * mbw;
-  const long long plane = (long long)h2 * w;
-  uint8_t* o = out + (long long)blockIdx.y * 3 * plane + (16 * my + 8 * r.dy) * w + 16 * mx +
-               8 * r.dx;
-  const float* cb = chroma + r.m * kChromaPitch + 32 * r.dy + 4 * r.dx;
+  // this thread's bytes in a staged group: (u, v) at + (u*8 + v)*8
+  const int yslot = (2 * br + (bc >> 3)) * kGroupStride + (bc & 7);
+  const int cslot = (4 + (cb >> 3)) * kGroupStride + (cb & 7);
+  const float cbias = (cb >> 3) ? mix.bias[2] : mix.bias[1];
+  unsigned i = 0, half = 0;  // the CTA's tile count; the pixel buffer
+  for (unsigned t = blockIdx.x; t < g.tiles; t += gridDim.x, ++i) {
+    const unsigned s = i % k420DecStages;
+    wait_full(&full[s], (i / k420DecStages) & 1);
+    const uint8_t* rec = stages + s * k420TileRec;
 #pragma unroll
-  for (int row = 0; row < 8; ++row) {
-    float b[4], d[4];
+    for (int e = 0; e < k420DecY; ++e) {
+      // Y column v of block (br, bc): c[u][v] = (b - 127) * qil exactly,
+      // then t[j][v] = sum_u D[u][j] c[u][v]
+      const int v = cp + k420DecWarps * e;
+      float qv[8], c[8], tt[8];
+      row_scales(sq, v, qv);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      b[j] = cb[8 * (row >> 1) + j];
-      d[j] = cb[kChromaPlane + 8 * (row >> 1) + j];
+      for (int u = 0; u < 8; ++u) c[u] = dequant_byte(rec[yslot + (u * 8 + v) * 8], qv[u]);
+      idct_column(c, tt);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) yx[cross_at(br, j, v, bc)] = tt[j];
     }
 #pragma unroll
-    for (int ch = 0; ch < 3; ++ch) {
-      float px[8];
+    for (int e = 0; e < k420DecC; ++e) {
+      // chroma column xc of block cb, with the chroma scales
+      const int xc = x + 2 * k420DecWarps * e;
+      if (xc >= 8) break;
+      float qv[8], c[8], tt[8];
+      row_scales(sq + 64, xc, qv);
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-        px[i] = mix3(mix.inv[3 * ch], mix.inv[3 * ch + 1], mix.inv[3 * ch + 2], x[row * 8 + i],
-                     b[i >> 1], d[i >> 1]);
-      uint2 v;
-      v.x = pack4(px);
-      v.y = pack4(px + 4);
-      *reinterpret_cast<uint2*>(o + ch * plane + (size_t)row * w) = v;
+      for (int u = 0; u < 8; ++u) c[u] = dequant_byte(rec[cslot + (u * 8 + xc) * 8], qv[u]);
+      idct_column(c, tt);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) cx[cross_at(0, j, xc, cb)] = tt[j];
     }
+    // the store of the tile k420DecOutBuffers back has read its buffer
+    if (storer) bulk_wait_read<k420DecOutBuffers - 1>();
+    __syncthreads();
+    // the records are read: the tile k420DecStages ahead comes into their buffer
+    if (threadIdx.x == 0)
+      load420(records, g, t + k420DecStages * gridDim.x, stages + s * k420TileRec, &full[s]);
+    // Y rows j = cp + k420DecWarps*h: x[j][k] = sum_v t[j][v] D[v][k], bias off
+    float y[k420DecY][8];
+#pragma unroll
+    for (int h = 0; h < k420DecY; ++h) {
+      float tv[8];
+#pragma unroll
+      for (int v = 0; v < 8; ++v) tv[v] = yx[cross_at(br, cp + k420DecWarps * h, v, bc)];
+      idct_row(tv, y[h]);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) y[h][k] = __fsub_rn(y[h][k], mix.bias[0]);
+    }
+#pragma unroll
+    for (int e = 0; e < k420DecC; ++e) {
+      // chroma row xc of block cb, bias off, into the chroma values
+      const int xc = x + 2 * k420DecWarps * e;
+      if (xc >= 8) break;
+      float tv[8], r[8];
+#pragma unroll
+      for (int v = 0; v < 8; ++v) tv[v] = cx[cross_at(0, xc, v, cb)];
+      idct_row(tv, r);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) r[k] = __fsub_rn(r[k], cbias);
+      const int col = 8 * (cb & 7);
+      *reinterpret_cast<float4*>(cv + chroma_at(cb >> 3, xc, col)) =
+          make_float4(r[0], r[1], r[2], r[3]);
+      *reinterpret_cast<float4*>(cv + chroma_at(cb >> 3, xc, col + 4)) =
+          make_float4(r[4], r[5], r[6], r[7]);
+    }
+    __syncthreads();
+    uint8_t* pix = pixs + half * k420TileIn;
+#pragma unroll
+    for (int h = 0; h < k420DecY; ++h) {
+      // pixel row 8br + j, columns 8bc .. 8bc + 7: each chroma value to its
+      // 2x2 square, the inverse mix, rounded and clipped, one 8-byte row a
+      // plane
+      const int j = cp + k420DecWarps * h;
+      const int at = chroma_at(0, 4 * br + (j >> 1), 4 * bc);
+      const float4 b4 = *reinterpret_cast<const float4*>(cv + at);
+      const float4 d4 = *reinterpret_cast<const float4*>(cv + at + 8 * 64);
+      const float cbv[4] = {b4.x, b4.y, b4.z, b4.w}, crv[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+      for (int p = 0; p < 3; ++p) {
+        uint32_t px[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          px[k] = pixel_bits<false>(mix3(mix.inv[3 * p], mix.inv[3 * p + 1], mix.inv[3 * p + 2],
+                                         y[h][k], cbv[k >> 1], crv[k >> 1]));
+        *reinterpret_cast<uint2*>(pix + (p * 16 + 8 * br + j) * k420TileRow + 8 * bc) = pack8(px);
+      }
+    }
+    fence_async_shared();
+    __syncthreads();
+    if (storer) store_pixels420(&tout, g, t, pix);
+    half = (half + 1) % k420DecOutBuffers;
   }
+  if (storer) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
 inline bool geometry420_ok(int batch, int h2, int w) {
   return batch > 0 && batch <= 65535 && h2 > 0 && w > 0 && h2 % 16 == 0 && w % 128 == 0;
 }
 
-unsigned grid420_x(int h2, int w) {
-  const long long nmb = (long long)(h2 / 16) * (w / 16);
-  return (unsigned)((nmb + kMacro - 1) / kMacro);
+// The geometry of a launch of `tiles` tiles (the host keeps it below 2^31).
+Geom420 geom420(int h2, int w, long long tiles) {
+  Geom420 g;
+  g.bw = w / 8;
+  g.mbw = w / 16;
+  g.tpr = (unsigned)(w / k420TileRow);
+  g.rows = (unsigned)(h2 / 16);
+  g.tiles = (unsigned)tiles;
+  g.y_plane = (long long)h2 * w;
+  return g;
+}
+
+// The tiles of a launch, or -1 where the plan does not fit it: 2^31 tiles
+// or more, or a grid of more CTAs than tiles.
+long long tiles420(int batch, int h2, int w, int grid) {
+  const long long tiles = (long long)batch * (h2 / 16) * (w / k420TileRow);
+  return tiles >= (1ll << 31) || grid <= 0 || grid > tiles ? -1 : tiles;
 }
 
 const void* enc420_kernel_of(int rounding) {
@@ -478,6 +556,19 @@ int sdct_color420_capacity(int rounding, int* smem, int* per_sm, int* sms) {
   return (int)e;
 }
 
+// The same for the decode.
+int sdct_dec420_capacity(int* smem, int* per_sm, int* sms) {
+  const void* fn = (const void*)dec420_rgb_kernel;
+  *smem = k420DecSmem;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = allow_smem(fn, *smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fn, k420DecThreads, *smem);
+  return (int)e;
+}
+
 // img: (batch, 3, >= h2 rows, w) u8 planar RGB, planes plane_stride bytes
 // apart and frames 3*plane_stride (16-byte address and plane stride); only
 // the first h2 rows of each plane are read.  out: (batch, 1.5*h2*w) u8
@@ -488,24 +579,18 @@ int sdct_color420_capacity(int rounding, int* smem, int* per_sm, int* sms) {
 int sdct_enc420_rgb(const void* img, void* out, const float* ql, const float* qc,
                     const float* mix, int batch, int h2, int w, long long plane_stride,
                     int rounding, int grid, int smem, void* stream) {
-  if (!geometry420_ok(batch, h2, w) || grid <= 0 || smem != k420Smem ||
+  if (!geometry420_ok(batch, h2, w) || smem != k420Smem ||
       (((uintptr_t)img | (uintptr_t)plane_stride | (uintptr_t)out) & 15))
     return (int)cudaErrorInvalidValue;
-  const long long tiles = (long long)batch * (h2 / 16) * (w / k420TileRow);
-  if (tiles >= (1ll << 31) || grid > tiles) return (int)cudaErrorInvalidValue;
+  const long long tiles = tiles420(batch, h2, w, grid);
+  if (tiles < 0) return (int)cudaErrorInvalidValue;
   const void* fn = enc420_kernel_of(rounding);
   if (!fn) return (int)cudaErrorInvalidValue;
   cudaError_t e = allow_smem(fn, smem);
   if (e != cudaSuccess) return (int)e;
   CUtensorMap tin = {};
   if (!planes_map(&tin, img, batch, h2, w, plane_stride, 16)) return (int)cudaErrorInvalidValue;
-  Geom420 g;
-  g.bw = w / 8;
-  g.mbw = w / 16;
-  g.tpr = (unsigned)(w / k420TileRow);
-  g.rows = (unsigned)(h2 / 16);
-  g.tiles = (unsigned)tiles;
-  g.y_plane = (long long)h2 * w;
+  Geom420 g = geom420(h2, w, tiles);
   uint8_t* o = (uint8_t*)out;
   Scales sl = to_scales(ql), sc = to_scales(qc);
   ColorMix m = to_mix(mix);
@@ -514,16 +599,32 @@ int sdct_enc420_rgb(const void* img, void* out, const float* ql, const float* qc
                                (cudaStream_t)stream);
 }
 
-// records: (batch, 1.5*h2*w) u8 streams.  out: (batch, 3, h2, w) u8.  qil,
-// qic: 64 host f32 dequant scales each; mix as for sdct_enc420_rgb.
+// records: (batch, 1.5*h2*w) u8 streams, 16-byte aligned.  out: (batch, 3,
+// h2, w) u8, 16-byte aligned.  qil, qic: 64 host f32 dequant scales each;
+// mix as for sdct_enc420_rgb.  grid and smem: the host's launch plan
+// (cuda_dct.color420_plan, kind "dec420_rgb"); smem must equal what the
+// kernel lays out.
 int sdct_dec420_rgb(const void* records, void* out, const float* qil, const float* qic,
-                    const float* mix, int batch, int h2, int w, void* stream) {
-  if (!geometry420_ok(batch, h2, w)) return (int)cudaErrorInvalidValue;
-  const dim3 grid(grid420_x(h2, w), batch);
-  dec420_rgb_kernel<<<grid, k420Threads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)records, (uint8_t*)out, to_scales(qil), to_scales(qic), to_mix(mix), h2,
-      w);
-  return (int)cudaGetLastError();
+                    const float* mix, int batch, int h2, int w, int grid, int smem,
+                    void* stream) {
+  if (!geometry420_ok(batch, h2, w) || smem != k420DecSmem ||
+      (((uintptr_t)records | (uintptr_t)out) & 15))
+    return (int)cudaErrorInvalidValue;
+  const long long tiles = tiles420(batch, h2, w, grid);
+  if (tiles < 0) return (int)cudaErrorInvalidValue;
+  const void* fn = (const void*)dec420_rgb_kernel;
+  cudaError_t e = allow_smem(fn, smem);
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap tout = {};
+  if (!planes_map(&tout, out, batch, h2, w, (long long)h2 * w, 16))
+    return (int)cudaErrorInvalidValue;
+  Geom420 g = geom420(h2, w, tiles);
+  const uint8_t* in = (const uint8_t*)records;
+  Scales sil = to_scales(qil), sic = to_scales(qic);
+  ColorMix m = to_mix(mix);
+  void* args[] = {(void*)&in, &sil, &sic, &m, &g, &tout};
+  return (int)cudaLaunchKernel(fn, dim3(grid), dim3(k420DecThreads), args, (size_t)smem,
+                               (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -43,8 +43,10 @@
 //     b.  Decode is the mirror: a thread dequantizes four columns c[u][v]
 //     ((b - 127) exactly, times the scale) and runs idct2d's first pass;
 //     the thread of rows j the second, times 255, then rounds half to
-//     even, clips and packs 8 pixels a row.  The DCT basis is compiled
-//     into the FMAs as immediates (tile_common.cuh basis).
+//     even, clips and packs 8 pixels a row (tile_common.cuh dequant_byte,
+//     idct_column and idct_row_pixels, shared with the tile inverse of
+//     tiles.cu).  The DCT basis is compiled into the FMAs as immediates
+//     (tile_common.cuh basis).
 //   * In native form the encode's tiles cover [0, BWP): a column past BW is
 //     written explicitly, 127 in an included strip and 0 in an excluded
 //     one, so every output byte has one writer.  A tile of an excluded
@@ -444,23 +446,17 @@ dec_stereo_kernel(const uint8_t* __restrict__ records, uint8_t* __restrict__ out
     }
 #pragma unroll
     for (int h = 0; h < kLines; ++h) {
-      // column v = kLines*w + h of block b: (b - 127) * qi exactly as
-      // (2^23 + b) - (2^23 + 127), then t[j][v] = sum_u D[u][j] c[u][v]
+      // column v = kLines*w + h of block b: (b - 127) * qi exactly, then
+      // t[j][v] = sum_u D[u][j] c[u][v] (tile_common.cuh)
       const int v = kLines * w + h;
-      float c[8], qv[8];
+      float c[8], qv[8], t8[8];
       row_scales(sq, v, qv);
 #pragma unroll
       for (int uu = 0; uu < 8; ++uu)
-        c[uu] = __fmul_rn(__fsub_rn(__int_as_float(0x4B000000u | stage[(uu * 8 + v) * kTileBlocks + b]),
-                                    kTwo23 + 127.0f),
-                          qv[uu]);
+        c[uu] = dequant_byte(stage[(uu * 8 + v) * kTileBlocks + b], qv[uu]);
+      idct_column(c, t8);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        float acc = __fmul_rn(basis(j), c[0]);
-#pragma unroll
-        for (int uu = 1; uu < 8; ++uu) acc = __fmaf_rn(basis(uu * 8 + j), c[uu], acc);
-        cross[dec_cross(j, v, b)] = acc;
-      }
+      for (int j = 0; j < 8; ++j) cross[dec_cross(j, v, b)] = t8[j];
     }
     walk.advance(g);
     const Tile next = walk.tile(g);
@@ -472,25 +468,13 @@ dec_stereo_kernel(const uint8_t* __restrict__ records, uint8_t* __restrict__ out
 #pragma unroll
     for (int h = 0; h < kLines; ++h) {
       // row j = kLines*w + h of block b: x[j][k] = sum_v t[j][v] D[v][k],
-      // times 255, clipped and rounded half to even (clip(rint(y)) ==
-      // rint(clip(y)): the limits are integers)
+      // times 255, clipped, rounded half to even and packed
+      // (tile_common.cuh idct_row_pixels)
       const int j = kLines * w + h;
-      uint32_t px[8];
       float tv[8];
 #pragma unroll
       for (int v = 0; v < 8; ++v) tv[v] = cross[dec_cross(j, v, b)];
-#pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        float acc = __fmul_rn(tv[0], basis(kk));
-#pragma unroll
-        for (int v = 1; v < 8; ++v) acc = __fmaf_rn(tv[v], basis(v * 8 + kk), acc);
-        px[kk] = rint_bits(fminf(fmaxf(__fmul_rn(acc, 255.0f), 0.0f), 255.0f));
-      }
-      uint2 row;
-      row.x = __byte_perm(__byte_perm(px[0], px[1], 0x0040), __byte_perm(px[2], px[3], 0x0040),
-                          0x5410);
-      row.y = __byte_perm(__byte_perm(px[4], px[5], 0x0040), __byte_perm(px[6], px[7], 0x0040),
-                          0x5410);
+      const uint2 row = idct_row_pixels<true>(tv);
       if (V == kTensor)
         *reinterpret_cast<uint2*>(pix + j * kRowBytes + 8 * b) = row;
       else if (a.bx0 + b < g.bw)

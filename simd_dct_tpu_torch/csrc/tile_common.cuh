@@ -1,9 +1,10 @@
 // Device and host helpers of the strip-tile kernels (color32.cu,
-// color420.cu, stereo.cu): exact byte <-> f32 conversions that keep off the
-// conversion unit, the quantizer on them, the bulk-copy plumbing (shared
-// addresses, the mbarrier wait, bulk loads, the bulk-group waits and the
-// proxy fence), the DCT basis as compile-time values, the scales in shared
-// memory, the colour kernels' crossing buffer, and the driver's
+// color420.cu, stereo.cu, tiles.cu): exact byte <-> f32 conversions that
+// keep off the conversion unit, the quantizer on them, the bulk-copy
+// plumbing (shared addresses, the mbarrier wait, bulk loads, the bulk-group
+// waits and the proxy fence), the DCT basis as compile-time values, the
+// decode's dequantizer and its two passes with the pixel rounding and
+// packing, the scales in shared memory, the crossing buffer, and
 // cuTensorMapEncodeTiled, reached through the runtime, with the planar-RGB
 // tensor map built on it.
 //
@@ -161,6 +162,65 @@ __device__ __forceinline__ void row_scales(const float* table, int u, float (&q)
   q[4] = hi.x, q[5] = hi.y, q[6] = hi.z, q[7] = hi.w;
 }
 
+// -- the decode's passes (stereo.cu, tiles.cu, color420.cu) ------------------
+
+// (b - 127) * q for a record byte b, the difference exact as (2^23 + b) -
+// (2^23 + 127), without the conversion unit.
+__device__ __forceinline__ float dequant_byte(uint32_t b, float q) {
+  return __fmul_rn(__fsub_rn(__int_as_float(0x4B000000u | b), kTwo23 + 127.0f), q);
+}
+
+// idct2d's first pass on one coefficient column: t[j] = sum_u D[u][j] c[u],
+// every product and sum in idct2d's order.
+__device__ __forceinline__ void idct_column(const float (&c)[8], float (&t)[8]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float acc = __fmul_rn(basis(j), c[0]);
+#pragma unroll
+    for (int u = 1; u < 8; ++u) acc = __fmaf_rn(basis(u * 8 + j), c[u], acc);
+    t[j] = acc;
+  }
+}
+
+// idct2d's second pass on one row: x[k] = sum_v t[v] D[v][k], in order.
+__device__ __forceinline__ void idct_row(const float (&t)[8], float (&x)[8]) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    float acc = __fmul_rn(t[0], basis(k));
+#pragma unroll
+    for (int v = 1; v < 8; ++v) acc = __fmaf_rn(t[v], basis(v * 8 + k), acc);
+    x[k] = acc;
+  }
+}
+
+// A pixel of value y (times 255 when N), clipped and rounded half to even
+// (clip(rint(y)) == rint(clip(y)): the limits are integers), in the low
+// byte.
+template <bool N>
+__device__ __forceinline__ uint32_t pixel_bits(float y) {
+  return rint_bits(fminf(fmaxf(N ? __fmul_rn(y, 255.0f) : y, 0.0f), 255.0f));
+}
+
+// The low bytes of px as 8 bytes, px[0] first.
+__device__ __forceinline__ uint2 pack8(const uint32_t (&px)[8]) {
+  uint2 r;
+  r.x = __byte_perm(__byte_perm(px[0], px[1], 0x0040), __byte_perm(px[2], px[3], 0x0040), 0x5410);
+  r.y = __byte_perm(__byte_perm(px[4], px[5], 0x0040), __byte_perm(px[6], px[7], 0x0040), 0x5410);
+  return r;
+}
+
+// A row of 8 pixels from its t[j][v] (v = 0..7): the second pass, then
+// pixel_bits<N>, packed.
+template <bool N>
+__device__ __forceinline__ uint2 idct_row_pixels(const float (&t)[8]) {
+  float x[8];
+  idct_row(t, x);
+  uint32_t px[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) px[k] = pixel_bits<N>(x[k]);
+  return pack8(px);
+}
+
 // A table of scales into shared memory by thread 0, at compile-time
 // indices (the by-value table stays in parameter space: a thread indexes
 // the scales by its row, a runtime value).
@@ -180,8 +240,9 @@ __device__ __forceinline__ void tile_prologue(uint64_t* full) {
   __syncthreads();
 }
 
-// The colour kernels' crossing buffer: value (row index r, column index c)
-// of block b of a channel, in 32-float lines of a column pair, the pair's
+// The crossing buffer of the colour kernels and the tile inverse: value (row
+// index r, column index c) of block b of a channel (the tile inverse: of a
+// block row), in 32-float lines of a column pair, the pair's
 // halves swapped on odd r.  A warp writing (16 blocks x c in {2i, 2i+1},
 // fixed r) or reading (16 blocks x r in {2i, 2i+1}, fixed c) touches 32
 // distinct banks.

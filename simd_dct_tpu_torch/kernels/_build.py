@@ -167,12 +167,16 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sdct_enc420_rgb.restype = i
     lib.sdct_color420_capacity.argtypes = [i, p, p, p]
     lib.sdct_color420_capacity.restype = i
-    lib.sdct_dec420_rgb.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.sdct_dec420_rgb.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
     lib.sdct_dec420_rgb.restype = i
+    lib.sdct_dec420_capacity.argtypes = [p, p, p]
+    lib.sdct_dec420_capacity.restype = i
     lib.sdct_tiles.argtypes = [p, p, p, i, i, i, i, i, i, p]
     lib.sdct_tiles.restype = i
-    lib.sdct_detile.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.sdct_detile.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
     lib.sdct_detile.restype = i
+    lib.sdct_detile_capacity.argtypes = [i, i, p, p, p]
+    lib.sdct_detile_capacity.restype = i
     lib.sdct_ring_gather.argtypes = [p, i, i, ll, ll, ll, i, i, ll, i, p, ull, p]
     lib.sdct_ring_gather.restype = i
     lib.sdct_selfring.argtypes = [p, i, ll, ll, ll, i, ll, i, p, ull, p]

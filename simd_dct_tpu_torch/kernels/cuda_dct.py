@@ -812,18 +812,23 @@ def color_launch_plan(kind: str, t: torch.Tensor, rounding: str = "rne", *,
                           h * w, rounding)
 
 
-# -- the 4:2:0 encode's launch plan (csrc/color420.cu) ------------------------
+# -- the 4:2:0 kernels' launch plan (csrc/color420.cu) ------------------------
 
 COLOR420_TILE_MACROBLOCKS = 8   # 16x16 macroblocks of one row a tile
 COLOR420_STAGES = 1             # input tiles the encode keeps in flight
 COLOR420_REC_BUFFERS = 1        # its record staging buffers
+COLOR420_DEC_STAGES = 2         # record buffers the decode keeps in flight
+COLOR420_DEC_OUT_BUFFERS = 1    # its pixel tile buffers
 _COLOR420_TILE_IN = 3 * 16 * 128                 # 3 planes x 16 rows
 _COLOR420_TILE_REC = 6 * 528                     # 4 Y groups, Cb, Cr: padded
 _COLOR420_CROSS = 4 * (2 * 64 * 16 + 2 * 64 * 16)   # Y, pooled, chroma (f32)
+# the decode's: Y and chroma crossings, the chroma values (2 x 8 x 64 f32)
+_COLOR420_DEC_CROSS = 4 * (2 * 64 * 16 + 64 * 16 + 2 * 8 * 64)
+_COLOR420_KINDS = ("enc420_rgb", "dec420_rgb")
 
 
 class Color420Plan(NamedTuple):
-    """A launch of ``enc420_rgb_kernel``."""
+    """A launch of ``enc420_rgb_kernel`` or ``dec420_rgb_kernel``."""
     tile_macroblocks: int   # 16x16 macroblocks of one macroblock row a tile
     tiles_per_row: int      # of a macroblock row: W / 128
     tail_macroblocks: int   # macroblocks of each row's last tile
@@ -833,11 +838,18 @@ class Color420Plan(NamedTuple):
     grid: int               # persistent CTAs, each taking every grid-th tile
 
 
-def color420_smem() -> int:
-    """Dynamic shared bytes of a CTA (``k420Smem`` in color420.cu): luma
-    and chroma scales, ``COLOR420_STAGES`` input tiles,
-    ``COLOR420_REC_BUFFERS`` record buffers and the Y crossing, pooled
-    chroma and chroma crossing buffers."""
+def color420_smem(kind: str = "enc420_rgb") -> int:
+    """Dynamic shared bytes of a CTA (``k420Smem`` and ``k420DecSmem`` in
+    color420.cu).  The encode: luma and chroma scales,
+    ``COLOR420_STAGES`` input tiles, ``COLOR420_REC_BUFFERS`` record
+    buffers and the Y crossing, pooled chroma and chroma crossing buffers.
+    The decode: the scales, ``COLOR420_DEC_OUT_BUFFERS`` pixel tiles,
+    ``COLOR420_DEC_STAGES`` record buffers, the Y and chroma crossings and
+    the chroma values."""
+    if kind == "dec420_rgb":
+        return (2 * 256 + COLOR420_DEC_OUT_BUFFERS * _COLOR420_TILE_IN
+                + COLOR420_DEC_STAGES * _COLOR420_TILE_REC
+                + _COLOR420_DEC_CROSS)
     return (2 * 256 + COLOR420_STAGES * _COLOR420_TILE_IN
             + COLOR420_REC_BUFFERS * _COLOR420_TILE_REC + _COLOR420_CROSS)
 
@@ -848,12 +860,14 @@ def color420_plan(kind: str, batch: int, h2: int, w: int, *, base: int,
     """The launch of the 4:2:0 encode (kind "enc420_rgb") for ``batch``
     frames of a (3, h2, W) view at address ``base``, planes
     ``plane_stride`` bytes apart (both multiples of 16: one tensor copy a
-    tile).  A tile is ``COLOR420_TILE_MACROBLOCKS`` macroblocks of one
-    macroblock row, 16 rows x 128 columns; W % 128 == 0 makes every row a
-    whole number of tiles.  ``capacity()`` gives (CTAs an SM holds, SMs);
-    the grid is as many CTAs as the card holds at once, at most one a
-    tile."""
-    if kind != "enc420_rgb":
+    tile), or of the decode ("dec420_rgb") of ``batch`` streams at address
+    ``base`` into (3, h2, W) frames, whose planes are h2*W bytes apart
+    (``plane_stride`` must say so).  A tile is
+    ``COLOR420_TILE_MACROBLOCKS`` macroblocks of one macroblock row, 16
+    rows x 128 columns; W % 128 == 0 makes every row a whole number of
+    tiles.  ``capacity()`` gives (CTAs an SM holds, SMs); the grid is as
+    many CTAs as the card holds at once, at most one a tile."""
+    if kind not in _COLOR420_KINDS:
         raise ValueError(f"no 4:2:0 tile plan for {kind!r}")
     if (base | plane_stride) % 16:
         raise ValueError(f"{kind} needs 16-byte addresses and plane strides, "
@@ -861,7 +875,10 @@ def color420_plan(kind: str, batch: int, h2: int, w: int, *, base: int,
     if h2 % 16 or w % 128:
         raise ValueError(f"{kind} needs H2 % 16 == 0 and W % 128 == 0, got "
                          f"H2={h2}, W={w}")
-    smem = color420_smem()
+    if kind == "dec420_rgb" and plane_stride != h2 * w:
+        raise ValueError(f"{kind} writes planes H2*W = {h2 * w} bytes apart, "
+                         f"not {plane_stride}")
+    smem = color420_smem(kind)
     mbw = w // 16
     tpr = mbw // COLOR420_TILE_MACROBLOCKS
     tiles = batch * (h2 // 16) * tpr
@@ -877,32 +894,42 @@ def color420_plan(kind: str, batch: int, h2: int, w: int, *, base: int,
 
 
 @functools.lru_cache(maxsize=16)
-def _color420_capacity(device: int, rounding: str) -> tuple[int, int]:
+def _color420_capacity(device: int, kind: str,
+                       rounding: str) -> tuple[int, int]:
     lib = _build.load()
     out = np.zeros(3, np.int32)
+    ptrs = (out.ctypes.data, out.ctypes.data + 4, out.ctypes.data + 8)
     with torch.cuda.device(device):
-        _build.check(lib, lib.sdct_color420_capacity(
-            _ROUNDING_CODE[rounding], out.ctypes.data, out.ctypes.data + 4,
-            out.ctypes.data + 8), "enc420_rgb capacity")
-    if int(out[0]) != color420_smem():
-        raise RuntimeError(f"enc420_rgb: the kernel lays out {int(out[0])} "
-                           f"shared bytes, the plan {color420_smem()}")
+        rc = (lib.sdct_dec420_capacity(*ptrs) if kind == "dec420_rgb" else
+              lib.sdct_color420_capacity(_ROUNDING_CODE[rounding], *ptrs))
+        _build.check(lib, rc, f"{kind} capacity")
+    if int(out[0]) != color420_smem(kind):
+        raise RuntimeError(f"{kind}: the kernel lays out {int(out[0])} "
+                           f"shared bytes, the plan {color420_smem(kind)}")
     return int(out[1]), int(out[2])
 
 
 def _color420_plan_of(t: torch.Tensor, base: int, batch: int, h2: int,
-                      w: int, plane_stride: int,
-                      rounding: str = "rne") -> Color420Plan:
+                      w: int, plane_stride: int, rounding: str = "rne",
+                      kind: str = "enc420_rgb") -> Color420Plan:
     dev = _device_index(t)
-    return color420_plan("enc420_rgb", batch, h2, w, base=base,
+    return color420_plan(kind, batch, h2, w, base=base,
                          plane_stride=plane_stride,
-                         capacity=lambda: _color420_capacity(dev, rounding))
+                         capacity=lambda: _color420_capacity(dev, kind,
+                                                             rounding))
 
 
-def color420_launch_plan(planes: torch.Tensor,
-                         rounding: str = "rne") -> Color420Plan:
+def color420_launch_plan(planes: torch.Tensor, rounding: str = "rne", *,
+                         size_x: int | None = None) -> Color420Plan:
     """The plan ``encode_quantize32_ycbcr420`` launches for a (3, H, W) or
-    (B, 3, H, W) CUDA tensor of at most 65,535 frames."""
+    (B, 3, H, W) CUDA tensor of at most 65,535 frames; with ``size_x``,
+    the plan ``decode_quantize32_ycbcr420`` launches for ``planes``, then
+    (1.5*H2*W,) or (B, 1.5*H2*W) streams of that width."""
+    if size_x is not None:
+        h2 = planes.shape[-1] * 2 // (3 * size_x)
+        return _color420_plan_of(planes, planes.data_ptr(),
+                                 _batch_of(planes, 1), h2, size_x,
+                                 h2 * size_x, kind="dec420_rgb")
     h, w = planes.shape[-2:]
     return _color420_plan_of(planes, planes.data_ptr(), _batch_of(planes, 3),
                              h // 2, w, h * w, rounding)
@@ -969,10 +996,16 @@ def decode_quantize32_ycbcr420(data: torch.Tensor, luma, chroma, size_x: int,
         return out
     _, qil = _host_scales(luma)
     _, qic = _host_scales(chroma)
-    _launch("dec420_rgb", (data, out), batch,
-            lambda lib, src, dst, n: lib.sdct_dec420_rgb(
-                src, dst, qil.ctypes.data, qic.ctypes.data,
-                _COLOR_MIX.ctypes.data, n, h2, size_x, _stream(data)))
+
+    def launch(lib, src, dst, n):
+        plan = _color420_plan_of(data, src, n, h2, size_x, h2 * size_x,
+                                 kind="dec420_rgb")
+        return lib.sdct_dec420_rgb(
+            src, dst, qil.ctypes.data, qic.ctypes.data,
+            _COLOR_MIX.ctypes.data, n, h2, size_x, plan.grid, plan.smem,
+            _stream(data))
+
+    _launch("dec420_rgb", (data, out), batch, launch)
     return out
 
 
@@ -1153,6 +1186,95 @@ def tiles_panels(view: torch.Tensor, scales, *, normalize: bool,
     return out
 
 
+# -- the tile inverse's launch plan (csrc/tiles.cu detile_kernel) -------------
+
+DETILE_BLOCK_ROWS = 2        # block rows of one 128x128 tile a strip tile
+DETILE_TILE_BLOCKS = DETILE_BLOCK_ROWS * _panel.TILE // 8   # 32 blocks
+DETILE_BLOCK_THREADS = 4     # threads an 8x8 block (kDetileBlockThreads)
+DETILE_STAGES = 1            # input tiles in flight
+DETILE_OUT_BUFFERS = 1       # pixel tile buffers
+_DETILE_BYTES = 16 * _panel.TILE   # a strip tile's Z rows, or pixel rows
+_DETILE_CROSS = 4 * 64 * DETILE_TILE_BLOCKS   # the f32 crossing buffer
+
+
+class DetilePlan(NamedTuple):
+    """A launch of ``detile_kernel``."""
+    tile_blocks: int      # 8x8 blocks a strip tile: 2 block rows x 16
+    tiles_per_view: int   # strip tiles a (H2, W) view: H2/16 x W/128
+    tiles: int            # of the launch: (frame, 128-row band, q, column)
+    smem: int             # dynamic shared bytes of a CTA
+    ctas_per_sm: int
+    grid: int             # persistent CTAs, each taking every grid-th tile
+
+
+def detile_smem() -> int:
+    """Dynamic shared bytes of a CTA (``kDetileSmem`` in tiles.cu): the 64
+    scales, ``DETILE_OUT_BUFFERS`` pixel tiles, ``DETILE_STAGES`` input
+    tiles (2 KB each) and the f32 crossing buffer."""
+    return (256 + (DETILE_OUT_BUFFERS + DETILE_STAGES) * _DETILE_BYTES
+            + _DETILE_CROSS)
+
+
+def detile_plan(batch: int, h2: int, w: int, *, base: int,
+                capacity: Callable[[], tuple[int, int]]) -> DetilePlan:
+    """The launch of the tile inverse for ``batch`` (H2/128, 128, W/128,
+    128) tile frames at address ``base`` (a multiple of 16: one tensor copy
+    a strip tile).  A strip tile is block rows 2q and 2q + 1 of one 128x128
+    tile; H2 % 128 == 0 and W % 128 == 0 leave no part tile.
+    ``capacity()`` gives (CTAs an SM holds, SMs); the grid is as many CTAs
+    as the card holds at once, at most one a tile."""
+    if base % 16:
+        raise ValueError(f"detile needs a 16-byte address, got {base}")
+    if not _panel.supports(h2, w):
+        raise ValueError(f"detile needs H2 % 128 == 0 and W % 128 == 0, got "
+                         f"H2={h2}, W={w}")
+    per_view = (h2 // (8 * DETILE_BLOCK_ROWS)) * (w // _panel.TILE)
+    tiles = batch * per_view
+    if tiles >= 1 << 31:
+        raise ValueError(f"detile: {tiles} tiles in one launch exceed "
+                         "2^31 - 1")
+    smem = detile_smem()
+    per_sm, sms = capacity()
+    if per_sm < 1:
+        raise ValueError(f"detile: no CTA of {smem} shared bytes fits an SM")
+    return DetilePlan(DETILE_TILE_BLOCKS, per_view, tiles, smem, per_sm,
+                      min(tiles, sms * per_sm))
+
+
+@functools.lru_cache(maxsize=16)
+def _detile_capacity(device: int, normalize: bool,
+                     orientation: str) -> tuple[int, int]:
+    lib = _build.load()
+    out = np.zeros(3, np.int32)
+    with torch.cuda.device(device):
+        _build.check(lib, lib.sdct_detile_capacity(
+            int(normalize), _ORIENTATION_CODE[orientation], out.ctypes.data,
+            out.ctypes.data + 4, out.ctypes.data + 8), "detile capacity")
+    if int(out[0]) != detile_smem():
+        raise RuntimeError(f"detile: the kernel lays out {int(out[0])} shared "
+                           f"bytes, the plan {detile_smem()}")
+    return int(out[1]), int(out[2])
+
+
+def _detile_plan_of(t: torch.Tensor, base: int, batch: int, h2: int, w: int,
+                    normalize: bool, orientation: str) -> DetilePlan:
+    dev = _device_index(t)
+    return detile_plan(batch, h2, w, base=base,
+                       capacity=lambda: _detile_capacity(dev, bool(normalize),
+                                                         orientation))
+
+
+def detile_launch_plan(tiles: torch.Tensor, normalize: bool = False,
+                       orientation: str = "fy") -> DetilePlan:
+    """The plan ``detile_panels`` launches for a (..., P, 128, NJ, 128)
+    CUDA tensor of at most 65,535 frames."""
+    p, _, nj, _ = tiles.shape[-4:]
+    h2, w = p * _panel.TILE, nj * _panel.TILE
+    return _detile_plan_of(tiles, tiles.data_ptr(),
+                           tiles.numel() // (h2 * w), h2, w, normalize,
+                           orientation)
+
+
 def detile_panels(tiles: torch.Tensor, inv_scales, *, normalize: bool,
                   orientation: str) -> torch.Tensor:
     """The detile kernel, the inverse of ``tiles_panels``:
@@ -1175,10 +1297,15 @@ def detile_panels(tiles: torch.Tensor, inv_scales, *, normalize: bool,
                       device=tiles.device)
     if out.numel() == 0:
         return out
-    _launch("detile", (tiles, out), tiles.numel() // (h2 * w),
-            lambda lib, src, dst, n: lib.sdct_detile(
-                src, dst, qi.ctypes.data, n, h2, w, int(bool(normalize)),
-                _ORIENTATION_CODE[orientation], _stream(tiles)))
+
+    def launch(lib, src, dst, n):
+        plan = _detile_plan_of(tiles, src, n, h2, w, normalize, orientation)
+        return lib.sdct_detile(src, dst, qi.ctypes.data, n, h2, w,
+                               int(bool(normalize)),
+                               _ORIENTATION_CODE[orientation], plan.grid,
+                               plan.smem, _stream(tiles))
+
+    _launch("detile", (tiles, out), tiles.numel() // (h2 * w), launch)
     return out
 
 

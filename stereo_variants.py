@@ -65,11 +65,13 @@ _BYTE = ("  return __fsub_rn(__int_as_float(__byte_perm(w, 0x4B00u, "
          "0x5440 + i)), kTwo23);\n")
 _QUANT = ("  if (R == kRne) return (uint8_t)(rint_bits(fminf(fmaxf(x, "
           "-127.0f), 128.0f)) + 127u);\n")
-_DEQ = ("__fsub_rn(__int_as_float(0x4B000000u | stage[(uu * 8 + v) * "
-        "kTileBlocks + b]),\n                                    kTwo23 + "
-        "127.0f)")
-_PACK = ("px[kk] = rint_bits(fminf(fmaxf(__fmul_rn(acc, 255.0f), 0.0f), "
-         "255.0f));")
+# the decode's byte conversions (tile_common.cuh, shared with tiles.cu)
+_DEQ = ("  return __fmul_rn(__fsub_rn(__int_as_float(0x4B000000u | b), "
+        "kTwo23 + 127.0f), q);\n")
+_PACK = ("  return rint_bits(fminf(fmaxf(N ? __fmul_rn(y, 255.0f) : y, 0.0f), "
+         "255.0f));\n")
+# tile_common.cuh basis: the table, or (an edit) kD's constant bank
+_BASIS = "  return t[i];\n}"
 _COLS = "for (int uu = 0; uu < 8; ++uu) {\n        float acc[kLines];"
 _ROWS = ("for (int h = 0; h < kLines; ++h) {\n"
          "        const int u = kLines * w + h;")
@@ -90,17 +92,15 @@ BUILDS = {
         [(_BYTE, "  return (float)((w >> (8 * i)) & 0xffu);\n"),
          (_QUANT, "  if (R == kRne) return (uint8_t)(int)(fminf(fmaxf("
                   "rintf(x), -127.0f), 128.0f) + 127.0f);\n"),
-         (_DEQ, "((float)stage[(uu * 8 + v) * kTileBlocks + b] - 127.0f)"),
-         (_PACK, "px[kk] = (uint32_t)(int)fminf(fmaxf(rintf(__fmul_rn(acc, "
-                 "255.0f)), 0.0f), 255.0f);")], (ENC, DEC), False),
+         (_DEQ, "  return __fmul_rn((float)b - 127.0f, q);\n"),
+         (_PACK, "  return (uint32_t)(int)fminf(fmaxf(rintf(N ? __fmul_rn("
+                 "y, 255.0f) : y), 0.0f), 255.0f);\n")], (ENC, DEC), False),
     "four threads a block": (
         [("constexpr int kBlockThreads = 2;",
           "constexpr int kBlockThreads = 4;")],
         (ENC, DEC), False),
     "basis from the constant bank": (
-        [('#include "tile_common.cuh"\n',
-          '#include "tile_common.cuh"\n#define basis(i) kD[i]\n')],
-        (ENC, DEC), False),
+        [(_BASIS, "  return kD[i];\n}")], (ENC, DEC), False),
     "built for 2048 threads an SM": (
         [(_BOUNDS,
           "__launch_bounds__(kStereoThreads, 2048 / kStereoThreads)")],

@@ -531,3 +531,81 @@ def test_color420_plan_shared_bytes_and_refusals():
     assert shard.tiles == 4 * 15
     small = _plan420(1, 16, 128)
     assert small.tiles == small.grid == 1
+
+
+# -- the strip-tile decode's launch plan (dec420_rgb_kernel), pure Python ----
+
+def _dec_plan420(batch, h2, w, capacity=_h100, base=0, plane_stride=None):
+    return K.color420_plan("dec420_rgb", batch, h2, w, base=base,
+                           plane_stride=h2 * w if plane_stride is None
+                           else plane_stride, capacity=capacity)
+
+
+@pytest.mark.parametrize("batch", [1, 64, 65535])
+@pytest.mark.parametrize("h2,w", PLAN_VIEWS_420)
+def test_dec420_plan_covers_each_macroblock_once(h2, w, batch):
+    mbw, rows, bw = w // 16, h2 // 16, w // 8
+    plan = _dec_plan420(batch, h2, w)
+    assert plan.tile_macroblocks == TM
+    assert plan.tiles_per_row * TM == mbw and plan.tail_macroblocks == TM
+    assert plan.tiles == batch * rows * plan.tiles_per_row < 1 << 31
+    assert 1 <= plan.grid == min(plan.tiles, 132 * plan.ctas_per_sm)
+    assert plan.grid <= plan.tiles
+    assert plan.smem == K.color420_smem("dec420_rgb") <= K.SMEM_LIMIT
+    per_frame = rows * plan.tiles_per_row
+    y_plane = h2 * w
+    for f in sorted({0, 1, batch - 2, batch - 1} & set(range(batch))):
+        # tile t as tile420_at in color420.cu numbers it
+        t = np.arange(f * per_frame, (f + 1) * per_frame)
+        fr, x = np.divmod(t, plan.tiles_per_row)
+        frame, my = np.divmod(fr, rows)
+        assert (frame == f).all()
+        # the six groups a tile loads (group420_at): the macroblocks of
+        # their blocks, Y (two blocks across a macroblock) and chroma
+        y_blocks = (16 * x[:, None, None] + 8 * np.arange(2)[None, :, None]
+                    + np.arange(8)[None, None, :])
+        mb_y = (my * mbw)[:, None] + (y_blocks // 2).reshape(len(t), -1)
+        mb_c = (my * mbw + TM * x)[:, None] + np.arange(TM)[None]
+        # the pixel box the tile stores: rows 16my .. +16, columns
+        # 128x .. +128, of each plane
+        mb_out = (my * mbw)[:, None] + (128 * x[:, None]
+                                        + 16 * np.arange(TM)[None]) // 16
+        for mb in (mb_y, mb_out):
+            np.testing.assert_array_equal(np.unique(mb, axis=1)
+                                          if mb.shape[1] > TM else mb, mb_c)
+        np.testing.assert_array_equal(
+            np.bincount(mb_c.ravel(), minlength=rows * mbw),
+            np.ones(rows * mbw))
+        # the groups' bytes: each group of the stream loaded once
+        y = [((2 * my + r) * bw + 16 * x + 8 * g) * 64
+             for r in (0, 1) for g in (0, 1)]
+        c = [y_plane + k * (y_plane // 4) + (my * mbw + TM * x) * 64
+             for k in (0, 1)]
+        starts = np.concatenate(y + c)
+        assert (starts % 512 == 0).all()
+        np.testing.assert_array_equal(
+            np.bincount(starts // 512, minlength=3 * y_plane // 1024),
+            np.ones(3 * y_plane // 1024))
+
+
+def test_dec420_plan_shared_bytes_and_refusals():
+    # scales, the pixel tiles, the record buffers (4 Y groups, Cb, Cr,
+    # padded), the Y and chroma crossings, the chroma values
+    assert K.color420_smem("dec420_rgb") == (
+        2 * 256 + K.COLOR420_DEC_OUT_BUFFERS * 3 * 16 * 128
+        + K.COLOR420_DEC_STAGES * 6 * 528
+        + 4 * (2 * 64 * 16 + 64 * 16 + 2 * 8 * 64)) <= K.SMEM_LIMIT
+    with pytest.raises(ValueError):     # no CTA fits an SM
+        _dec_plan420(1, 16, 128, capacity=lambda: (0, 132))
+    with pytest.raises(ValueError):     # 2^31 tiles or more
+        _dec_plan420(65535, 1 << 16, 1 << 14)
+    with pytest.raises(ValueError):     # off 16 bytes
+        _dec_plan420(1, 16, 128, base=8)
+    with pytest.raises(ValueError):     # the output's planes are H2*W apart
+        _dec_plan420(1, 16, 128, plane_stride=4096)
+    for h2, w in [(24, 128), (16, 192)]:
+        with pytest.raises(ValueError):
+            _dec_plan420(1, h2, w)
+    small = _dec_plan420(1, 16, 128)
+    assert small.tiles == small.grid == 1
+    assert _dec_plan420(64, 544, 1920).tiles == 64 * 34 * 15

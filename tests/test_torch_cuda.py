@@ -436,6 +436,29 @@ def test_enc420_rgb_shard_rows_equal_the_whole(gen, rows):
     assert torch.equal(c, c_all[:, r0 // 16:r1 // 16])
 
 
+@pytest.mark.parametrize("shape", [(3, 64, 384), (8, 3, 1088, 1920)])
+@pytest.mark.parametrize("records", ["encoded", "random"])
+def test_dec420_rgb_strip_tiles_against_plain(gen, shape, records):
+    """The strip-tile decode: one launch of its plan's tiles, within the
+    plain version's budget on encoded streams and on random bytes (which
+    clip at both rails)."""
+    planes = _img(gen, *shape)
+    h, w = shape[-2:]
+    frames = shape[0] if len(shape) == 4 else 1
+    rec = TP.encode_ycbcr420(planes, LUMA, CHROMA)
+    if records == "random":
+        rec = _img(gen, *rec.shape)
+    plan = K.color420_launch_plan(rec, size_x=w)
+    assert plan.tiles == frames * (h // 32) * (w // 128)
+    assert plan.smem == K.color420_smem("dec420_rgb")
+    assert 1 <= plan.grid <= plan.tiles
+    K.reset_launch_counts()
+    got = K.decode_quantize32_ycbcr420(rec, LUMA, CHROMA, w, h)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["dec420_rgb"] == 1
+    _ok(got, TP.decode_ycbcr420(rec, LUMA, CHROMA, w, h))
+
+
 def test_color420_api_launches_kernels(gen):
     planes = _img(gen, 2, 3, 256, 384).cpu().numpy()
     K.reset_launch_counts()
@@ -516,6 +539,48 @@ def test_tile_records_equal_the_mode_kernels(gen, rounding):
                          normalize=True, orientation="fy")
     assert torch.equal(px.view(2, 512, 384),
                        K.decode_quantize_stereo(rec, LUT_Q, 384, 512))
+
+
+@pytest.mark.parametrize("shape", [(128, 128), (2, 256, 128),
+                                   (8, 1024, 1920)])
+@pytest.mark.parametrize("normalize", [False, True])
+@pytest.mark.parametrize("orientation", ["fy", "fx"])
+def test_detile_strip_tiles_against_plain(gen, shape, normalize, orientation):
+    """The strip-tile inverse at W = 128 and on an 8-frame batch, on the
+    tiles of a view and on random bytes (which clip at both rails), one
+    launch of its plan's tiles each."""
+    from simd_dct_tpu_torch.kernels import panel
+    q, qi = _tile_scales(LUT_Q if normalize else LUT)
+    view = _img(gen, *shape)
+    h2, w = shape[-2:]
+    coded = panel.forward_tiles(view, q, normalize=normalize,
+                                orientation=orientation, rounding="rne")
+    for tiles in (coded, _img(gen, *coded.shape)):
+        plan = K.detile_launch_plan(tiles, normalize, orientation)
+        assert plan.tiles == view.numel() // (16 * 128)
+        assert plan.smem == K.detile_smem() and 1 <= plan.grid <= plan.tiles
+        K.reset_launch_counts()
+        got = K.detile_panels(tiles, qi, normalize=normalize,
+                              orientation=orientation)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["detile"] == 1
+        _ok(got, panel.inverse_tiles(tiles, qi, normalize=normalize,
+                                     orientation=orientation))
+
+
+@pytest.mark.parametrize("shape", [(256, 384), (2, 2048, 1920)])
+def test_detile_of_stereo_records_equals_dec_stereo(gen, shape):
+    """The detile of the stereo records, converted, is the stereo decode
+    byte for byte: the two share their arithmetic."""
+    from simd_dct_tpu_torch.kernels import panel
+    img = _img(gen, *shape)
+    h, w = shape[-2:]
+    rec = K.encode_quantize_stereo(img, LUT_Q)
+    _, qi = _tile_scales(LUT_Q)
+    px = K.detile_panels(panel.planar_to_tiles(rec, h // 2, w), qi,
+                         normalize=True, orientation="fy")
+    assert torch.equal(px.reshape(img.shape),
+                       K.decode_quantize_stereo(rec, LUT_Q, w, h))
 
 
 # -- batches longer than one launch takes -------------------------------------

@@ -339,3 +339,100 @@ def test_tile_wrappers_reject_bad_calls(case):
     }
     with pytest.raises((ValueError, TypeError)):
         calls[case]()
+
+
+# -- the tile inverse's launch plan (detile_kernel), pure Python --------------
+
+# the views of chip_smoke.py's TILE_GEOMETRIES
+PLAN_VIEWS = [(2048, 3840), (1024, 1920), (128, 128)]
+
+
+def _h100():
+    """A card of 132 SMs holding 13 CTAs an SM."""
+    return 13, 132
+
+
+def _detile_plan(batch, h2, w, capacity=_h100, base=0):
+    return K.detile_plan(batch, h2, w, base=base, capacity=capacity)
+
+
+def _strip_tiles(plan, h2, w, f):
+    """Frame f's strip tiles as detile_at in tiles.cu numbers them:
+    (128-row band p of the frame, block-row pair q, tile column j)."""
+    nj = w // 128
+    t = np.arange(f * plan.tiles_per_view, (f + 1) * plan.tiles_per_view)
+    row, j = np.divmod(t, nj)
+    bp, q = np.divmod(row, 8)
+    frame, p = np.divmod(bp, h2 // 128)
+    assert (frame == f).all()
+    return p, q, j
+
+
+@pytest.mark.parametrize("batch", [1, 64, 65535])
+@pytest.mark.parametrize("h2,w", PLAN_VIEWS)
+def test_detile_plan_covers_each_block_once(h2, w, batch):
+    plan = _detile_plan(batch, h2, w)
+    bw = w // 8
+    assert plan.tile_blocks == K.DETILE_TILE_BLOCKS == 32
+    assert plan.tiles_per_view == (h2 // 16) * (w // 128)
+    assert plan.tiles == batch * plan.tiles_per_view < 1 << 31
+    assert 1 <= plan.grid == min(plan.tiles, 132 * 13) <= plan.tiles
+    assert plan.smem == K.detile_smem() <= K.SMEM_LIMIT
+    for f in sorted({0, 1, batch - 2, batch - 1} & set(range(batch))):
+        p, q, j = _strip_tiles(plan, h2, w, f)
+        # the input box: Z rows u*16 + m of the 128x128 tile (p, j) for
+        # m in {2q, 2q + 1}, which hold the coefficients of blocks (m, n)
+        m = 2 * q[:, None, None] + np.arange(2)[None, :, None]
+        n = np.arange(16)[None, None, :]
+        blocks_in = ((16 * p[:, None, None] + m) * bw
+                     + 16 * j[:, None, None] + n)
+        # the output box: pixel rows 16q .. 16q + 15 of the band, columns
+        # 128j .. 128j + 127, block by block
+        r = 128 * p[:, None, None] + 16 * q[:, None, None] \
+            + 8 * np.arange(2)[None, :, None]
+        c = 128 * j[:, None, None] + 8 * np.arange(16)[None, None, :]
+        blocks_out = (r // 8) * bw + c // 8
+        np.testing.assert_array_equal(blocks_in, blocks_out)
+        np.testing.assert_array_equal(
+            np.bincount(blocks_in.ravel(), minlength=h2 * w // 64),
+            np.ones(h2 * w // 64))
+
+
+@pytest.mark.parametrize("h2,w", PLAN_VIEWS)
+def test_detile_plan_boxes_cover_each_byte_once(h2, w):
+    """Every byte of a frame's tiles lies in one input box and every pixel
+    in one output box (tensor-map coordinates as the kernel gives them).
+    A box row is 128 bytes at column 128j: count (view row, j) segments."""
+    nj = w // 128
+    plan = _detile_plan(1, h2, w)
+    p, q, j = _strip_tiles(plan, h2, w, 0)
+    # input: the view read as (W, 16 [m], 8 [u], P) at {128j, 2q, 0, p}
+    u, mm = np.ix_(np.arange(8), np.arange(2))
+    z_rows = (128 * p + 2 * q)[:, None, None] + u * 16 + mm
+    # output: (W, 128, P) at {128j, 16q, p}
+    pix_rows = (128 * p + 16 * q)[:, None] + np.arange(16)[None]
+    for rows in (z_rows, pix_rows):
+        segments = rows.reshape(len(j), -1) * nj + j[:, None]
+        np.testing.assert_array_equal(
+            np.bincount(segments.ravel(), minlength=h2 * nj),
+            np.ones(h2 * nj))
+
+
+def test_detile_plan_shared_bytes_and_refusals():
+    # the scales, the pixel buffers and the input tiles (2 KB each), the
+    # f32 crossing of 32 blocks
+    assert K.detile_smem() == (
+        256 + (K.DETILE_OUT_BUFFERS + K.DETILE_STAGES) * 16 * 128
+        + 4 * 64 * 32) <= K.SMEM_LIMIT
+    with pytest.raises(ValueError):     # no CTA fits an SM
+        _detile_plan(1, 128, 128, capacity=lambda: (0, 132))
+    with pytest.raises(ValueError):     # 2^31 tiles or more
+        _detile_plan(65535, 1 << 13, 1 << 14)
+    with pytest.raises(ValueError):     # off 16 bytes
+        _detile_plan(1, 128, 128, base=8)
+    for h2, w in [(192, 128), (128, 192), (0, 128)]:
+        with pytest.raises(ValueError):
+            _detile_plan(1, h2, w)
+    small = _detile_plan(1, 128, 128)
+    assert small.tiles == small.grid == 8
+    assert _detile_plan(65535, 128, 128).grid == 132 * 13
