@@ -16,7 +16,8 @@ result line):
      tensors (+-1 on at most 0.2% of bytes) at 4096x3840, 1088x1920,
      256x192, a batch of 8 frames of 1088x1920, every rounding mode and a
      strip range; the 256x192 encode also against an independent float64
-     NumPy model;
+     NumPy model; the round trip also at 16x1984 (its strips end in a
+     short tile), with the launch plan of each geometry;
   4. the fused mode32 round trip equals decode(encode(x)) byte for byte,
      and its PSNR on a smooth 4K view is within 0.1 dB of the plain
      version's;
@@ -69,9 +70,11 @@ result line):
       of back-to-back calls for each (the 4:2:0 rows beside the colour
       rows' copy of the three channels' top view); the launch plan of
       every strip-tile kernel (enc32_rgb, dec32_rgb, roundtrip32_rgb,
-      enc420_rgb, dec420_rgb, detile and the stereo kernels in each
-      layout: ``cuda_dct.color_plan``, ``cuda_dct.color420_plan``,
-      ``cuda_dct.detile_plan``, ``cuda_dct.stereo_plan``) beside its 4K
+      enc420_rgb, dec420_rgb, tiles, detile, roundtrip32 and the stereo
+      kernels in each layout: ``cuda_dct.color_plan``,
+      ``cuda_dct.color420_plan``, ``cuda_dct.tiles_plan``,
+      ``cuda_dct.detile_plan``, ``cuda_dct.roundtrip32_plan``,
+      ``cuda_dct.stereo_plan``) beside its 4K
       time before its strip-tile
       design (``EARLIER_US``), its exact-arithmetic floor
       (``EXACT_OPS_PER_PX``) and the ptxas registers of the instantiation
@@ -110,7 +113,8 @@ result line):
       of bytes) on 2048x3840 (the 4K top view), 1024x1920, 128x128 and an
       8-frame 1024x1920 batch of views, raw + fy (mode32), normalized + fx
       (enc-quant) and normalized + fy (stereo), every rounding mode, with
-      the detile's launch plan of each geometry; and the
+      the tile kernel's and the detile's launch plans of each geometry;
+      and the
       identities with the kernels ported earlier, each with its mismatch
       count: tiles_to_group8 == enc32, tiles_to_block_contiguous == encq
       scalar, tiles_to_pair == encq pair, tiles_to_planar of both views ==
@@ -249,11 +253,13 @@ PLAIN_WALL_REPS = 5
 # PERF.md rows 12 to 14: the thread-per-(block, channel) design; rows 9
 # and 10: the thread-per-block stereo design, interleaved; row 15: the
 # thread-per-block 4:2:0 encode; row 16: the 4:2:0 decode of 32
-# macroblocks a CUDA block; row 6: the tile inverse of a block a thread)
+# macroblocks a CUDA block; row 6: the tile inverse of a block a thread;
+# rows 5 and 3: the tile kernel and the fused round trip of a block a thread)
 EARLIER_US = {"enc32_rgb": 52.84, "roundtrip32_rgb": 86.72,
               "dec32_rgb": 45.85, "enc420_rgb": 37.25,
               "dec420_rgb": 35.10, "enc_stereo": 26.76,
-              "dec_stereo": 28.00, "detile": 14.65}
+              "dec_stereo": 28.00, "detile": 14.65, "tiles": 14.86,
+              "roundtrip32": 20.70}
 # The exact-arithmetic floor of the colour tile kernels: the instructions a
 # pixel position that their bytes require, issued at one instruction a lane
 # a clock (132 SMs x 128 lanes at the 1980 MHz the card holds under them,
@@ -299,6 +305,15 @@ EARLIER_US = {"enc32_rgb": 52.84, "roundtrip32_rgb": 86.72,
 # exact (b - 127) (2), dequant multiply (1), idct2d (16 FMAs), crossing
 # (2), 2 clamps and the round (3), packing (0.75) and staging (1/8):
 # dec_stereo's count less its times 255, 25.875.
+# The tile kernel (timed raw: no times 1/255), per pixel: the input read
+# (1), the exact u8 -> f32 (2), the matrix-form transform (16 FMAs), the
+# quantizer (multiply, 2 clamps, round, +127: 5), the crossing (2) and the
+# Z staging (1): enc_stereo's count less its 1/255 scale, 27.
+# The fused round trip, per pixel: its block's rows read as 8-byte words
+# (1/8), the exact u8 -> f32 (2), dct2d (16 FMAs), the requantizer
+# (multiply, 2 clamps, exact rint (2), dequant multiply: 6), idct2d (16
+# FMAs), the pixel's 2 clamps and round (3), packing (0.75) and staging
+# (1/8); no crossing (one thread a block): 44.
 EXACT_OPS_PER_PX = {
     "enc32_rgb": 3 * (2 + 6 + 16 + 5) + 3 + 6 + 3,
     "dec32_rgb": 3 * (1 + 2 + 1 + 16 + 1 + 8 + 0.75) + 6 + 3 / 8,
@@ -309,6 +324,8 @@ EXACT_OPS_PER_PX = {
     "enc_stereo": 2 + 1 + 16 + 5 + 1 + 2 + 1,
     "dec_stereo": 1 + 2 + 1 + 16 + 1 + 2 + 1 + 0.75 + 1 / 8 + 2,
     "detile": 1 + 2 + 1 + 16 + 2 + 1 + 0.75 + 1 / 8 + 2,
+    "tiles": 1 + 2 + 16 + 5 + 2 + 1,
+    "roundtrip32": 1 / 8 + 2 + 16 + 6 + 16 + 3 + 0.75 + 1 / 8,
 }
 ISSUE_PER_S = 132 * 128 * 1.98e9
 # ptxas -v of each kernel instantiation, from the build (phase 2)
@@ -410,6 +427,8 @@ def phase_compare(gen, lut, errs):
             cuda_dct.encode_quantize32(img, lut), lut, w, h)
         require(torch.equal(fused, composed),
                 f"roundtrip32 {tag}: fused == composed byte for byte")
+        log(f"  roundtrip32 {tag} plan: "
+            f"{cuda_dct.roundtrip32_launch_plan(img)._asdict()}")
         plain_rt = torch_path.roundtrip_quantize32(img, lut)
         diff = (fused.to(torch.int16) - plain_rt.to(torch.int16)).abs()
         errs["roundtrip32"] = max(errs.get("roundtrip32", 0),
@@ -417,6 +436,16 @@ def phase_compare(gen, lut, errs):
         log(f"  roundtrip32 {tag}: fused == composed; against plain "
             f"max_abs_diff={int(diff.max())} "
             f"mismatch_rate={float((diff > 0).double().mean()):.3e}")
+    # W = 1984: each strip ends in a short round-trip tile
+    img = random_images(gen, 16, 1984, 1)
+    fused = cuda_dct.roundtrip_quantize32(img, lut)
+    require(torch.equal(fused, cuda_dct.decode_quantize32(
+        cuda_dct.encode_quantize32(img, lut), lut, 1984, 16)),
+        "roundtrip32 16x1984: fused == composed byte for byte")
+    agree("roundtrip32 1x16x1984", fused,
+          torch_path.roundtrip_quantize32(img, lut), errs, "roundtrip32")
+    log(f"  roundtrip32 1x16x1984 plan: "
+        f"{cuda_dct.roundtrip32_launch_plan(img)._asdict()}")
     img = random_images(gen, 512, 3840, 1)
     agree("enc32 512x3840 strip range [64, 191]",
           cuda_dct.encode_quantize32(img, lut, 64, 191),
@@ -1026,6 +1055,8 @@ def phase_compare_tiles(gen, luts, errs):
         shape = top.shape[:-2] + (h2 // 128, 128, w // 128, 128)
         log(f"  detile {tag} plan: "
             f"{cuda_dct.detile_launch_plan(top.view(shape))._asdict()}")
+        log(f"  tiles {tag} plan: "
+            f"{cuda_dct.tiles_launch_plan(top)._asdict()}")
         for name, normalize, orientation, key in TILE_CONFIGS:
             q, qi = tile_scales(luts[key])
             view = img.view(*img.shape[:-2], 2, h2, w) \
@@ -1837,6 +1868,11 @@ def strip_tile_plan(kernel: str, name: str, x, h: int, w: int):
     if kernel == "detile":
         # the timed job: raw, fy
         return cuda_dct.detile_launch_plan(x), "detile_kernel<0,0>"
+    if kernel == "tiles":
+        # the timed job: rne, fy, raw
+        return cuda_dct.tiles_launch_plan(x), "tiles_kernel<0,0,0>"
+    if kernel == "roundtrip32":
+        return cuda_dct.roundtrip32_launch_plan(x), "roundtrip32_kernel"
     if kernel == "dec32_rgb":
         return (cuda_dct.color_launch_plan(kernel, x, size_x=w),
                 "dec32_rgb_kernel")

@@ -40,13 +40,15 @@
 //     scales them by 1/255 and runs dct2d's column pass; t[u][k] crosses
 //     through shared memory to the thread of rows u, which runs the row
 //     pass, quantizes and writes byte u*8+v into plane row u*8+v, column
-//     b.  Decode is the mirror: a thread dequantizes four columns c[u][v]
-//     ((b - 127) exactly, times the scale) and runs idct2d's first pass;
-//     the thread of rows j the second, times 255, then rounds half to
-//     even, clips and packs 8 pixels a row (tile_common.cuh dequant_byte,
-//     idct_column and idct_row_pixels, shared with the tile inverse of
-//     tiles.cu).  The DCT basis is compiled into the FMAs as immediates
-//     (tile_common.cuh basis).
+//     b (tile_common.cuh dct_column and dct_row, shared with the tile
+//     kernel of tiles.cu and the fused round trip of dct32.cu).  Decode is
+//     the mirror: a thread dequantizes four columns c[u][v] ((b - 127)
+//     exactly, times the scale) and runs idct2d's first pass; the thread of
+//     rows j the second, times 255, then rounds half to even, clips and
+//     packs 8 pixels a row (tile_common.cuh dequant_byte, idct_column and
+//     idct_row_pixels, shared with the tile inverse of tiles.cu).  The DCT
+//     basis is compiled into the FMAs as immediates (tile_common.cuh
+//     basis).
 //   * In native form the encode's tiles cover [0, BWP): a column past BW is
 //     written explicitly, 127 in an included strip and 0 in an excluded
 //     one, so every output byte has one writer.  A tile of an excluded
@@ -337,21 +339,17 @@ enc_stereo_kernel(const uint8_t* __restrict__ img, uint8_t* __restrict__ out, Sc
 #pragma unroll
         for (int h = 0; h < kLines; ++h) x[h][r] = __fmul_rn(byte_f32(bytes, h), kInv255);
       }
+      float tc[kLines][8];
+#pragma unroll
+      for (int h = 0; h < kLines; ++h) dct_column(x[h], tc[h]);
 #pragma unroll
       for (int uu = 0; uu < 8; ++uu) {
-        float acc[kLines];
-#pragma unroll
-        for (int h = 0; h < kLines; ++h) {
-          acc[h] = __fmul_rn(basis(uu * 8), x[h][0]);
-#pragma unroll
-          for (int j = 1; j < 8; ++j) acc[h] = __fmaf_rn(basis(uu * 8 + j), x[h][j], acc[h]);
-        }
         float* dst = cross + enc_cross(uu, kLines * cq, cb);
         if (kLines == 4)
-          *reinterpret_cast<float4*>(dst) = make_float4(acc[0], acc[1], acc[2 % kLines],
-                                                        acc[3 % kLines]);
+          *reinterpret_cast<float4*>(dst) = make_float4(tc[0][uu], tc[1][uu], tc[2 % kLines][uu],
+                                                        tc[3 % kLines][uu]);
         else
-          *reinterpret_cast<float2*>(dst) = make_float2(acc[0], acc[1]);
+          *reinterpret_cast<float2*>(dst) = make_float2(tc[0][uu], tc[1][uu]);
       }
     }
     walk.advance(g);
@@ -373,16 +371,12 @@ enc_stereo_kernel(const uint8_t* __restrict__ img, uint8_t* __restrict__ out, Sc
         const float4 t0 = *reinterpret_cast<const float4*>(line + lo);
         const float4 t1 = *reinterpret_cast<const float4*>(line + (lo ^ 4));
         const float tr[8] = {t0.x, t0.y, t0.z, t0.w, t1.x, t1.y, t1.z, t1.w};
-        float qv[8];
+        float qv[8], c[8];
         row_scales(sq, u, qv);
+        dct_row(tr, c);
         uint8_t* dst = rec + u * 8 * kTileBlocks + b;
 #pragma unroll
-        for (int v = 0; v < 8; ++v) {
-          float acc = __fmul_rn(tr[0], basis(v * 8));
-#pragma unroll
-          for (int k = 1; k < 8; ++k) acc = __fmaf_rn(tr[k], basis(v * 8 + k), acc);
-          dst[v * kTileBlocks] = quantize_byte<R>(acc, qv[v]);
-        }
+        for (int v = 0; v < 8; ++v) dst[v * kTileBlocks] = quantize_byte<R>(c[v], qv[v]);
       }
       // a native pad column of an included strip (after the stores, so the
       // chains above stay free of branches)

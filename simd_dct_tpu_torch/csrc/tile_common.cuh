@@ -1,10 +1,11 @@
 // Device and host helpers of the strip-tile kernels (color32.cu,
-// color420.cu, stereo.cu, tiles.cu): exact byte <-> f32 conversions that
-// keep off the conversion unit, the quantizer on them, the bulk-copy
-// plumbing (shared addresses, the mbarrier wait, bulk loads, the bulk-group
-// waits and the proxy fence), the DCT basis as compile-time values, the
-// decode's dequantizer and its two passes with the pixel rounding and
-// packing, the scales in shared memory, the crossing buffer, and
+// color420.cu, stereo.cu, tiles.cu, dct32.cu): exact byte <-> f32
+// conversions that keep off the conversion unit, the quantizer on them, the
+// bulk-copy plumbing (shared addresses, the mbarrier wait, bulk loads, the
+// bulk-group waits and the proxy fence), the DCT basis as compile-time
+// values, the encode's two passes, the decode's dequantizer and its two
+// passes with the pixel rounding and packing, the scales in shared memory,
+// the crossing buffer, and
 // cuTensorMapEncodeTiled, reached through the runtime, with the planar-RGB
 // tensor map built on it.
 //
@@ -162,7 +163,32 @@ __device__ __forceinline__ void row_scales(const float* table, int u, float (&q)
   q[4] = hi.x, q[5] = hi.y, q[6] = hi.z, q[7] = hi.w;
 }
 
-// -- the decode's passes (stereo.cu, tiles.cu, color420.cu) ------------------
+// -- the encode's passes (stereo.cu, tiles.cu, dct32.cu) ---------------------
+
+// dct2d's column pass on one pixel column: t[u] = sum_j D[u][j] x[j], every
+// product and sum in dct2d's order.
+__device__ __forceinline__ void dct_column(const float (&x)[8], float (&t)[8]) {
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    float acc = __fmul_rn(basis(u * 8), x[0]);
+#pragma unroll
+    for (int j = 1; j < 8; ++j) acc = __fmaf_rn(basis(u * 8 + j), x[j], acc);
+    t[u] = acc;
+  }
+}
+
+// dct2d's row pass on one row: c[v] = sum_k t[k] D[v][k], in order.
+__device__ __forceinline__ void dct_row(const float (&t)[8], float (&c)[8]) {
+#pragma unroll
+  for (int v = 0; v < 8; ++v) {
+    float acc = __fmul_rn(t[0], basis(v * 8));
+#pragma unroll
+    for (int k = 1; k < 8; ++k) acc = __fmaf_rn(t[k], basis(v * 8 + k), acc);
+    c[v] = acc;
+  }
+}
+
+// -- the decode's passes (stereo.cu, tiles.cu, color420.cu, dct32.cu) --------
 
 // (b - 127) * q for a record byte b, the difference exact as (2^23 + b) -
 // (2^23 + 127), without the conversion unit.

@@ -141,8 +141,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sdct_enc32.restype = i
     lib.sdct_dec32.argtypes = [p, p, p, i, i, i, p]
     lib.sdct_dec32.restype = i
-    lib.sdct_roundtrip32.argtypes = [p, p, p, p, i, i, i, ll, p]
+    lib.sdct_roundtrip32.argtypes = [p, p, p, p, i, i, i, ll, i, i, p]
     lib.sdct_roundtrip32.restype = i
+    lib.sdct_roundtrip32_capacity.argtypes = [p, p, p, p, p, p]
+    lib.sdct_roundtrip32_capacity.restype = i
     lib.sdct_encq.argtypes = [p, p, p, i, i, i, ll, i, i, i, i, i, p]
     lib.sdct_encq.restype = i
     lib.sdct_decq.argtypes = [p, p, p, i, i, i, i, p]
@@ -171,8 +173,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sdct_dec420_rgb.restype = i
     lib.sdct_dec420_capacity.argtypes = [p, p, p]
     lib.sdct_dec420_capacity.restype = i
-    lib.sdct_tiles.argtypes = [p, p, p, i, i, i, i, i, i, p]
+    lib.sdct_tiles.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
     lib.sdct_tiles.restype = i
+    lib.sdct_tiles_capacity.argtypes = [i, i, i, p, p, p]
+    lib.sdct_tiles_capacity.restype = i
     lib.sdct_detile.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
     lib.sdct_detile.restype = i
     lib.sdct_detile_capacity.argtypes = [i, i, p, p, p]

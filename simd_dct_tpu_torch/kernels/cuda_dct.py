@@ -216,6 +216,15 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _check_capacity(kind: str, out: np.ndarray, smem: int) -> tuple[int, int]:
+    """(CTAs an SM, SMs) from a capacity entry point's (smem, per_sm, sms),
+    once its shared bytes equal the plan's."""
+    if int(out[0]) != smem:
+        raise RuntimeError(f"{kind}: the kernel lays out {int(out[0])} shared "
+                           f"bytes, the plan {smem}")
+    return int(out[1]), int(out[2])
+
+
 def encode_quantize32(img: torch.Tensor, lut, start_y: int = 0,
                       end_y: int = 1 << 30,
                       rounding: str = "rne") -> torch.Tensor:
@@ -283,11 +292,117 @@ def roundtrip_quantize32(img: torch.Tensor, lut) -> torch.Tensor:
     if out.numel() == 0:
         return out
     q, qi = _host_scales(lut)
-    _launch("roundtrip32", (img, out), batch,
-            lambda lib, src, dst, n: lib.sdct_roundtrip32(
-                src, dst, q.ctypes.data, qi.ctypes.data, n, h2, w, h * w,
-                _stream(img)))
+
+    def launch(lib, src, dst, n):
+        plan = _roundtrip32_plan_of(img, src, n, h2, w, h * w)
+        return lib.sdct_roundtrip32(src, dst, q.ctypes.data, qi.ctypes.data,
+                                    n, h2, w, h * w, plan.grid, plan.smem,
+                                    _stream(img))
+
+    _launch("roundtrip32", (img, out), batch, launch)
     return out
+
+
+# -- the fused round trip's launch plan (csrc/dct32.cu roundtrip32_kernel) ----
+
+ROUNDTRIP32_TILE_BLOCKS = 16   # blocks of each strip a tile (kRtTileBlocks)
+ROUNDTRIP32_TILE_STRIPS = 2    # strips a tile (kRtTileStrips)
+ROUNDTRIP32_WARPS = 2          # warps a CTA, each on its own tiles (kRtWarps)
+ROUNDTRIP32_STAGES = 2         # a warp's input tiles in flight
+ROUNDTRIP32_OUT_BUFFERS = 2    # a warp's pixel tile buffers
+
+
+class Roundtrip32Plan(NamedTuple):
+    """A launch of ``roundtrip32_kernel``."""
+    tile_blocks: int      # 8x8 blocks of each strip a tile
+    tile_strips: int      # strips a tile
+    tiles_per_row: int    # tiles across the width
+    tail_blocks: int      # blocks of each strip of a row's last tile
+    tiles: int            # of the launch, over (frame, row of tiles, tile)
+    smem: int             # dynamic shared bytes of a CTA
+    ctas_per_sm: int
+    grid: int             # persistent CTAs; warp w of CTA c takes tiles
+                          # c * ROUNDTRIP32_WARPS + w, + grid * WARPS, ...
+
+
+def roundtrip32_smem() -> int:
+    """Dynamic shared bytes of a CTA (``kRtSmem`` in dct32.cu): each
+    warp's ``ROUNDTRIP32_STAGES`` input tiles and
+    ``ROUNDTRIP32_OUT_BUFFERS`` pixel tiles, each 8 *
+    ``ROUNDTRIP32_TILE_STRIPS`` rows of 8 * ``ROUNDTRIP32_TILE_BLOCKS``
+    pixels."""
+    return (ROUNDTRIP32_WARPS * (ROUNDTRIP32_STAGES + ROUNDTRIP32_OUT_BUFFERS)
+            * 64 * ROUNDTRIP32_TILE_STRIPS * ROUNDTRIP32_TILE_BLOCKS)
+
+
+def roundtrip32_plan(batch: int, h2: int, w: int, *, base: int,
+                     frame_stride: int,
+                     capacity: Callable[[], tuple[int, int]]
+                     ) -> Roundtrip32Plan:
+    """The launch for ``batch`` frames whose top (h2, W) views start at
+    address ``base``, ``frame_stride`` bytes apart (both multiples of 16:
+    one tensor copy a tile in, one tensor store out).  A tile is
+    ``ROUNDTRIP32_TILE_BLOCKS`` blocks of each of ``ROUNDTRIP32_TILE_STRIPS``
+    strips; the last of a row of tiles is short where 8 *
+    ``ROUNDTRIP32_TILE_BLOCKS`` does not divide W, and the last row where
+    the strips do not divide by ``ROUNDTRIP32_TILE_STRIPS``.
+    ``capacity()`` gives (CTAs an SM holds, SMs); the grid is as many CTAs
+    as the card holds at once, and no more than the tiles need."""
+    if (base | frame_stride) % 16:
+        raise ValueError(f"roundtrip32 needs 16-byte addresses and frame "
+                         f"strides, got base {base} and stride {frame_stride}")
+    if h2 <= 0 or h2 % 8 or w <= 0 or w % 64 or frame_stride < h2 * w:
+        raise ValueError(f"roundtrip32 needs H2 % 8 == 0, W % 64 == 0 and a "
+                         f"frame stride of at least H2*W, got H2={h2}, W={w}, "
+                         f"stride {frame_stride}")
+    bw = w // 8
+    tpr = -(-bw // ROUNDTRIP32_TILE_BLOCKS)
+    rows = -(-(h2 // 8) // ROUNDTRIP32_TILE_STRIPS)
+    tiles = batch * rows * tpr
+    if tiles >= 1 << 31:
+        raise ValueError(f"roundtrip32: {tiles} tiles in one launch exceed "
+                         "2^31 - 1")
+    smem = roundtrip32_smem()
+    per_sm, sms = capacity()
+    if per_sm < 1:
+        raise ValueError(f"roundtrip32: no CTA of {smem} shared bytes fits "
+                         "an SM")
+    return Roundtrip32Plan(
+        ROUNDTRIP32_TILE_BLOCKS, ROUNDTRIP32_TILE_STRIPS, tpr,
+        bw - (tpr - 1) * ROUNDTRIP32_TILE_BLOCKS, tiles, smem, per_sm,
+        min(-(-tiles // ROUNDTRIP32_WARPS), sms * per_sm))
+
+
+@functools.lru_cache(maxsize=16)
+def _roundtrip32_capacity(device: int) -> tuple[int, int]:
+    lib = _build.load()
+    out = np.zeros(6, np.int32)
+    with torch.cuda.device(device):
+        _build.check(lib, lib.sdct_roundtrip32_capacity(
+            *(out.ctypes.data + 4 * i for i in range(6))),
+            "roundtrip32 capacity")
+    layout = tuple(int(v) for v in out[3:])
+    plan = (ROUNDTRIP32_TILE_BLOCKS, ROUNDTRIP32_TILE_STRIPS, ROUNDTRIP32_WARPS)
+    if layout != plan:
+        raise RuntimeError(f"roundtrip32: the kernel takes tiles of {layout[0]}"
+                           f" blocks x {layout[1]} strips, {layout[2]} a CTA; "
+                           f"the plan {plan[0]} x {plan[1]}, {plan[2]}")
+    return _check_capacity("roundtrip32", out, roundtrip32_smem())
+
+
+def _roundtrip32_plan_of(t: torch.Tensor, base: int, batch: int, h2: int,
+                         w: int, frame_stride: int) -> Roundtrip32Plan:
+    dev = _device_index(t)
+    return roundtrip32_plan(batch, h2, w, base=base, frame_stride=frame_stride,
+                            capacity=lambda: _roundtrip32_capacity(dev))
+
+
+def roundtrip32_launch_plan(img: torch.Tensor) -> Roundtrip32Plan:
+    """The plan ``roundtrip_quantize32`` launches for a (H, W) or (B, H, W)
+    CUDA image of at most 65,535 frames."""
+    h, w = img.shape[-2:]
+    return _roundtrip32_plan_of(img, img.data_ptr(), _batch_of(img, 2),
+                                h // 2, w, h * w)
 
 
 def encode_quantize(img: torch.Tensor, lut, start_y: int = 0,
@@ -1153,6 +1268,147 @@ def _check_tile_geometry(h2: int, w: int) -> None:
                          f"H2={h2}, W={w}")
 
 
+# -- the tile kernels' launch plans (csrc/tiles.cu) ---------------------------
+
+STRIP_BLOCK_ROWS = 2         # block rows of one 128x128 tile a strip tile
+STRIP_TILE_BLOCKS = STRIP_BLOCK_ROWS * _panel.TILE // 8   # 32 blocks
+TILES_STAGES = 1             # the tile kernel's pixel tiles in flight
+TILES_OUT_BUFFERS = 1        # its Z buffers
+DETILE_STAGES = 1            # the tile inverse's input tiles in flight
+DETILE_OUT_BUFFERS = 1       # its pixel tile buffers
+_STRIP_BYTES = 16 * _panel.TILE   # a strip tile's Z rows, or pixel rows
+_STRIP_CROSS = 4 * 64 * STRIP_TILE_BLOCKS   # the f32 crossing buffer
+
+
+class StripTilePlan(NamedTuple):
+    """A launch of ``tiles_kernel`` or ``detile_kernel``."""
+    tile_blocks: int      # 8x8 blocks a strip tile: 2 block rows x 16
+    tiles_per_view: int   # strip tiles a (H2, W) view: H2/16 x W/128
+    tiles: int            # of the launch: (frame, 128-row band, q, column)
+    smem: int             # dynamic shared bytes of a CTA
+    ctas_per_sm: int
+    grid: int             # persistent CTAs, each taking every grid-th tile
+
+
+def tiles_smem() -> int:
+    """Dynamic shared bytes of a tile kernel CTA (``kTilesSmem`` in
+    tiles.cu): the 64 scales, ``TILES_OUT_BUFFERS`` Z buffers,
+    ``TILES_STAGES`` pixel tiles (2 KB each) and the f32 crossing
+    buffer."""
+    return (256 + (TILES_OUT_BUFFERS + TILES_STAGES) * _STRIP_BYTES
+            + _STRIP_CROSS)
+
+
+def detile_smem() -> int:
+    """Dynamic shared bytes of a tile inverse CTA (``kDetileSmem`` in
+    tiles.cu): the 64 scales, ``DETILE_OUT_BUFFERS`` pixel tiles,
+    ``DETILE_STAGES`` input tiles (2 KB each) and the f32 crossing
+    buffer."""
+    return (256 + (DETILE_OUT_BUFFERS + DETILE_STAGES) * _STRIP_BYTES
+            + _STRIP_CROSS)
+
+
+def _strip_plan(kind: str, smem: int, batch: int, h2: int, w: int, base: int,
+                capacity: Callable[[], tuple[int, int]]) -> StripTilePlan:
+    if base % 16:
+        raise ValueError(f"{kind} needs a 16-byte address, got {base}")
+    if not _panel.supports(h2, w):
+        raise ValueError(f"{kind} needs H2 % 128 == 0 and W % 128 == 0, got "
+                         f"H2={h2}, W={w}")
+    per_view = (h2 // (8 * STRIP_BLOCK_ROWS)) * (w // _panel.TILE)
+    tiles = batch * per_view
+    if tiles >= 1 << 31:
+        raise ValueError(f"{kind}: {tiles} tiles in one launch exceed "
+                         "2^31 - 1")
+    per_sm, sms = capacity()
+    if per_sm < 1:
+        raise ValueError(f"{kind}: no CTA of {smem} shared bytes fits an SM")
+    return StripTilePlan(STRIP_TILE_BLOCKS, per_view, tiles, smem, per_sm,
+                         min(tiles, sms * per_sm))
+
+
+def tiles_plan(batch: int, h2: int, w: int, *, base: int,
+               capacity: Callable[[], tuple[int, int]]) -> StripTilePlan:
+    """The launch of the tile kernel for ``batch`` (H2, W) u8 views at
+    address ``base`` (a multiple of 16: one tensor copy a strip tile in,
+    one tensor store out).  A strip tile is block rows 2q and 2q + 1 of one
+    128x128 tile; H2 % 128 == 0 and W % 128 == 0 leave no part tile.
+    ``capacity()`` gives (CTAs an SM holds, SMs); the grid is as many CTAs
+    as the card holds at once, at most one a tile."""
+    return _strip_plan("tiles", tiles_smem(), batch, h2, w, base, capacity)
+
+
+def detile_plan(batch: int, h2: int, w: int, *, base: int,
+                capacity: Callable[[], tuple[int, int]]) -> StripTilePlan:
+    """The launch of the tile inverse for ``batch`` (H2/128, 128, W/128,
+    128) tile frames at address ``base`` (a multiple of 16), in the strip
+    tiles of ``tiles_plan``."""
+    return _strip_plan("detile", detile_smem(), batch, h2, w, base, capacity)
+
+
+@functools.lru_cache(maxsize=32)
+def _tiles_capacity(device: int, rounding: str, normalize: bool,
+                    orientation: str) -> tuple[int, int]:
+    lib = _build.load()
+    out = np.zeros(3, np.int32)
+    with torch.cuda.device(device):
+        _build.check(lib, lib.sdct_tiles_capacity(
+            _ROUNDING_CODE[rounding], int(normalize),
+            _ORIENTATION_CODE[orientation], out.ctypes.data,
+            out.ctypes.data + 4, out.ctypes.data + 8), "tiles capacity")
+    return _check_capacity("tiles", out, tiles_smem())
+
+
+@functools.lru_cache(maxsize=16)
+def _detile_capacity(device: int, normalize: bool,
+                     orientation: str) -> tuple[int, int]:
+    lib = _build.load()
+    out = np.zeros(3, np.int32)
+    with torch.cuda.device(device):
+        _build.check(lib, lib.sdct_detile_capacity(
+            int(normalize), _ORIENTATION_CODE[orientation], out.ctypes.data,
+            out.ctypes.data + 4, out.ctypes.data + 8), "detile capacity")
+    return _check_capacity("detile", out, detile_smem())
+
+
+def _tiles_plan_of(t: torch.Tensor, base: int, batch: int, h2: int, w: int,
+                   rounding: str, normalize: bool,
+                   orientation: str) -> StripTilePlan:
+    dev = _device_index(t)
+    return tiles_plan(batch, h2, w, base=base,
+                      capacity=lambda: _tiles_capacity(
+                          dev, rounding, bool(normalize), orientation))
+
+
+def _detile_plan_of(t: torch.Tensor, base: int, batch: int, h2: int, w: int,
+                    normalize: bool, orientation: str) -> StripTilePlan:
+    dev = _device_index(t)
+    return detile_plan(batch, h2, w, base=base,
+                       capacity=lambda: _detile_capacity(dev, bool(normalize),
+                                                         orientation))
+
+
+def tiles_launch_plan(view: torch.Tensor, rounding: str = "rne",
+                      normalize: bool = False,
+                      orientation: str = "fy") -> StripTilePlan:
+    """The plan ``tiles_panels`` launches for a (..., H2, W) CUDA view of at
+    most 65,535 frames."""
+    h2, w = view.shape[-2:]
+    return _tiles_plan_of(view, view.data_ptr(), view.numel() // (h2 * w),
+                          h2, w, rounding, normalize, orientation)
+
+
+def detile_launch_plan(tiles: torch.Tensor, normalize: bool = False,
+                       orientation: str = "fy") -> StripTilePlan:
+    """The plan ``detile_panels`` launches for a (..., P, 128, NJ, 128)
+    CUDA tensor of at most 65,535 frames."""
+    p, _, nj, _ = tiles.shape[-4:]
+    h2, w = p * _panel.TILE, nj * _panel.TILE
+    return _detile_plan_of(tiles, tiles.data_ptr(),
+                           tiles.numel() // (h2 * w), h2, w, normalize,
+                           orientation)
+
+
 def tiles_panels(view: torch.Tensor, scales, *, normalize: bool,
                  rounding: str, orientation: str) -> torch.Tensor:
     """The tile kernel: a (..., H2, W) u8 view (no more than two leading
@@ -1178,101 +1434,18 @@ def tiles_panels(view: torch.Tensor, scales, *, normalize: bool,
                       dtype=torch.uint8, device=view.device)
     if out.numel() == 0:
         return out
-    _launch("tiles", (view, out), view.numel() // (h2 * w),
-            lambda lib, src, dst, n: lib.sdct_tiles(
-                src, dst, q.ctypes.data, n, h2, w, int(bool(normalize)),
-                _ORIENTATION_CODE[orientation], _ROUNDING_CODE[rounding],
-                _stream(view)))
+
+    def launch(lib, src, dst, n):
+        plan = _tiles_plan_of(view, src, n, h2, w, rounding, normalize,
+                              orientation)
+        return lib.sdct_tiles(src, dst, q.ctypes.data, n, h2, w,
+                              int(bool(normalize)),
+                              _ORIENTATION_CODE[orientation],
+                              _ROUNDING_CODE[rounding], plan.grid, plan.smem,
+                              _stream(view))
+
+    _launch("tiles", (view, out), view.numel() // (h2 * w), launch)
     return out
-
-
-# -- the tile inverse's launch plan (csrc/tiles.cu detile_kernel) -------------
-
-DETILE_BLOCK_ROWS = 2        # block rows of one 128x128 tile a strip tile
-DETILE_TILE_BLOCKS = DETILE_BLOCK_ROWS * _panel.TILE // 8   # 32 blocks
-DETILE_BLOCK_THREADS = 4     # threads an 8x8 block (kDetileBlockThreads)
-DETILE_STAGES = 1            # input tiles in flight
-DETILE_OUT_BUFFERS = 1       # pixel tile buffers
-_DETILE_BYTES = 16 * _panel.TILE   # a strip tile's Z rows, or pixel rows
-_DETILE_CROSS = 4 * 64 * DETILE_TILE_BLOCKS   # the f32 crossing buffer
-
-
-class DetilePlan(NamedTuple):
-    """A launch of ``detile_kernel``."""
-    tile_blocks: int      # 8x8 blocks a strip tile: 2 block rows x 16
-    tiles_per_view: int   # strip tiles a (H2, W) view: H2/16 x W/128
-    tiles: int            # of the launch: (frame, 128-row band, q, column)
-    smem: int             # dynamic shared bytes of a CTA
-    ctas_per_sm: int
-    grid: int             # persistent CTAs, each taking every grid-th tile
-
-
-def detile_smem() -> int:
-    """Dynamic shared bytes of a CTA (``kDetileSmem`` in tiles.cu): the 64
-    scales, ``DETILE_OUT_BUFFERS`` pixel tiles, ``DETILE_STAGES`` input
-    tiles (2 KB each) and the f32 crossing buffer."""
-    return (256 + (DETILE_OUT_BUFFERS + DETILE_STAGES) * _DETILE_BYTES
-            + _DETILE_CROSS)
-
-
-def detile_plan(batch: int, h2: int, w: int, *, base: int,
-                capacity: Callable[[], tuple[int, int]]) -> DetilePlan:
-    """The launch of the tile inverse for ``batch`` (H2/128, 128, W/128,
-    128) tile frames at address ``base`` (a multiple of 16: one tensor copy
-    a strip tile).  A strip tile is block rows 2q and 2q + 1 of one 128x128
-    tile; H2 % 128 == 0 and W % 128 == 0 leave no part tile.
-    ``capacity()`` gives (CTAs an SM holds, SMs); the grid is as many CTAs
-    as the card holds at once, at most one a tile."""
-    if base % 16:
-        raise ValueError(f"detile needs a 16-byte address, got {base}")
-    if not _panel.supports(h2, w):
-        raise ValueError(f"detile needs H2 % 128 == 0 and W % 128 == 0, got "
-                         f"H2={h2}, W={w}")
-    per_view = (h2 // (8 * DETILE_BLOCK_ROWS)) * (w // _panel.TILE)
-    tiles = batch * per_view
-    if tiles >= 1 << 31:
-        raise ValueError(f"detile: {tiles} tiles in one launch exceed "
-                         "2^31 - 1")
-    smem = detile_smem()
-    per_sm, sms = capacity()
-    if per_sm < 1:
-        raise ValueError(f"detile: no CTA of {smem} shared bytes fits an SM")
-    return DetilePlan(DETILE_TILE_BLOCKS, per_view, tiles, smem, per_sm,
-                      min(tiles, sms * per_sm))
-
-
-@functools.lru_cache(maxsize=16)
-def _detile_capacity(device: int, normalize: bool,
-                     orientation: str) -> tuple[int, int]:
-    lib = _build.load()
-    out = np.zeros(3, np.int32)
-    with torch.cuda.device(device):
-        _build.check(lib, lib.sdct_detile_capacity(
-            int(normalize), _ORIENTATION_CODE[orientation], out.ctypes.data,
-            out.ctypes.data + 4, out.ctypes.data + 8), "detile capacity")
-    if int(out[0]) != detile_smem():
-        raise RuntimeError(f"detile: the kernel lays out {int(out[0])} shared "
-                           f"bytes, the plan {detile_smem()}")
-    return int(out[1]), int(out[2])
-
-
-def _detile_plan_of(t: torch.Tensor, base: int, batch: int, h2: int, w: int,
-                    normalize: bool, orientation: str) -> DetilePlan:
-    dev = _device_index(t)
-    return detile_plan(batch, h2, w, base=base,
-                       capacity=lambda: _detile_capacity(dev, bool(normalize),
-                                                         orientation))
-
-
-def detile_launch_plan(tiles: torch.Tensor, normalize: bool = False,
-                       orientation: str = "fy") -> DetilePlan:
-    """The plan ``detile_panels`` launches for a (..., P, 128, NJ, 128)
-    CUDA tensor of at most 65,535 frames."""
-    p, _, nj, _ = tiles.shape[-4:]
-    h2, w = p * _panel.TILE, nj * _panel.TILE
-    return _detile_plan_of(tiles, tiles.data_ptr(),
-                           tiles.numel() // (h2 * w), h2, w, normalize,
-                           orientation)
 
 
 def detile_panels(tiles: torch.Tensor, inv_scales, *, normalize: bool,

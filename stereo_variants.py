@@ -72,7 +72,8 @@ _PACK = ("  return rint_bits(fminf(fmaxf(N ? __fmul_rn(y, 255.0f) : y, 0.0f), "
          "255.0f));\n")
 # tile_common.cuh basis: the table, or (an edit) kD's constant bank
 _BASIS = "  return t[i];\n}"
-_COLS = "for (int uu = 0; uu < 8; ++uu) {\n        float acc[kLines];"
+_COLS = ("for (int uu = 0; uu < 8; ++uu) {\n"
+         "        float* dst = cross + enc_cross(")
 _ROWS = ("for (int h = 0; h < kLines; ++h) {\n"
          "        const int u = kLines * w + h;")
 _DCOLS = "for (int h = 0; h < kLines; ++h) {\n      // column v = kLines*w + h"

@@ -70,6 +70,25 @@ def test_dec32_and_roundtrip(gen, shape):
     assert torch.equal(fused, composed)
 
 
+@pytest.mark.parametrize("shape", [(16, 1984), (256, 192), (8, 1088, 1920)])
+def test_roundtrip32_strip_tiles(gen, shape):
+    """The strip-tile round trip where strips end in a short tile (W = 1984,
+    W = 192) and on an 8-frame batch: one launch of its plan's tiles, equal
+    to decode(encode(x))."""
+    img = _img(gen, *shape)
+    h, w = shape[-2:]
+    plan = K.roundtrip32_launch_plan(img)
+    frames = img.numel() // (h * w)
+    assert plan.tiles == frames * -(-h // 32) * plan.tiles_per_row
+    assert plan.smem == K.roundtrip32_smem() and 1 <= plan.grid <= plan.tiles
+    K.reset_launch_counts()
+    fused = K.roundtrip_quantize32(img, LUT)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["roundtrip32"] == 1
+    assert torch.equal(fused, K.decode_quantize32(K.encode_quantize32(img, LUT),
+                                                  LUT, w, h))
+
+
 def test_api_launches_kernels(gen):
     img = _img(gen, 2, 256, 128)
     K.reset_launch_counts()
@@ -539,6 +558,28 @@ def test_tile_records_equal_the_mode_kernels(gen, rounding):
                          normalize=True, orientation="fy")
     assert torch.equal(px.view(2, 512, 384),
                        K.decode_quantize_stereo(rec, LUT_Q, 384, 512))
+
+
+@pytest.mark.parametrize("shape", [(128, 128), (2, 256, 128),
+                                   (8, 1024, 1920)])
+@pytest.mark.parametrize("normalize", [False, True])
+@pytest.mark.parametrize("orientation", ["fy", "fx"])
+def test_tiles_strip_tiles_against_plain(gen, shape, normalize, orientation):
+    """The strip-tile kernel at W = 128 and on an 8-frame batch, one launch
+    of its plan's tiles, the detile's strip tiles."""
+    from simd_dct_tpu_torch.kernels import panel
+    q, _ = _tile_scales(LUT_Q if normalize else LUT)
+    view = _img(gen, *shape)
+    plan = K.tiles_launch_plan(view, "rne", normalize, orientation)
+    assert plan.tiles == view.numel() // (16 * 128)
+    assert plan.smem == K.tiles_smem() and 1 <= plan.grid <= plan.tiles
+    K.reset_launch_counts()
+    got = K.tiles_panels(view, q, normalize=normalize, rounding="rne",
+                         orientation=orientation)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["tiles"] == 1
+    _ok(got, panel.forward_tiles(view, q, normalize=normalize,
+                                 orientation=orientation, rounding="rne"))
 
 
 @pytest.mark.parametrize("shape", [(128, 128), (2, 256, 128),

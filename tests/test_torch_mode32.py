@@ -22,6 +22,7 @@ from simd_dct_tpu.core import golden as G
 from simd_dct_tpu.kernels import pallas_dct as PK
 from simd_dct_tpu.kernels import xla_path as XP
 import simd_dct_tpu_torch as T
+from simd_dct_tpu_torch.kernels import cuda_dct as K
 from simd_dct_tpu_torch.kernels import torch_path as TP
 from simd_dct_tpu_torch.utils.debug import compare_backends
 from simd_dct_tpu_torch.utils.metrics import psnr
@@ -170,3 +171,85 @@ def test_roundtrip_fused_equals_composed_and_psnr(quality):
                                      device="cpu").numpy()
     assert abs(psnr(top[:, :128], port_128)
                - psnr(top[:, :128], pallas_rt)) < 0.1
+
+
+# -- the fused round trip's launch plan (roundtrip32_kernel), pure Python -----
+
+# (H2, W) of chip_smoke.py's round-trip geometries: the 4K and 1080p top
+# views, W % 128 == 64, and a strip of W = 1984
+PLAN_VIEWS = [(2048, 3840), (544, 1920), (128, 192), (8, 1984)]
+
+
+def _h100():
+    """A card of 132 SMs holding 20 CTAs an SM."""
+    return 20, 132
+
+
+def _rt_plan(batch, h2, w, capacity=_h100, base=0, frame_stride=None):
+    return K.roundtrip32_plan(batch, h2, w, base=base,
+                              frame_stride=2 * h2 * w if frame_stride is None
+                              else frame_stride, capacity=capacity)
+
+
+@pytest.mark.parametrize("batch", [1, 8, 65535])
+@pytest.mark.parametrize("h2,w", PLAN_VIEWS)
+def test_roundtrip32_plan_covers_each_block_once(h2, w, batch):
+    plan = _rt_plan(batch, h2, w)
+    bw, sn = w // 8, h2 // 8
+    c, r = K.ROUNDTRIP32_TILE_BLOCKS, K.ROUNDTRIP32_TILE_STRIPS
+    assert (plan.tile_blocks, plan.tile_strips) == (c, r)
+    rows = -(-sn // r)
+    assert plan.tiles == batch * rows * plan.tiles_per_row < 1 << 31
+    ctas = -(-plan.tiles // K.ROUNDTRIP32_WARPS)   # a warp a tile at once
+    assert 1 <= plan.grid == min(ctas, 132 * 20) <= ctas
+    per_frame = plan.tiles // batch
+    for f in sorted({0, 1, batch - 2, batch - 1} & set(range(batch))):
+        # tile t over (frame, row of tiles, tile of the row), as rt_at
+        # numbers them: its box is 8c columns of 8r rows from (8c * x,
+        # 8r * row)
+        t = np.arange(f * per_frame, (f + 1) * per_frame)
+        fr, x = np.divmod(t, plan.tiles_per_row)
+        frame, row = np.divmod(fr, rows)
+        assert (frame == f).all()
+        strip = r * row[:, None, None] + np.arange(r)[None, :, None]
+        bx = c * x[:, None, None] + np.arange(c)[None, None, :]
+        # the copy fills zeros past W and H2; the store drops them
+        inside = (bx < bw) & (strip < sn)
+        blocks = (strip * bw + bx)[inside]
+        np.testing.assert_array_equal(np.bincount(blocks, minlength=sn * bw),
+                                      np.ones(sn * bw))
+        assert (bx < bw)[-1, 0].sum() == plan.tail_blocks
+
+
+@pytest.mark.parametrize("w", [64, 192, 1984, 3904])
+def test_roundtrip32_plan_short_tiles_where_w_mod_128_is_64(w):
+    plan = _rt_plan(1, 16, w)
+    assert w % 128 == 64
+    assert plan.tail_blocks == 8 < plan.tile_blocks
+    assert plan.tail_blocks == w // 8 - (plan.tiles_per_row - 1) * 16
+    whole = _rt_plan(1, 16, w + 64)
+    assert whole.tail_blocks == whole.tile_blocks
+
+
+def test_roundtrip32_plan_shared_bytes_and_refusals():
+    # each warp's input tiles and pixel buffers, 16 rows x 8 * 16 pixels
+    assert K.roundtrip32_smem() == (
+        K.ROUNDTRIP32_WARPS * (K.ROUNDTRIP32_STAGES + K.ROUNDTRIP32_OUT_BUFFERS)
+        * 8 * K.ROUNDTRIP32_TILE_STRIPS * 8 * K.ROUNDTRIP32_TILE_BLOCKS
+    ) <= K.SMEM_LIMIT
+    assert _rt_plan(1, 8, 64).smem == K.roundtrip32_smem()
+    with pytest.raises(ValueError):     # no CTA fits an SM
+        _rt_plan(1, 8, 64, capacity=lambda: (0, 132))
+    with pytest.raises(ValueError):     # 2^31 tiles or more
+        _rt_plan(65535, 1 << 14, 1 << 15)
+    for base, stride in [(8, 1024), (0, 1032)]:    # off 16 bytes
+        with pytest.raises(ValueError):
+            _rt_plan(2, 8, 64, base=base, frame_stride=stride)
+    with pytest.raises(ValueError):     # frames overlap
+        _rt_plan(2, 8, 64, frame_stride=256)
+    for h2, w in [(12, 64), (8, 96), (0, 64)]:
+        with pytest.raises(ValueError):
+            _rt_plan(1, h2, w)
+    small = _rt_plan(1, 8, 64)     # one strip of 8 blocks: one short tile
+    assert small.tiles == 1 and small.grid == 1 and small.tail_blocks == 8
+    assert _rt_plan(65535, 16, 128).grid == 132 * 20

@@ -357,7 +357,7 @@ def _detile_plan(batch, h2, w, capacity=_h100, base=0):
 
 
 def _strip_tiles(plan, h2, w, f):
-    """Frame f's strip tiles as detile_at in tiles.cu numbers them:
+    """Frame f's strip tiles as strip_at in tiles.cu numbers them:
     (128-row band p of the frame, block-row pair q, tile column j)."""
     nj = w // 128
     t = np.arange(f * plan.tiles_per_view, (f + 1) * plan.tiles_per_view)
@@ -373,7 +373,7 @@ def _strip_tiles(plan, h2, w, f):
 def test_detile_plan_covers_each_block_once(h2, w, batch):
     plan = _detile_plan(batch, h2, w)
     bw = w // 8
-    assert plan.tile_blocks == K.DETILE_TILE_BLOCKS == 32
+    assert plan.tile_blocks == K.STRIP_TILE_BLOCKS == 32
     assert plan.tiles_per_view == (h2 // 16) * (w // 128)
     assert plan.tiles == batch * plan.tiles_per_view < 1 << 31
     assert 1 <= plan.grid == min(plan.tiles, 132 * 13) <= plan.tiles
@@ -436,3 +436,61 @@ def test_detile_plan_shared_bytes_and_refusals():
     small = _detile_plan(1, 128, 128)
     assert small.tiles == small.grid == 8
     assert _detile_plan(65535, 128, 128).grid == 132 * 13
+
+
+# -- the tile kernel's launch plan (tiles_kernel), pure Python ---------------
+
+def _tiles_plan(batch, h2, w, capacity=_h100, base=0):
+    return K.tiles_plan(batch, h2, w, base=base, capacity=capacity)
+
+
+@pytest.mark.parametrize("batch", [1, 64, 65535])
+@pytest.mark.parametrize("h2,w", PLAN_VIEWS)
+def test_tiles_plan_covers_each_block_once(h2, w, batch):
+    """The tile kernel walks the detile's strip tiles the other way: its
+    input box (pixel rows) and its output box (Z rows) hold the same
+    blocks, and a frame's tiles hold each of its blocks once."""
+    plan = _tiles_plan(batch, h2, w)
+    assert plan[:3] == _detile_plan(batch, h2, w)[:3]
+    assert plan.tiles == batch * (h2 // 16) * (w // 128) < 1 << 31
+    assert 1 <= plan.grid == min(plan.tiles, 132 * 13) <= plan.tiles
+    assert plan.smem == K.tiles_smem() <= K.SMEM_LIMIT
+    bw = w // 8
+    for f in sorted({0, 1, batch - 2, batch - 1} & set(range(batch))):
+        p, q, j = _strip_tiles(plan, h2, w, f)
+        # in: pixel rows 16q .. 16q + 15 of the band, columns 128j ..
+        r = 128 * p[:, None, None] + 16 * q[:, None, None] \
+            + 8 * np.arange(2)[None, :, None]
+        c = 128 * j[:, None, None] + 8 * np.arange(16)[None, None, :]
+        blocks_in = (r // 8) * bw + c // 8
+        # out: Z rows u*16 + m of the 128x128 tile (p, j), m in {2q, 2q+1}
+        m = 2 * q[:, None, None] + np.arange(2)[None, :, None]
+        n = np.arange(16)[None, None, :]
+        blocks_out = ((16 * p[:, None, None] + m) * bw
+                      + 16 * j[:, None, None] + n)
+        np.testing.assert_array_equal(blocks_in, blocks_out)
+        np.testing.assert_array_equal(
+            np.bincount(blocks_out.ravel(), minlength=h2 * w // 64),
+            np.ones(h2 * w // 64))
+
+
+def test_tiles_plan_shared_bytes_and_refusals():
+    # the scales, the Z buffers and the pixel tiles (2 KB each), the f32
+    # crossing of 32 blocks
+    assert K.tiles_smem() == (
+        256 + (K.TILES_OUT_BUFFERS + K.TILES_STAGES) * 16 * 128
+        + 4 * 64 * 32) <= K.SMEM_LIMIT
+    with pytest.raises(ValueError):     # no CTA fits an SM
+        _tiles_plan(1, 128, 128, capacity=lambda: (0, 132))
+    with pytest.raises(ValueError):     # 2^31 tiles or more
+        _tiles_plan(65535, 1 << 13, 1 << 14)
+    with pytest.raises(ValueError):     # off 16 bytes
+        _tiles_plan(1, 128, 128, base=8)
+    for h2, w in [(192, 128), (128, 192), (0, 128)]:
+        with pytest.raises(ValueError):
+            _tiles_plan(1, h2, w)
+    small = _tiles_plan(1, 128, 128)
+    assert small.tiles == small.grid == 8
+    assert _tiles_plan(65535, 128, 128).grid == 132 * 13
+    # a batch of more frames than one grid axis held: one plan
+    assert _tiles_plan(70000, 128, 128).tiles == 70000 * 8
