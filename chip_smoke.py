@@ -26,12 +26,18 @@ result line):
      64-frame 1088x1920 round trip of the BASELINE video ladder; every
      kernel of the path must have launched;
   6. the enc-quant kernels against their plain versions (+-1 on at most
-     0.2% of bytes) at the same geometries plus 4096x3848 (scalar only,
-     W % 16 == 8): all three layouts, every rounding mode at 4K, strip
-     ranges with and without legacy_range (one where pair_as_written spills
-     into an excluded strip); and three exact identities on the card: pair
-     == scalar permuted by the pair-cell map, pair_as_written == pair with
-     every second half zeroed, decode(scalar) == decode(pair);
+     0.2% of bytes; the rne and clamp_first encodes byte for byte) at the
+     same geometries plus 4096x3848 (scalar only, W % 16 == 8: the plain
+     variant), with the launch plan of each: all three layouts, every
+     rounding mode at 4K, strip ranges with and without legacy_range on
+     2x512x3840 (strips of whole tiles) and 2x512x1920 (each strip ends in
+     a tile of 16 blocks), one where pair_as_written spills into an
+     excluded strip, each output allocated over bytes set to 0xAB (an
+     unwritten byte shows); the tensor variant equal to the plain variant
+     forced, encode and decode, at 4096x3840 and 8x1088x1920; and three
+     exact identities on the card: pair == scalar permuted by the
+     pair-cell map, pair_as_written == pair with every second half zeroed,
+     decode(scalar) == decode(pair);
   7. the enc-quant main path through the public api with numpy inputs and
      no device (they must land on the card), counters set to 0 just
      before: 4K encode in the scalar and pair layouts, the decode of both,
@@ -70,11 +76,12 @@ result line):
       of back-to-back calls for each (the 4:2:0 rows beside the colour
       rows' copy of the three channels' top view); the launch plan of
       every strip-tile kernel (enc32_rgb, dec32_rgb, roundtrip32_rgb,
-      enc420_rgb, dec420_rgb, tiles, detile, roundtrip32 and the stereo
-      kernels in each layout: ``cuda_dct.color_plan``,
-      ``cuda_dct.color420_plan``, ``cuda_dct.tiles_plan``,
-      ``cuda_dct.detile_plan``, ``cuda_dct.roundtrip32_plan``,
-      ``cuda_dct.stereo_plan``) beside its 4K
+      enc420_rgb, dec420_rgb, tiles, detile, roundtrip32, the stereo
+      kernels in each layout and encq / decq in each layout:
+      ``cuda_dct.color_plan``, ``cuda_dct.color420_plan``,
+      ``cuda_dct.tiles_plan``, ``cuda_dct.detile_plan``,
+      ``cuda_dct.roundtrip32_plan``, ``cuda_dct.stereo_plan``,
+      ``cuda_dct.encq_plan`` / ``decq_plan``) beside its 4K
       time before its strip-tile
       design (``EARLIER_US``), its exact-arithmetic floor
       (``EXACT_OPS_PER_PX``) and the ptxas registers of the instantiation
@@ -254,12 +261,13 @@ PLAIN_WALL_REPS = 5
 # and 10: the thread-per-block stereo design, interleaved; row 15: the
 # thread-per-block 4:2:0 encode; row 16: the 4:2:0 decode of 32
 # macroblocks a CUDA block; row 6: the tile inverse of a block a thread;
-# rows 5 and 3: the tile kernel and the fused round trip of a block a thread)
+# rows 5 and 3: the tile kernel and the fused round trip of a block a thread;
+# rows 7 and 8: the enc-quant encode and decode of a block a thread, scalar)
 EARLIER_US = {"enc32_rgb": 52.84, "roundtrip32_rgb": 86.72,
               "dec32_rgb": 45.85, "enc420_rgb": 37.25,
               "dec420_rgb": 35.10, "enc_stereo": 26.76,
               "dec_stereo": 28.00, "detile": 14.65, "tiles": 14.86,
-              "roundtrip32": 20.70}
+              "roundtrip32": 20.70, "encq": 14.59, "decq": 14.91}
 # The exact-arithmetic floor of the colour tile kernels: the instructions a
 # pixel position that their bytes require, issued at one instruction a lane
 # a clock (132 SMs x 128 lanes at the 1980 MHz the card holds under them,
@@ -314,6 +322,14 @@ EARLIER_US = {"enc32_rgb": 52.84, "roundtrip32_rgb": 86.72,
 # (multiply, 2 clamps, exact rint (2), dequant multiply: 6), idct2d (16
 # FMAs), the pixel's 2 clamps and round (3), packing (0.75) and staging
 # (1/8); no crossing (one thread a block): 44.
+# The enc-quant encode counts as the stereo encode does, per pixel of the
+# top view: the exact u8 -> f32 (2), the 1/255 scale (1), the matrix-form
+# transform (16 FMAs, fixed by the identities with the plain version and
+# the tile records), the quantizer (multiply, 2 clamps, round, +127: 5),
+# the input read (1), the crossing (2) and the record staging (1): 28.  The
+# decode as dec_stereo: record read (1), exact (b - 127) (2), dequant
+# multiply (1), 16 FMAs, times 255 (1), 2 clamps and the round (3),
+# packing (0.75), staging (1/8) and the crossing (2): 26.875.
 EXACT_OPS_PER_PX = {
     "enc32_rgb": 3 * (2 + 6 + 16 + 5) + 3 + 6 + 3,
     "dec32_rgb": 3 * (1 + 2 + 1 + 16 + 1 + 8 + 0.75) + 6 + 3 / 8,
@@ -326,6 +342,8 @@ EXACT_OPS_PER_PX = {
     "detile": 1 + 2 + 1 + 16 + 2 + 1 + 0.75 + 1 / 8 + 2,
     "tiles": 1 + 2 + 16 + 5 + 2 + 1,
     "roundtrip32": 1 / 8 + 2 + 16 + 6 + 16 + 3 + 0.75 + 1 / 8,
+    "encq": 2 + 1 + 16 + 5 + 1 + 2 + 1,
+    "decq": 1 + 2 + 1 + 16 + 1 + 2 + 1 + 0.75 + 1 / 8 + 2,
 }
 ISSUE_PER_S = 132 * 128 * 1.98e9
 # ptxas -v of each kernel instantiation, from the build (phase 2)
@@ -510,6 +528,28 @@ def phase_main_path(gen, lut):
     return counts
 
 
+def encq_exact(name, got, want, rounding, errs) -> None:
+    """The rne and clamp_first encodes equal the plain version byte for
+    byte; 'scalar' (a division by 255) within the +-1 contract."""
+    if rounding == "scalar":
+        agree(name, got, want, errs, "encq")
+        return
+    n = int((got != want).sum())
+    log(f"  {name}: {n} mismatching bytes")
+    require(n == 0, f"{name} equals the plain version byte for byte")
+    errs["encq"] = max(errs.get("encq", 0), 0)
+
+
+def over_junk(fn, *args, **kw):
+    """fn's result, its output allocated over bytes just set to 0xAB (the
+    caching allocator hands the same block back): an unwritten byte
+    shows."""
+    out = fn(*args, **kw)
+    out.fill_(0xAB)
+    del out
+    return fn(*args, **kw)
+
+
 def phase_compare_encq(gen, lut, errs):
     log("phase 6: enc-quant kernels against the plain version on the card")
     geoms = GEOMETRIES + [(4096, 3848, 1)]
@@ -519,43 +559,76 @@ def phase_compare_encq(gen, lut, errs):
         layouts = LAYOUTS if w % 16 == 0 else ("scalar",)
         roundings = ROUNDINGS if h == 4096 else ("rne",)
         for layout in layouts:
+            log(f"  encq {tag} {layout} plan: " + str(
+                cuda_dct.encq_launch_plan("encq", img, layout)._asdict()))
             for rounding in roundings:
-                agree(f"encq {tag} {layout} {rounding}",
-                      cuda_dct.encode_quantize(img, lut, rounding=rounding,
-                                               layout=layout),
-                      torch_path.encode_quantize(img, lut, rounding=rounding,
-                                                 layout=layout),
-                      errs, "encq")
+                encq_exact(f"encq {tag} {layout} {rounding}",
+                           cuda_dct.encode_quantize(img, lut,
+                                                    rounding=rounding,
+                                                    layout=layout),
+                           torch_path.encode_quantize(img, lut,
+                                                      rounding=rounding,
+                                                      layout=layout),
+                           rounding, errs)
         for layout in layouts[:2]:
             rec = torch_path.encode_quantize(img, lut, layout=layout)
+            log(f"  decq {tag} {layout} plan: " + str(
+                cuda_dct.encq_launch_plan("decq", rec, layout, size_x=w,
+                                          size_y=h)._asdict()))
             agree(f"decq {tag} {layout} (same records)",
                   cuda_dct.decode_quantize(rec, lut, w, h, layout),
                   torch_path.decode_quantize(rec, lut, w, h, layout),
                   errs, "decq")
-    img = random_images(gen, 512, 3840, 2)
     # strips are 16 rows of the dual-view buffer apart (8 with legacy_range)
     ranges = [(64, 191, False), (0, 100, True), (16, 16, False),
               (200, 1 << 40, True)]
-    for sy, ey, legacy in ranges:
+    # W = 3840: a strip is 15 whole tiles; W = 1920: 7 and one of 16 blocks,
+    # so a spill leaves a whole tile or a short one
+    for w in (3840, 1920):
+        img = random_images(gen, 512, w, 2)
+        for sy, ey, legacy in ranges:
+            for layout in LAYOUTS:
+                got = over_junk(cuda_dct.encode_quantize, img, lut, sy, ey,
+                                layout=layout, legacy_range=legacy)
+                want = torch_path.encode_quantize(img, lut, sy, ey,
+                                                  layout=layout,
+                                                  legacy_range=legacy)
+                encq_exact(f"encq 2x512x{w} {layout} range [{sy}, {ey}] "
+                           f"legacy={legacy}", got, want, "rne", errs)
+                # the bytes the strip geometry leaves unwritten, spill
+                # included
+                written = sd._strip_byte_mask(
+                    512, w, sy, ey, legacy_range=legacy,
+                    pair_spill=layout == "pair_as_written")
+                if written is not None:
+                    skipped = torch.from_numpy(~written).to(DEV)
+                    require(not got[:, skipped].any()
+                            and not want[:, skipped].any(),
+                            "bytes outside the strip range and its spill are "
+                            "zero in kernel and plain version")
+    # the tensor variant against the plain one forced on the same tensors
+    for h, w, frames in [(4096, 3840, 1), (1088, 1920, 8)]:
+        img = random_images(gen, h, w, frames)
         for layout in LAYOUTS:
-            got = cuda_dct.encode_quantize(img, lut, sy, ey, layout=layout,
-                                           legacy_range=legacy)
-            want = torch_path.encode_quantize(img, lut, sy, ey, layout=layout,
-                                              legacy_range=legacy)
-            agree(f"encq 2x512x3840 {layout} range [{sy}, {ey}] "
-                  f"legacy={legacy}", got, want, errs, "encq")
-            # the bytes the strip geometry leaves unwritten, spill included
-            written = sd._strip_byte_mask(
-                512, 3840, sy, ey, legacy_range=legacy,
-                pair_spill=layout == "pair_as_written")
-            if written is not None:
-                skipped = torch.from_numpy(~written).to(DEV)
-                require(not got[:, skipped].any()
-                        and not want[:, skipped].any(),
-                        "bytes outside the strip range and its spill are "
-                        "zero in kernel and plain version")
-    spilled = cuda_dct.encode_quantize(img, lut, 16, 16,
-                                       layout="pair_as_written").view(2, 32, -1)
+            require(torch.equal(
+                cuda_dct.encode_quantize(img, lut, layout=layout),
+                cuda_dct._encode_quantize(img, lut, layout=layout,
+                                          variant="plain")),
+                f"encq {frames}x{h}x{w} {layout}: tensor == plain variant")
+        for layout in LAYOUTS[:2]:
+            rec = cuda_dct.encode_quantize(img, lut, layout=layout)
+            require(torch.equal(
+                cuda_dct.decode_quantize(rec, lut, w, h, layout),
+                cuda_dct._decode_quantize(rec, lut, w, h, layout,
+                                          variant="plain")),
+                f"decq {frames}x{h}x{w} {layout}: tensor == plain variant")
+        log(f"  {frames}x{h}x{w}: the tensor variants equal the plain ones "
+            "forced, every layout, byte for byte")
+    log("  variant launches: " + str({
+        k: cuda_dct.VARIANT_LAUNCHES[k] for k in ("encq", "decq")}))
+    img = random_images(gen, 512, 3840, 2)
+    spilled = cuda_dct.encode_quantize(
+        img, lut, 16, 16, layout="pair_as_written").view(2, 32, -1)
     require(spilled[:, 2, :64].any() and not spilled[:, 2, 64:].any()
             and not spilled[:, 3:].any(),
             "pair_as_written spills 64 bytes into the excluded strip 2")
@@ -1873,6 +1946,16 @@ def strip_tile_plan(kernel: str, name: str, x, h: int, w: int):
         return cuda_dct.tiles_launch_plan(x), "tiles_kernel<0,0,0>"
     if kernel == "roundtrip32":
         return cuda_dct.roundtrip32_launch_plan(x), "roundtrip32_kernel"
+    if kernel in ("encq", "decq"):
+        layout = {"": "scalar", "pair": "pair",
+                  "as_written": "pair_as_written"}[name[len(kernel) + 1:]]
+        plan = cuda_dct.encq_launch_plan(kernel, x, layout, size_x=w,
+                                         size_y=h)
+        code = (cuda_dct._LAYOUT_CODE[layout],
+                cuda_dct._VARIANT_CODE[plan.variant])
+        return plan, (f"encq_kernel<0,{code[0]},{code[1]}>"
+                      if kernel == "encq"
+                      else f"decq_kernel<{code[0]},{code[1]}>")
     if kernel == "dec32_rgb":
         return (cuda_dct.color_launch_plan(kernel, x, size_x=w),
                 "dec32_rgb_kernel")

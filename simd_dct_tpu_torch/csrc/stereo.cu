@@ -23,7 +23,8 @@
 //     segments of 32 bytes out (a whole sector each).  Tiles never cross a
 //     strip or a view; the last tile of a row is short where 32 does not
 //     divide the row.  CTA i takes tiles i, i + grid, ..., numbered over
-//     (frame, strip, view, tile of the row) and walked without divisions.
+//     (frame, strip, view, tile of the row) and walked without divisions
+//     (tile_common.cuh TileWalk, shared with encq.cu).
 //   * kTensor variant (W % 128 == 0, 16-byte bases and view stride): lane 0
 //     brings a tile in by one tensor copy completing on an mbarrier, and
 //     the CTA's next tile as soon as this one's input is read, under its
@@ -33,8 +34,9 @@
 //     the decode's pixels as one 4-D box {8nb, 8, 1, 1} of {W, H/2, 2, B}.
 //     A buffer is reused only after cp.async.bulk.wait_group.read.
 //   * kPlain variant (any other W % 8 == 0, 8-byte bases): the same kernel,
-//     the threads' own 8-byte pixel loads and stores and 16-byte (BW % 16
-//     == 0 or native) or byte record loads and stores.
+//     the threads' own 8-byte pixel loads (tile_common.cuh
+//     load_rows_plain) and stores and 16-byte (BW % 16 == 0 or native) or
+//     byte record loads and stores.
 //   * Two threads a block, 64 a CTA.  Encode: a thread reads four columns
 //     of a block (each byte once, to f32 without the conversion unit),
 //     scales them by 1/255 and runs dct2d's column pass; t[u][k] crosses
@@ -102,50 +104,24 @@ struct Tile {
   int bx0, n;  // first block column, columns of the row it covers
 };
 
-// A CTA's walk over the tiles, numbered over (frame, strip, view, tile of
-// the row): tile t as mixed-radix digits, advanced by the grid's digits
-// with carries, so a step costs no division.
-struct TileWalk {
-  unsigned f, s, v, x;      // the current tile's digits
-  unsigned gf, gs, gv, gx;  // the grid's
+// The tiles are numbered over (frame, strip, view, tile of the row): a
+// TileWalk (tile_common.cuh) whose rows are a frame's 2*S (strip, view)
+// pairs.
+typedef TileWalk<kTileBlocks> StereoWalk;
 
-  __device__ __forceinline__ static void digits(const StereoGeom& g, unsigned t, unsigned& f,
-                                                unsigned& s, unsigned& v, unsigned& x) {
-    const unsigned row = t / g.tpr, fs = row >> 1;
-    x = t - row * g.tpr;
-    v = row & 1;
-    f = fs / g.s_n;
-    s = fs - f * g.s_n;
-  }
+__device__ __forceinline__ StereoWalk walk_of(const StereoGeom& g) {
+  return StereoWalk(blockIdx.x, gridDim.x, g.tpr, 2 * g.s_n);
+}
 
-  __device__ __forceinline__ TileWalk(const StereoGeom& g, unsigned t, unsigned grid) {
-    digits(g, t, f, s, v, x);
-    digits(g, grid, gf, gs, gv, gx);
-  }
-
-  __device__ __forceinline__ void advance(const StereoGeom& g) {
-    x += gx;
-    const unsigned cx = x >= g.tpr;
-    x -= cx ? g.tpr : 0;
-    v += gv + cx;
-    const unsigned cv = v >= 2;
-    v -= cv ? 2 : 0;
-    s += gs + cv;
-    const unsigned cs = s >= (unsigned)g.s_n;
-    s -= cs ? g.s_n : 0;
-    f += gf + cs;
-  }
-
-  __device__ __forceinline__ Tile tile(const StereoGeom& g) const {
-    Tile a;
-    a.frame = f;
-    a.s = (int)s;
-    a.v = (int)v;
-    a.bx0 = (int)x * kTileBlocks;
-    a.n = min(kTileBlocks, g.row_len - a.bx0);
-    return a;
-  }
-};
+__device__ __forceinline__ Tile tile_of(const StereoGeom& g, const StereoWalk& w) {
+  Tile a;
+  a.frame = w.f;
+  a.s = (int)(w.r >> 1);
+  a.v = (int)(w.r & 1);
+  a.bx0 = w.bx0();
+  a.n = w.blocks(g.row_len);
+  return a;
+}
 
 __device__ __forceinline__ bool included(const StereoGeom& g, const Tile& a) {
   return 16 * a.s >= g.start_y && 16 * a.s <= g.end_y;
@@ -235,19 +211,6 @@ __device__ __forceinline__ const uint8_t* pixel_row(const uint8_t* base, const S
   return base + a.frame * g.frame_px + a.v * g.view_stride + (8LL * a.s + r) * g.w + 8 * a.bx0;
 }
 
-// All threads: the tile's pixel rows into `stage` with 8-byte loads, then
-// a barrier.
-__device__ __forceinline__ void load_pixels_plain(const uint8_t* img, const StereoGeom& g,
-                                                  const Tile& a, uint8_t* stage) {
-  for (int i = threadIdx.x; i < 8 * kTileBlocks; i += kStereoThreads) {
-    const int r = i / kTileBlocks, b = i % kTileBlocks;
-    if (a.bx0 + b < g.bw)
-      *reinterpret_cast<uint2*>(stage + r * kRowBytes + 8 * b) =
-          __ldg(reinterpret_cast<const uint2*>(pixel_row(img, g, a, r)) + b);
-  }
-  __syncthreads();
-}
-
 // Record segments move 16 bytes at a time where every one starts on a
 // 16-byte boundary and covers whole pieces: BW % 16 == 0, or the encode's
 // native rows (BWP % 128 == 0; a segment covers [bx0, bx0 + n) of BWP).
@@ -280,20 +243,6 @@ __device__ __forceinline__ void move_records_plain(uint8_t* rec, uint8_t* record
   }
 }
 
-// The encode's crossing buffer: t[u][k] of block b at u*8nb + 8b + k, the
-// two 4-float halves of a block swapped when bit 2 of b is set.  The
-// column pass writes a thread's kLines columns at a time with lanes
-// (32 / kBlockThreads blocks x kBlockThreads, fixed u) and the row pass
-// reads 16 bytes at a time with lanes (32 blocks, fixed u): both free of
-// bank conflicts.
-__device__ __forceinline__ int enc_cross(int u, int k, int b) {
-  return u * 8 * kTileBlocks + b * 8 + ((((k >> 2) ^ (b >> 2)) & 1) << 2) + (k & 3);
-}
-
-// The decode's crossing buffer: (r, c) of block b; a warp's 32 lanes hold
-// one r or one c and the 32 blocks.
-__device__ __forceinline__ int dec_cross(int r, int c, int b) { return (r * 8 + c) * 32 + b; }
-
 // Replaces simd_dct_tpu/kernels/pallas_dct.py _enc_stereo_ilv_kernel
 // (interleaved) and _enc_stereo_kernel (planar, native): on this card the
 // three view layouts differ only in where a segment goes.  Design: see the
@@ -316,8 +265,8 @@ enc_stereo_kernel(const uint8_t* __restrict__ img, uint8_t* __restrict__ out, Sc
   const bool storer = threadIdx.x == 32;  // lane 0 of warp 1
   put_scales(sq, q);
   tile_prologue(&full);
-  TileWalk walk(g, blockIdx.x, gridDim.x);
-  Tile a = walk.tile(g);
+  StereoWalk walk = walk_of(g);
+  Tile a = tile_of(g, walk);
   if (V == kTensor && threadIdx.x == 0 && enc_live(g, a)) load_pixels(&tin, a, stage, &full);
   unsigned phase = 0, half = 0;  // the input's parity; the output buffer
   for (unsigned t = blockIdx.x; t < g.tiles; t += gridDim.x) {
@@ -327,7 +276,8 @@ enc_stereo_kernel(const uint8_t* __restrict__ img, uint8_t* __restrict__ out, Sc
         wait_full(&full, phase);
         phase ^= 1;
       } else {
-        load_pixels_plain(img, g, a, stage);
+        load_rows_plain<kTileBlocks, kStereoThreads>(pixel_row(img, g, a, 0), g.w, g.bw - a.bx0,
+                                                     stage);
       }
       // columns k = kLines*cq + h of block cb: t[u][k] = sum_j D[u][j] x[j][k]
       float x[kLines][8];
@@ -344,7 +294,7 @@ enc_stereo_kernel(const uint8_t* __restrict__ img, uint8_t* __restrict__ out, Sc
       for (int h = 0; h < kLines; ++h) dct_column(x[h], tc[h]);
 #pragma unroll
       for (int uu = 0; uu < 8; ++uu) {
-        float* dst = cross + enc_cross(uu, kLines * cq, cb);
+        float* dst = cross + enc_cross(uu, kLines * cq, cb, kTileBlocks);
         if (kLines == 4)
           *reinterpret_cast<float4*>(dst) = make_float4(tc[0][uu], tc[1][uu], tc[2 % kLines][uu],
                                                         tc[3 % kLines][uu]);
@@ -352,8 +302,8 @@ enc_stereo_kernel(const uint8_t* __restrict__ img, uint8_t* __restrict__ out, Sc
           *reinterpret_cast<float2*>(dst) = make_float2(tc[0][uu], tc[1][uu]);
       }
     }
-    walk.advance(g);
-    const Tile next = walk.tile(g);
+    walk.advance(g.tpr, 2 * g.s_n);
+    const Tile next = tile_of(g, walk);
     if (V == kTensor && storer) bulk_wait_read<1>();  // tile t - 2 grid has left its buffer
     __syncthreads();
     // the input is read: the CTA's next tile comes in under the rows
@@ -426,8 +376,8 @@ dec_stereo_kernel(const uint8_t* __restrict__ records, uint8_t* __restrict__ out
     for (int i = 0; i < 64; ++i) sq[(i & 7) * 8 + (i >> 3)] = qi.v[i];
   }
   tile_prologue(&full);
-  TileWalk walk(g, blockIdx.x, gridDim.x);
-  Tile a = walk.tile(g);
+  StereoWalk walk = walk_of(g);
+  Tile a = tile_of(g, walk);
   if (V == kTensor && threadIdx.x == 0) load_records(&trec, g, a, stage, &full);
   unsigned phase = 0, half = 0;
   for (unsigned t = blockIdx.x; t < g.tiles; t += gridDim.x) {
@@ -450,10 +400,10 @@ dec_stereo_kernel(const uint8_t* __restrict__ records, uint8_t* __restrict__ out
         c[uu] = dequant_byte(stage[(uu * 8 + v) * kTileBlocks + b], qv[uu]);
       idct_column(c, t8);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) cross[dec_cross(j, v, b)] = t8[j];
+      for (int j = 0; j < 8; ++j) cross[dec_cross(j, v, b, kTileBlocks)] = t8[j];
     }
-    walk.advance(g);
-    const Tile next = walk.tile(g);
+    walk.advance(g.tpr, 2 * g.s_n);
+    const Tile next = tile_of(g, walk);
     if (V == kTensor && storer) bulk_wait_read<1>();
     __syncthreads();
     if (V == kTensor && threadIdx.x == 0 && t + gridDim.x < g.tiles)
@@ -467,7 +417,7 @@ dec_stereo_kernel(const uint8_t* __restrict__ records, uint8_t* __restrict__ out
       const int j = kLines * w + h;
       float tv[8];
 #pragma unroll
-      for (int v = 0; v < 8; ++v) tv[v] = cross[dec_cross(j, v, b)];
+      for (int v = 0; v < 8; ++v) tv[v] = cross[dec_cross(j, v, b, kTileBlocks)];
       const uint2 row = idct_row_pixels<true>(tv);
       if (V == kTensor)
         *reinterpret_cast<uint2*>(pix + j * kRowBytes + 8 * b) = row;

@@ -1,11 +1,12 @@
 // Device and host helpers of the strip-tile kernels (color32.cu,
-// color420.cu, stereo.cu, tiles.cu, dct32.cu): exact byte <-> f32
+// color420.cu, stereo.cu, tiles.cu, dct32.cu, encq.cu): exact byte <-> f32
 // conversions that keep off the conversion unit, the quantizer on them, the
 // bulk-copy plumbing (shared addresses, the mbarrier wait, bulk loads, the
 // bulk-group waits and the proxy fence), the DCT basis as compile-time
-// values, the encode's two passes, the decode's dequantizer and its two
-// passes with the pixel rounding and packing, the scales in shared memory,
-// the crossing buffer, and
+// values, the walk, the plain row loads and the crossing buffers of tiles
+// of one strip row, the encode's two passes, the decode's dequantizer and
+// its two passes with the pixel rounding and packing, the scales in shared
+// memory, the colour kernels' crossing buffer, and
 // cuTensorMapEncodeTiled, reached through the runtime, with the planar-RGB
 // tensor map built on it.
 //
@@ -161,6 +162,78 @@ __device__ __forceinline__ void row_scales(const float* table, int u, float (&q)
   const float4 hi = *reinterpret_cast<const float4*>(table + u * 8 + 4);
   q[0] = lo.x, q[1] = lo.y, q[2] = lo.z, q[3] = lo.w;
   q[4] = hi.x, q[5] = hi.y, q[6] = hi.z, q[7] = hi.w;
+}
+
+// -- tiles of NB blocks of one strip row (stereo.cu, encq.cu) ----------------
+
+// A CTA's walk over the tiles, numbered over (frame, row of the frame, tile
+// of the row): `rows` rows a frame (stereo: its (strip, view) pairs;
+// enc-quant: its strips) of `tpr` tiles, the last of a row short where NB
+// does not divide it.  Tile t as mixed-radix digits, advanced by the grid's
+// digits with carries, so a step costs no division.
+template <int NB>
+struct TileWalk {
+  unsigned f, r, x;     // the current tile's digits
+  unsigned gf, gr, gx;  // the grid's
+
+  __device__ __forceinline__ static void digits(unsigned t, unsigned tpr, unsigned rows,
+                                                unsigned& f, unsigned& r, unsigned& x) {
+    const unsigned row = t / tpr;
+    x = t - row * tpr;
+    f = row / rows;
+    r = row - f * rows;
+  }
+
+  __device__ __forceinline__ TileWalk(unsigned t, unsigned grid, unsigned tpr, unsigned rows) {
+    digits(t, tpr, rows, f, r, x);
+    digits(grid, tpr, rows, gf, gr, gx);
+  }
+
+  __device__ __forceinline__ void advance(unsigned tpr, unsigned rows) {
+    x += gx;
+    const unsigned cx = x >= tpr;
+    x -= cx ? tpr : 0;
+    r += gr + cx;
+    const unsigned cr = r >= rows;
+    r -= cr ? rows : 0;
+    f += gf + cr;
+  }
+
+  // The current tile's first block of its row, and its blocks in a row of
+  // `len`.
+  __device__ __forceinline__ int bx0() const { return (int)x * NB; }
+  __device__ __forceinline__ int blocks(int len) const { return min(NB, len - bx0()); }
+};
+
+// All NT threads: a tile's 8 pixel rows, from `src` on (rows w bytes
+// apart), into `stage` (rows 8*NB bytes apart) with 8-byte loads of its
+// first n blocks, then a barrier.
+template <int NB, int NT>
+__device__ __forceinline__ void load_rows_plain(const uint8_t* src, int w, int n,
+                                                uint8_t* stage) {
+  for (int i = threadIdx.x; i < 8 * NB; i += NT) {
+    const int r = i / NB, b = i % NB;
+    if (b < n)
+      *reinterpret_cast<uint2*>(stage + r * 8 * NB + 8 * b) =
+          __ldg(reinterpret_cast<const uint2*>(src + (long long)r * w) + b);
+  }
+  __syncthreads();
+}
+
+// The encode's crossing buffer of a tile of nb blocks: t[u][k] of block b
+// at u*8nb + 8b + k, the two 4-float halves of a block swapped when bit 2
+// of b is set.  The column pass writes a thread's 2 or 4 columns at a time
+// with lanes (blocks x threads of a block, fixed u) and the row pass reads
+// 16 bytes at a time with lanes (32 blocks, fixed u): both free of bank
+// conflicts.
+__device__ __forceinline__ int enc_cross(int u, int k, int b, int nb) {
+  return u * 8 * nb + b * 8 + ((((k >> 2) ^ (b >> 2)) & 1) << 2) + (k & 3);
+}
+
+// The decode's crossing buffer of a tile of nb blocks: (r, c) of block b;
+// a warp's 32 lanes hold one r or one c and 32 blocks.
+__device__ __forceinline__ int dec_cross(int r, int c, int b, int nb) {
+  return (r * 8 + c) * nb + b;
 }
 
 // -- the encode's passes (stereo.cu, tiles.cu, dct32.cu) ---------------------

@@ -145,10 +145,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sdct_roundtrip32.restype = i
     lib.sdct_roundtrip32_capacity.argtypes = [p, p, p, p, p, p]
     lib.sdct_roundtrip32_capacity.restype = i
-    lib.sdct_encq.argtypes = [p, p, p, i, i, i, ll, i, i, i, i, i, p]
+    lib.sdct_encq.argtypes = [p, p, p, i, i, i, ll, i, i, i, i, i, i, i, i,
+                              p]
     lib.sdct_encq.restype = i
-    lib.sdct_decq.argtypes = [p, p, p, i, i, i, i, p]
+    lib.sdct_encq_capacity.argtypes = [i, i, i, p, p, p, p]
+    lib.sdct_encq_capacity.restype = i
+    lib.sdct_decq.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
     lib.sdct_decq.restype = i
+    lib.sdct_decq_capacity.argtypes = [i, i, p, p, p, p]
+    lib.sdct_decq_capacity.restype = i
     lib.sdct_enc_stereo.argtypes = [p, p, p, i, i, i, i, i, i, i, i, ll, i, i,
                                     i, i, p]
     lib.sdct_enc_stereo.restype = i

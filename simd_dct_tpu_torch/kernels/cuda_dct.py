@@ -412,6 +412,17 @@ def encode_quantize(img: torch.Tensor, lut, start_y: int = 0,
     """Enc-quant encode of the TOP view of a (H, W) or (B, H, W) dual-view
     image -> (H/2*W,) or (B, H/2*W) u8 records in ``layout``; one launch
     per 65,535 frames."""
+    return _encode_quantize(img, lut, start_y, end_y, rounding, layout,
+                            legacy_range)
+
+
+def _encode_quantize(img: torch.Tensor, lut, start_y: int = 0,
+                     end_y: int = 1 << 30, rounding: str = "rne",
+                     layout: str = "scalar", legacy_range: bool = False,
+                     variant: str | None = None) -> torch.Tensor:
+    """``encode_quantize``, with ``variant`` ("tensor" or "plain")
+    overriding the plan's choice (``encq_plan``; checks and timing only,
+    the bytes are the same)."""
     _check_tensor(img, "img", (2, 3))
     h, w = img.shape[-2:]
     if layout not in _LAYOUT_CODE:
@@ -429,11 +440,18 @@ def encode_quantize(img: torch.Tensor, lut, start_y: int = 0,
     if out.numel() == 0:
         return out
     q, _ = _host_scales(lut)
-    _launch("encq", (img, out), batch,
-            lambda lib, src, dst, n: lib.sdct_encq(
-                src, dst, q.ctypes.data, n, h2, w, h * w,
-                _clamp_i32(start_y), _clamp_i32(end_y), int(legacy_range),
-                _ROUNDING_CODE[rounding], _LAYOUT_CODE[layout], _stream(img)))
+
+    def launch(lib, src, dst, n):
+        plan = _launching("encq", _eq_plan_of(
+            "encq", img, n, h2, w, layout, src, dst, h * w, rounding,
+            variant), n, h, w, layout)
+        return lib.sdct_encq(
+            src, dst, q.ctypes.data, n, h2, w, h * w, _clamp_i32(start_y),
+            _clamp_i32(end_y), int(legacy_range), _ROUNDING_CODE[rounding],
+            _LAYOUT_CODE[layout], plan.grid, _VARIANT_CODE[plan.variant],
+            plan.smem, _stream(img))
+
+    _launch("encq", (img, out), batch, launch)
     return out
 
 
@@ -442,6 +460,13 @@ def decode_quantize(data: torch.Tensor, lut, size_x: int, size_y: int,
     """Enc-quant records in the ``scalar`` or ``pair`` layout,
     (size_y/2*size_x,) or (B, size_y/2*size_x) u8 -> (size_y/2, size_x) or
     (B, size_y/2, size_x) u8 pixels."""
+    return _decode_quantize(data, lut, size_x, size_y, layout)
+
+
+def _decode_quantize(data: torch.Tensor, lut, size_x: int, size_y: int,
+                     layout: str = "scalar",
+                     variant: str | None = None) -> torch.Tensor:
+    """``decode_quantize``, with ``variant`` as for ``_encode_quantize``."""
     _check_tensor(data, "data", (1, 2))
     if layout not in ("scalar", "pair"):
         raise ValueError("decodable layouts are 'scalar' and 'pair'")
@@ -458,11 +483,195 @@ def decode_quantize(data: torch.Tensor, lut, size_x: int, size_y: int,
     if out.numel() == 0:
         return out
     _, qi = _host_scales(lut)
-    _launch("decq", (data, out), batch,
-            lambda lib, src, dst, n: lib.sdct_decq(
-                src, dst, qi.ctypes.data, n, h2, size_x, _LAYOUT_CODE[layout],
-                _stream(data)))
+
+    def launch(lib, src, dst, n):
+        plan = _launching("decq", _eq_plan_of(
+            "decq", data, n, h2, size_x, layout, dst, src, h2 * size_x,
+            variant=variant), n, size_y, size_x, layout)
+        return lib.sdct_decq(
+            src, dst, qi.ctypes.data, n, h2, size_x, _LAYOUT_CODE[layout],
+            plan.grid, _VARIANT_CODE[plan.variant], plan.smem, _stream(data))
+
+    _launch("decq", (data, out), batch, launch)
     return out
+
+
+# -- the enc-quant kernels' launch plans (csrc/encq.cu) -----------------------
+
+ENCQ_TILE_BLOCKS = 32     # blocks of one strip a tile (kEqTileBlocks)
+_EQ_KINDS = ("encq", "decq")
+
+
+class EncqPlan(NamedTuple):
+    """A launch of ``encq_kernel`` or ``decq_kernel``."""
+    variant: str          # "tensor" or "plain": how the pixels move
+    tile_blocks: int      # blocks of one strip a tile
+    tiles_per_strip: int
+    tail_blocks: int      # blocks of each strip's last tile
+    tiles: int            # of the launch, over (frame, strip, tile)
+    smem: int             # dynamic shared bytes of a CTA
+    ctas_per_sm: int
+    grid: int             # persistent CTAs, each taking every grid-th tile
+
+
+def encq_variant(w: int, pixels: int, frame_stride: int) -> str:
+    """Tensor copies of the pixels need rows of W % 16 == 0 and 16-byte
+    pixel addresses and frame strides; anything else takes the plain
+    variant (the threads' 8-byte loads and stores).  The records always
+    move by 1-D bulk copies."""
+    aligned = (pixels | frame_stride) % 16 == 0
+    return "tensor" if w % 16 == 0 and aligned else "plain"
+
+
+def encq_smem() -> int:
+    """Dynamic shared bytes of an encode CTA (``kEqSmem`` in encq.cu): the
+    scales, one pixel tile and two record buffers (64 bytes a block each)
+    and the f32 crossing buffer."""
+    return 64 * 4 + 3 * 64 * ENCQ_TILE_BLOCKS + 4 * 64 * ENCQ_TILE_BLOCKS
+
+
+def decq_smem() -> int:
+    """Dynamic shared bytes of a decode CTA (``kDqSmem`` in encq.cu): the
+    scales, one record tile and two pixel tiles (64 bytes a block each) and
+    the f32 crossing buffer."""
+    return 64 * 4 + 3 * 64 * ENCQ_TILE_BLOCKS + 4 * 64 * ENCQ_TILE_BLOCKS
+
+
+def _eq_plan(kind: str, batch: int, h2: int, w: int, layout: str, *,
+             pixels: int, records: int, frame_stride: int,
+             capacity: Callable[[str], tuple[int, int]],
+             variant: str | None, tile_blocks: int, smem: int) -> EncqPlan:
+    if kind not in _EQ_KINDS:
+        raise ValueError(f"no enc-quant plan for {kind!r}")
+    layouts = _LAYOUT_CODE if kind == "encq" else ("scalar", "pair")
+    if layout not in layouts:
+        raise ValueError(f"{kind}: layout must be one of {tuple(layouts)}")
+    wmul = 8 if layout == "scalar" else 16
+    if h2 <= 0 or h2 % 8 or w <= 0 or w % wmul:
+        raise ValueError(f"{kind} ({layout}) needs H2 % 8 == 0 and W % {wmul}"
+                         f" == 0, got H2={h2}, W={w}")
+    if not 1 <= batch <= _MAX_BATCH:
+        raise ValueError(f"{kind}: a launch takes 1 to {_MAX_BATCH} frames, "
+                         f"got {batch}")
+    if records % 16 or (pixels | frame_stride) % 8 or frame_stride < h2 * w:
+        raise ValueError(f"{kind} needs 16-byte records, 8-byte pixels and a "
+                         f"frame stride of at least H2*W in 8-byte units, got"
+                         f" records at {records}, pixels at {pixels}, stride "
+                         f"{frame_stride}")
+    best = encq_variant(w, pixels, frame_stride)
+    if variant is None:
+        variant = best
+    elif variant not in _VARIANT_CODE or (variant == "tensor"
+                                          and best != "tensor"):
+        raise ValueError(f"{kind}: variant {variant!r} is not possible here "
+                         f"(W={w}, pixels at {pixels}, stride {frame_stride})")
+    bw = w // 8
+    tps = -(-bw // tile_blocks)
+    tiles = batch * (h2 // 8) * tps
+    if tiles >= 1 << 31:
+        raise ValueError(f"{kind}: {tiles} tiles in one launch exceed "
+                         "2^31 - 1")
+    per_sm, sms = capacity(variant)
+    if per_sm < 1:
+        raise ValueError(f"{kind}: no CTA of {smem} shared bytes fits an SM")
+    return EncqPlan(variant, tile_blocks, tps, bw - (tps - 1) * tile_blocks,
+                    tiles, smem, per_sm, min(tiles, sms * per_sm))
+
+
+def encq_plan(batch: int, h2: int, w: int, layout: str, *, pixels: int,
+              records: int, frame_stride: int,
+              capacity: Callable[[str], tuple[int, int]],
+              variant: str | None = None) -> EncqPlan:
+    """The launch of the encode for ``batch`` frames whose top (h2, W) views
+    start at address ``pixels``, ``frame_stride`` bytes apart, into records
+    at ``records``.  A tile is ``ENCQ_TILE_BLOCKS`` blocks of one strip,
+    never crossing a strip (the last of a strip holds the rest), and owns
+    64 bytes a block of consecutive records in every layout.  ``variant``
+    overrides the alignment's choice ("tensor" only where it is possible);
+    ``capacity(variant)`` gives (CTAs of that launch an SM holds, SMs); the
+    grid is as many CTAs as the card holds at once, at most one a tile."""
+    return _eq_plan("encq", batch, h2, w, layout, pixels=pixels,
+                    records=records, frame_stride=frame_stride,
+                    capacity=capacity, variant=variant,
+                    tile_blocks=ENCQ_TILE_BLOCKS, smem=encq_smem())
+
+
+def decq_plan(batch: int, h2: int, w: int, layout: str, *, records: int,
+              pixels: int, capacity: Callable[[str], tuple[int, int]],
+              variant: str | None = None) -> EncqPlan:
+    """The launch of the decode of ``batch`` frames of records at address
+    ``records`` into (h2, W) views at ``pixels``, H2*W bytes apart, in the
+    encode's tiles."""
+    return _eq_plan("decq", batch, h2, w, layout, pixels=pixels,
+                    records=records, frame_stride=h2 * w, capacity=capacity,
+                    variant=variant, tile_blocks=ENCQ_TILE_BLOCKS,
+                    smem=decq_smem())
+
+
+@functools.lru_cache(maxsize=64)
+def _eq_capacity(device: int, kind: str, rounding: str, layout: str,
+                 variant: str) -> tuple[int, int]:
+    lib = _build.load()
+    out = np.zeros(4, np.int32)
+    ptrs = tuple(out.ctypes.data + 4 * i for i in range(4))
+    with torch.cuda.device(device):
+        rc = (lib.sdct_encq_capacity(_ROUNDING_CODE[rounding],
+                                     _LAYOUT_CODE[layout],
+                                     _VARIANT_CODE[variant], *ptrs)
+              if kind == "encq" else
+              lib.sdct_decq_capacity(_LAYOUT_CODE[layout],
+                                     _VARIANT_CODE[variant], *ptrs))
+        _build.check(lib, rc, f"{kind} capacity")
+    smem = encq_smem() if kind == "encq" else decq_smem()
+    if (int(out[0]), int(out[1])) != (ENCQ_TILE_BLOCKS, smem):
+        raise RuntimeError(f"{kind}: the kernel lays out tiles of "
+                           f"{int(out[0])} blocks in {int(out[1])} shared "
+                           f"bytes, the plan {ENCQ_TILE_BLOCKS} in {smem}")
+    return int(out[2]), int(out[3])
+
+
+def _eq_plan_of(kind: str, t: torch.Tensor, batch: int, h2: int, w: int,
+                layout: str, pixels: int, records: int, frame_stride: int,
+                rounding: str = "rne",
+                variant: str | None = None) -> EncqPlan:
+    """The plan of a launch on ``t``'s card.  It depends on the addresses
+    only through their offsets from a 16-byte boundary, so it is cached by
+    those: a wrapper call pays one lookup (its host time: PERF.md)."""
+    return _eq_plan_cached(kind, _device_index(t), batch, h2, w, layout,
+                           pixels % 16, records % 16, frame_stride, rounding,
+                           variant)
+
+
+@functools.lru_cache(maxsize=256)
+def _eq_plan_cached(kind: str, dev: int, batch: int, h2: int, w: int,
+                    layout: str, pixels: int, records: int, frame_stride: int,
+                    rounding: str, variant: str | None) -> EncqPlan:
+    def capacity(v):
+        return _eq_capacity(dev, kind, rounding, layout, v)
+
+    if kind == "encq":
+        return encq_plan(batch, h2, w, layout, pixels=pixels, records=records,
+                         frame_stride=frame_stride, capacity=capacity,
+                         variant=variant)
+    return decq_plan(batch, h2, w, layout, records=records, pixels=pixels,
+                     capacity=capacity, variant=variant)
+
+
+def encq_launch_plan(kind: str, t: torch.Tensor, layout: str = "scalar",
+                     rounding: str = "rne", *, size_x: int | None = None,
+                     size_y: int | None = None) -> EncqPlan:
+    """The plan ``encode_quantize`` (kind "encq", ``t`` a (H, W) or
+    (B, H, W) image) or ``decode_quantize`` ("decq", ``t`` the records of a
+    ``size_y`` x ``size_x`` image) launches for a CUDA tensor of at most
+    65,535 frames; the output's address is taken as 16-byte aligned, as the
+    wrappers allocate it."""
+    if kind == "encq":
+        h, w = t.shape[-2:]
+        return _eq_plan_of(kind, t, _batch_of(t, 2), h // 2, w, layout,
+                           t.data_ptr(), 0, h * w, rounding)
+    h2 = size_y // 2
+    return _eq_plan_of(kind, t, _batch_of(t, 1), h2, size_x, layout, 0,
+                       t.data_ptr(), h2 * size_x)
 
 
 def encode_quantize_stereo(img: torch.Tensor, lut, start_y: int = 0,
@@ -556,8 +765,10 @@ def decode_quantize_stereo(data: torch.Tensor, lut, size_x: int, size_y: int,
 
 STEREO_TILE_BLOCKS = 32   # block columns a tile, of one (frame, strip, view)
 _STEREO_KIND_CODE = {"enc_stereo": 0, "dec_stereo": 1}
-# launches of each stereo kernel by variant (counted beside LAUNCHES)
-VARIANT_LAUNCHES = {k: {"tensor": 0, "plain": 0} for k in _STEREO_KIND_CODE}
+# launches of each stereo and enc-quant kernel by variant (counted beside
+# LAUNCHES)
+VARIANT_LAUNCHES = {k: {"tensor": 0, "plain": 0}
+                    for k in (*_STEREO_KIND_CODE, "encq", "decq")}
 _log = logging.getLogger(__name__)
 
 
@@ -661,13 +872,11 @@ def _stereo_plan_of(kind: str, t: torch.Tensor, batch: int, h: int, w: int,
                        variant=variant)
 
 
-def _launching(kind: str, plan: StereoPlan, batch: int, h: int, w: int,
-               view_layout: str) -> StereoPlan:
-    """Count and log the variant of a stereo launch."""
+def _launching(kind: str, plan, batch: int, h: int, w: int, layout: str):
+    """Count and log the variant of a stereo or enc-quant launch."""
     VARIANT_LAUNCHES[kind][plan.variant] += 1
     if _log.isEnabledFor(logging.DEBUG):
-        _log.debug("%s %dx%dx%d %s: %s", kind, batch, h, w, view_layout,
-                   plan)
+        _log.debug("%s %dx%dx%d %s: %s", kind, batch, h, w, layout, plan)
     return plan
 
 

@@ -182,6 +182,65 @@ def test_api_numpy_input_runs_on_the_card(gen):
     assert K.LAUNCHES["encq"] == 1
 
 
+@pytest.mark.parametrize("shape", [(544, 1920), (8, 1088, 1920)])
+def test_encq_tensor_and_plain_variants_give_the_same_bytes(gen, shape):
+    img = _img(gen, *shape)
+    h, w = shape[-2:]
+    assert K.encq_launch_plan("encq", img).variant == "tensor"
+    for layout in LAYOUTS:
+        for rounding in ("rne", "scalar", "clamp_first"):
+            assert torch.equal(
+                K.encode_quantize(img, LUT_Q, rounding=rounding,
+                                  layout=layout),
+                K._encode_quantize(img, LUT_Q, rounding=rounding,
+                                   layout=layout, variant="plain"))
+    for layout in ("scalar", "pair"):
+        rec = TP.encode_quantize(img, LUT_Q, layout=layout)
+        assert torch.equal(
+            K.decode_quantize(rec, LUT_Q, w, h, layout),
+            K._decode_quantize(rec, LUT_Q, w, h, layout, variant="plain"))
+
+
+def _over_junk(fn, *args, **kw):
+    """fn's result, its output allocated over bytes just set to 0xAB (the
+    caching allocator hands the same block back): an unwritten byte
+    shows."""
+    out = fn(*args, **kw)
+    out.fill_(0xAB)
+    del out
+    return fn(*args, **kw)
+
+
+# a strip of one whole tile (W = 256), of 7 and a tile of 16 blocks (1920),
+# of one tile and a tile of one cell (272): a spill leaves each kind
+@pytest.mark.parametrize("w", [256, 1920, 272])
+@pytest.mark.parametrize("sy,ey,legacy", [(16, 16, False), (0, 20, True),
+                                          (32, 95, False),
+                                          (48, 1 << 40, False)])
+def test_encq_strip_ranges_leave_one_writer_a_byte(gen, w, sy, ey, legacy):
+    img = _img(gen, 2, 256, w)
+    for layout in LAYOUTS:
+        got = _over_junk(K.encode_quantize, img, LUT_Q, sy, ey,
+                         layout=layout, legacy_range=legacy)
+        assert torch.equal(got, TP.encode_quantize(
+            img, LUT_Q, sy, ey, layout=layout, legacy_range=legacy))
+
+
+def test_encq_batch_against_plain_and_frame_by_frame(gen):
+    # frames 1088 rows apart, of which the encode reads the top 544
+    img = _img(gen, 8, 1088, 1920)
+    for layout in LAYOUTS:
+        rec = K.encode_quantize(img, LUT_Q, layout=layout)
+        assert torch.equal(rec, TP.encode_quantize(img, LUT_Q,
+                                                   layout=layout))
+        for i in (0, 7):
+            assert torch.equal(rec[i], K.encode_quantize(img[i], LUT_Q,
+                                                         layout=layout))
+        if layout != "pair_as_written":
+            _ok(K.decode_quantize(rec, LUT_Q, 1920, 1088, layout),
+                TP.decode_quantize(rec, LUT_Q, 1920, 1088, layout))
+
+
 # -- stereo ------------------------------------------------------------------
 
 VIEW_LAYOUTS = ("interleaved", "planar", "native")

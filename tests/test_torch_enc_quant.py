@@ -11,6 +11,9 @@ fx-major buffer transposes the LUT's index).  Tolerances:
     positions and the try_* write masks: exact.
 """
 
+import os
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -387,3 +390,181 @@ def test_wrappers_on_cpu_take_the_plain_version():
         K.decode_quantize(rec, _lut(), 80, 64, "pair_as_written")
     with pytest.raises(TypeError):
         K.decode_quantize(rec.numpy(), _lut(), 80, 64)
+
+
+# -- the enc-quant kernels' launch plans (csrc/encq.cu), pure Python ----------
+
+ENB = K.ENCQ_TILE_BLOCKS
+
+
+def _h100(variant):
+    """A card of 132 SMs holding 8 CTAs of any launch an SM."""
+    return 8, 132
+
+
+def _eq_plan(kind, batch, h2, w, layout="scalar", pixels=0, records=0,
+             stride=None, **kw):
+    if kind == "encq":
+        return K.encq_plan(batch, h2, w, layout, pixels=pixels,
+                           records=records,
+                           frame_stride=2 * h2 * w if stride is None
+                           else stride, capacity=_h100, **kw)
+    return K.decq_plan(batch, h2, w, layout, records=records, pixels=pixels,
+                       capacity=_h100, **kw)
+
+
+def _eq_tile_at(plan, s_n, t):
+    """(frame, strip, first block, blocks) of tile ``t`` (an integer array),
+    numbered as encq.cu's EqWalk numbers them."""
+    row, x = np.divmod(t, plan.tiles_per_strip)
+    frame, s = np.divmod(row, s_n)
+    last = x == plan.tiles_per_strip - 1
+    return frame, s, x * plan.tile_blocks, np.where(last, plan.tail_blocks,
+                                                    plan.tile_blocks)
+
+
+@pytest.mark.parametrize("w,tiles,tail", [(3848, 16, 1), (1920, 8, 16),
+                                          (3840, 15, 32), (1984, 8, 24),
+                                          (272, 2, 2)])
+def test_encq_plan_tiles_each_strip_once(w, tiles, tail):
+    h2, batch = 64, 3
+    layouts = ("scalar",) if w % 16 else ("scalar", "pair")
+    for kind in ("encq", "decq"):
+        for layout in layouts:
+            plan = _eq_plan(kind, batch, h2, w, layout)
+            assert (plan.tile_blocks, plan.tiles_per_strip,
+                    plan.tail_blocks) == (ENB, tiles, tail)
+            assert plan.tiles == batch * (h2 // 8) * tiles
+            assert plan.grid == min(plan.tiles, 8 * 132)
+            frame, s, bx0, n = _eq_tile_at(plan, h2 // 8,
+                                           np.arange(plan.tiles))
+            # every block of every frame once; a tile never crosses a strip,
+            # and its records are the 64n bytes from 64 * (s*BW + bx0)
+            keys = (frame * (h2 // 8) + s) * (w // 8) + bx0
+            cols = np.arange(ENB)[None]
+            np.testing.assert_array_equal(
+                np.bincount((keys[:, None] + cols)[cols < n[:, None]]),
+                np.ones(batch * h2 * w // 64))
+            assert ((bx0 + n <= w // 8) & (n > 0)).all()
+            if layout == "pair":
+                assert (bx0 % 2 == 0).all() and (n % 2 == 0).all()
+
+
+@pytest.mark.parametrize("w,pixels,stride,want", [
+    (3840, 0, None, "tensor"), (1920, 4096, None, "tensor"),
+    (3848, 0, None, "plain"),                 # W % 16 == 8
+    (3840, 8, None, "plain"),                 # a base 8 bytes off
+    (3840, 0, 64 * 3840 + 8, "plain")])       # a frame stride off 16
+def test_encq_plan_variant_follows_width_and_alignment(w, pixels, stride,
+                                                       want):
+    plan = _eq_plan("encq", 2, 32, w, pixels=pixels, stride=stride)
+    assert plan.variant == want
+    assert _eq_plan("encq", 2, 32, w, pixels=pixels, stride=stride,
+                    variant="plain").variant == "plain"
+    if stride is None:     # the decode writes frames H2*W apart
+        assert _eq_plan("decq", 2, 32, w, pixels=pixels).variant == want
+    if want == "plain":
+        with pytest.raises(ValueError):
+            _eq_plan("encq", 2, 32, w, pixels=pixels, stride=stride,
+                     variant="tensor")
+
+
+def _encq_constants() -> dict:
+    """encq.cu's ``constexpr`` values, evaluated as C ints."""
+    path = os.path.join(os.path.dirname(K.__file__), os.pardir, "csrc",
+                        "encq.cu")
+    with open(path) as f:
+        text = f.read()
+    env = {}
+    for name, expr in re.findall(r"constexpr (?:int|bool) (k\w+) = ([^;]+);",
+                                 text):
+        env[name] = eval(expr.replace("/", "//").replace("true", "True")
+                         .replace("false", "False"), {}, dict(env))
+    return env
+
+
+def test_encq_plan_shared_bytes_equal_the_kernels():
+    c = _encq_constants()
+    assert c["kEqTileBlocks"] == K.ENCQ_TILE_BLOCKS
+    assert c["kEqSmem"] == K.encq_smem() == _eq_plan("encq", 1, 8, 64).smem
+    assert c["kDqSmem"] == K.decq_smem() == _eq_plan("decq", 1, 8, 64).smem
+    # one pixel tile and two record buffers of 64*nb bytes (the decode: one
+    # record tile and two pixel tiles), the scales and the f32 crossing
+    # buffer at nb = 32
+    assert K.encq_smem() == K.decq_smem() == 14592
+    assert K.encq_smem() <= K.SMEM_LIMIT
+
+
+def _eq_writes(plan, h2, w, layout, sy, ey, legacy):
+    """(start, stop) of every byte span frame 0's tiles store, and the
+    spill spans: encq.cu's writer rule (tile_of's skip and spill, as
+    store_records and the threads' zero stores use them) written out here,
+    on the plan's tiles."""
+    bw, s_n = w // 8, h2 // 8
+    kept = ((np.arange(s_n) * (8 if legacy else 16) >= sy)
+            & (np.arange(s_n) * (8 if legacy else 16) <= ey))
+    aw = layout == "pair_as_written"
+    spans, spills = [], []
+    for t in range(s_n * plan.tiles_per_strip):
+        _, s, bx0, n = (int(v) for v in _eq_tile_at(plan, s_n, t))
+        base, end = 64 * (s * bw + bx0), 64 * (s * bw + bx0 + n)
+        last, first = t % plan.tiles_per_strip == plan.tiles_per_strip - 1, \
+            t % plan.tiles_per_strip == 0
+        skip = aw and not kept[s] and first and s > 0 and kept[s - 1]
+        spans.append((base + 64 * skip, end))
+        if aw and kept[s] and last and s + 1 < s_n and not kept[s + 1]:
+            spills.append((end, end + 64))
+    return spans + spills, spills
+
+
+@pytest.mark.parametrize("w", [256, 272, 1920])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_encq_plan_each_byte_has_one_writer(w, layout):
+    """The design's writer rule gives each output byte one writer and puts
+    the spills where the plain version does.  This checks the rule, not the
+    kernel: tests/test_torch_cuda.py's
+    test_encq_strip_ranges_leave_one_writer_a_byte runs the kernel over
+    outputs preset to 0xAB."""
+    rng = np.random.default_rng(w)
+    h2 = 128
+    plan = _eq_plan("encq", 1, h2, w, layout)
+    ranges = [(0, FULL, False), (16, 16, False), (16, 16, True),
+              (-5, 40, True)] + [
+        (int(a), int(a + d), bool(leg)) for a, d, leg in zip(
+            rng.integers(-16, 2 * h2, 12), rng.integers(0, h2, 12),
+            rng.integers(0, 2, 12))]
+    for sy, ey, legacy in ranges:
+        spans, spills = _eq_writes(plan, h2, w, layout, sy, ey, legacy)
+        count = np.zeros(h2 * w, np.int64)
+        for a, b in spans:
+            count[a:b] += 1
+        np.testing.assert_array_equal(count, 1)
+        # the spills land where the plain version puts them
+        mask = A._strip_byte_mask(2 * h2, w, sy, ey, legacy_range=legacy,
+                                  pair_spill=layout == "pair_as_written")
+        plain = (A._strip_byte_mask(2 * h2, w, sy, ey, legacy_range=legacy)
+                 if mask is not None else None)
+        extra = [] if mask is None else np.nonzero(mask & ~plain)[0]
+        got = [i for a, b in spills for i in range(a, b)]
+        assert list(extra) == got
+
+
+def test_encq_plan_refusals():
+    assert _eq_plan("encq", 65535, 16, 64).tiles == 65535 * 2
+    with pytest.raises(ValueError):          # a launch takes 65,535 frames
+        _eq_plan("encq", 65536, 8, 64)
+    with pytest.raises(ValueError):
+        _eq_plan("decq", 0, 8, 64)
+    with pytest.raises(ValueError):          # no CTA fits
+        K.encq_plan(1, 8, 64, "scalar", pixels=0, records=0, frame_stride=512,
+                    capacity=lambda v: (0, 132))
+    with pytest.raises(ValueError):          # pair cells need W % 16 == 0
+        _eq_plan("encq", 1, 8, 72, "pair")
+    with pytest.raises(ValueError):          # the decode has no as-written
+        _eq_plan("decq", 1, 8, 64, "pair_as_written")
+    with pytest.raises(ValueError):          # records on 16 bytes
+        _eq_plan("encq", 1, 8, 64, records=8)
+    with pytest.raises(ValueError):          # pixels on 8 bytes
+        _eq_plan("encq", 1, 8, 64, pixels=4)
+    with pytest.raises(ValueError):          # a stride shorter than a view
+        _eq_plan("encq", 2, 8, 64, stride=256)
