@@ -15,9 +15,12 @@ result line):
   3. each mode32 kernel against its plain PyTorch version on the same CUDA
      tensors (+-1 on at most 0.2% of bytes) at 4096x3840, 1088x1920,
      256x192, a batch of 8 frames of 1088x1920, every rounding mode and a
-     strip range; the 256x192 encode also against an independent float64
-     NumPy model; the round trip also at 16x1984 (its strips end in a
-     short tile), with the launch plan of each geometry;
+     strip range (strips outside it zero); the 256x192 encode also against
+     an independent float64 NumPy model; the round trip also at 16x1984
+     (its strips end in a short tile), with the launch plan of each
+     geometry (the encode's, the decode's and the round trip's); the
+     strip range's kept strips equal to the full-range encode's and its
+     other bytes zero over an output preset to 0xAB;
   4. the fused mode32 round trip equals decode(encode(x)) byte for byte,
      and its PSNR on a smooth 4K view is within 0.1 dB of the plain
      version's;
@@ -77,11 +80,12 @@ result line):
       rows' copy of the three channels' top view); the launch plan of
       every strip-tile kernel (enc32_rgb, dec32_rgb, roundtrip32_rgb,
       enc420_rgb, dec420_rgb, tiles, detile, roundtrip32, the stereo
-      kernels in each layout and encq / decq in each layout:
-      ``cuda_dct.color_plan``, ``cuda_dct.color420_plan``,
+      kernels in each layout, encq / decq in each layout and enc32 /
+      dec32: ``cuda_dct.color_plan``, ``cuda_dct.color420_plan``,
       ``cuda_dct.tiles_plan``, ``cuda_dct.detile_plan``,
       ``cuda_dct.roundtrip32_plan``, ``cuda_dct.stereo_plan``,
-      ``cuda_dct.encq_plan`` / ``decq_plan``) beside its 4K
+      ``cuda_dct.encq_plan`` / ``decq_plan``, ``cuda_dct.enc32_plan`` /
+      ``dec32_plan``) beside its 4K
       time before its strip-tile
       design (``EARLIER_US``), its exact-arithmetic floor
       (``EXACT_OPS_PER_PX``) and the ptxas registers of the instantiation
@@ -262,12 +266,14 @@ PLAIN_WALL_REPS = 5
 # thread-per-block 4:2:0 encode; row 16: the 4:2:0 decode of 32
 # macroblocks a CUDA block; row 6: the tile inverse of a block a thread;
 # rows 5 and 3: the tile kernel and the fused round trip of a block a thread;
-# rows 7 and 8: the enc-quant encode and decode of a block a thread, scalar)
+# rows 7 and 8: the enc-quant encode and decode of a block a thread, scalar;
+# rows 1 and 2: the mode32 encode and decode of a block a thread)
 EARLIER_US = {"enc32_rgb": 52.84, "roundtrip32_rgb": 86.72,
               "dec32_rgb": 45.85, "enc420_rgb": 37.25,
               "dec420_rgb": 35.10, "enc_stereo": 26.76,
               "dec_stereo": 28.00, "detile": 14.65, "tiles": 14.86,
-              "roundtrip32": 20.70, "encq": 14.59, "decq": 14.91}
+              "roundtrip32": 20.70, "encq": 14.59, "decq": 14.91,
+              "enc32": 14.35, "dec32": 15.56}
 # The exact-arithmetic floor of the colour tile kernels: the instructions a
 # pixel position that their bytes require, issued at one instruction a lane
 # a clock (132 SMs x 128 lanes at the 1980 MHz the card holds under them,
@@ -330,6 +336,11 @@ EARLIER_US = {"enc32_rgb": 52.84, "roundtrip32_rgb": 86.72,
 # decode as dec_stereo: record read (1), exact (b - 127) (2), dequant
 # multiply (1), 16 FMAs, times 255 (1), 2 clamps and the round (3),
 # packing (0.75), staging (1/8) and the crossing (2): 26.875.
+# The mode32 encode and decode count as the tile kernel and the tile inverse
+# (raw: no 1/255, no times 255): 27 and 25.875.  Their record staging is
+# the same one byte store (or load) a coefficient, into padded 512-byte
+# groups; the group bulk copies (4 a tile of 2,048 pixels, one thread) and
+# the excluded strips' zero stores are not counted.
 EXACT_OPS_PER_PX = {
     "enc32_rgb": 3 * (2 + 6 + 16 + 5) + 3 + 6 + 3,
     "dec32_rgb": 3 * (1 + 2 + 1 + 16 + 1 + 8 + 0.75) + 6 + 3 / 8,
@@ -344,6 +355,8 @@ EXACT_OPS_PER_PX = {
     "roundtrip32": 1 / 8 + 2 + 16 + 6 + 16 + 3 + 0.75 + 1 / 8,
     "encq": 2 + 1 + 16 + 5 + 1 + 2 + 1,
     "decq": 1 + 2 + 1 + 16 + 1 + 2 + 1 + 0.75 + 1 / 8 + 2,
+    "enc32": 1 + 2 + 16 + 5 + 2 + 1,
+    "dec32": 1 + 2 + 1 + 16 + 2 + 1 + 0.75 + 1 / 8 + 2,
 }
 ISSUE_PER_S = 132 * 128 * 1.98e9
 # ptxas -v of each kernel instantiation, from the build (phase 2)
@@ -440,6 +453,10 @@ def phase_compare(gen, lut, errs):
         agree(f"dec32 {tag} (same records)",
               cuda_dct.decode_quantize32(rec, lut, w, h),
               torch_path.decode_quantize32(rec, lut, w, h), errs, "dec32")
+        log(f"  enc32 {tag} plan: "
+            f"{cuda_dct.mode32_launch_plan('enc32', img)._asdict()}")
+        log(f"  dec32 {tag} plan: " + str(cuda_dct.mode32_launch_plan(
+            "dec32", rec, size_x=w, size_y=h)._asdict()))
         fused = cuda_dct.roundtrip_quantize32(img, lut)
         composed = cuda_dct.decode_quantize32(
             cuda_dct.encode_quantize32(img, lut), lut, w, h)
@@ -468,9 +485,13 @@ def phase_compare(gen, lut, errs):
     agree("enc32 512x3840 strip range [64, 191]",
           cuda_dct.encode_quantize32(img, lut, 64, 191),
           torch_path.encode_quantize32(img, lut, 64, 191), errs, "enc32")
-    recs = cuda_dct.encode_quantize32(img, lut, 64, 191).view(32, -1)
+    recs = over_junk(cuda_dct.encode_quantize32, img, lut, 64,
+                     191).view(32, -1)
     require(not recs[:4].any() and not recs[12:].any() and recs[4:12].any(),
             "strip range keeps strips 4..11 only")
+    require(torch.equal(recs[4:12], cuda_dct.encode_quantize32(img, lut)
+                        .view(32, -1)[4:12]),
+            "the kept strips equal the full-range encode's")
     small = random_images(gen, 256, 192, 1)
     rep = compare_backends({
         "kernel": cuda_dct.encode_quantize32(small, lut),
@@ -1946,6 +1967,9 @@ def strip_tile_plan(kernel: str, name: str, x, h: int, w: int):
         return cuda_dct.tiles_launch_plan(x), "tiles_kernel<0,0,0>"
     if kernel == "roundtrip32":
         return cuda_dct.roundtrip32_launch_plan(x), "roundtrip32_kernel"
+    if kernel in ("enc32", "dec32"):
+        return (cuda_dct.mode32_launch_plan(kernel, x, size_x=w, size_y=h),
+                "enc32_kernel<0>" if kernel == "enc32" else "dec32_kernel")
     if kernel in ("encq", "decq"):
         layout = {"": "scalar", "pair": "pair",
                   "as_written": "pair_as_written"}[name[len(kernel) + 1:]]

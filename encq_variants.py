@@ -100,6 +100,10 @@ RANGES = [(64, 191, False), (0, 100, True), (16, 16, False),
           (200, 1 << 40, True)]
 _ARRIVE = ('  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"('
            'saddr(bar)) : "memory");\n  return;\n')
+# tile_common.cuh tensor_load_3d's arming: the builds without loads arrive
+# without bytes there and copy nothing (dct32.cu and encq.cu take their 3-D
+# pixel tiles through it)
+_TENSOR_LOAD = "  arrive_expect(bar, bytes);\n"
 _DEC_LOAD = ("        arrive_expect(&full[s], 64u * n.n);\n"
              "        bulk_load(stages + s * kEqTileBytes, records + n.rec, "
              "64u * n.n, &full[s]);\n")
@@ -134,7 +138,7 @@ _NO_MATH = [
     ("    for (int h = 0; h < kEqLines; ++h) {\n      // row j",
      "    for (int h = 0; h < (g.tiles == 0) * kEqLines; ++h) {\n"
      "      // row j")]
-_NO_MEMORY = [("  arrive_expect(bar, kEqTileBytes);\n", _ARRIVE),
+_NO_MEMORY = [(_TENSOR_LOAD, _ARRIVE),
               ("if (storer) store_records(",
                "if (storer && g.tiles == 0) store_records("),
               (_DEC_LOAD, _DEC_ARRIVE),
@@ -402,16 +406,17 @@ def parent_equal(gen, pkg, parent, q, qi) -> dict:
     return out
 
 
-def host_walls(roots: dict, rounds: int, reps: int = 9,
-               calls: int = 200) -> dict:
-    """Microseconds a call of each checkout's wrappers and api (``_WALL``),
-    the checkouts in turns (forwards, then backwards)."""
+def host_walls(roots: dict, rounds: int, reps: int = 9, calls: int = 200,
+               script: str = _WALL) -> dict:
+    """Microseconds a call of each checkout's wrappers and api (``script``,
+    by default ``_WALL``), the checkouts in turns (forwards, then
+    backwards)."""
     walls = {}
     order = list(roots)
     for r in range(rounds):
         for name in order if r % 2 == 0 else order[::-1]:
             done = subprocess.run(
-                [sys.executable, "-c", _WALL, json.dumps([reps, calls])],
+                [sys.executable, "-c", script, json.dumps([reps, calls])],
                 cwd=roots[name], capture_output=True, text=True)
             if done.returncode:
                 raise RuntimeError(f"wall of {name}: {done.stderr[-3000:]}")

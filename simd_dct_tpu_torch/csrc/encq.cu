@@ -183,24 +183,14 @@ struct EqAhead {
 // come in as zeros).
 __device__ __forceinline__ void load_pixels(const CUtensorMap* m, const EqTile& a, uint8_t* stage,
                                             uint64_t* bar) {
-  arrive_expect(bar, kEqTileBytes);
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4}], [%5];" ::"r"(saddr(stage)),
-      "l"(m), "r"(8 * a.bx0), "r"(8 * a.s), "r"(a.frame), "r"(saddr(bar))
-      : "memory");
+  tensor_load_3d(m, 8 * a.bx0, 8 * a.s, a.frame, stage, bar, kEqTileBytes);
 }
 
 // The storing thread: tile a's pixel rows by one 3-D tensor store (columns
 // past W are not written).
 __device__ __forceinline__ void store_pixels(const CUtensorMap* m, const EqTile& a,
                                              const uint8_t* pix) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.global.shared::cta.tile.bulk_group [%0, {%1, %2, %3}], [%4];" ::"l"(
-          m),
-      "r"(8 * a.bx0), "r"(8 * a.s), "r"(a.frame), "r"(saddr(pix))
-      : "memory");
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+  tensor_store_3d(m, 8 * a.bx0, 8 * a.s, a.frame, pix);
 }
 
 __device__ __forceinline__ long long pixel_row(const EqGeom& g, const EqTile& a, int r) {
@@ -562,20 +552,6 @@ bool launch_ok(int batch, int h2, int w, int layout, const void* pixels, long lo
   return true;
 }
 
-// The (batch, h2, w) u8 pixels at `base`, rows w bytes apart and frames
-// frame_px, as a tensor map whose box is one tile's pixel rows.
-bool pixels_map(CUtensorMap* m, const void* base, int batch, int h2, int w, long long frame_px) {
-  const EncodeTiled fn = encode_tiled();
-  if (!fn) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)w, (cuuint64_t)h2, (cuuint64_t)batch};
-  const cuuint64_t strides[2] = {(cuuint64_t)w, (cuuint64_t)frame_px};
-  const cuuint32_t box[3] = {kEqRowBytes, 8, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return fn(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(base), dims, strides, box,
-            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-            CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int R, int L>
 const void* encq_fn_of(int variant) {
   return variant == kTensor ? (const void*)encq_kernel<R, L, kTensor>
@@ -663,7 +639,7 @@ int sdct_encq(const void* img, void* out, const float* q, int batch, int h2, int
   g.end_y = end_y;
   g.legacy = legacy_range ? 1 : 0;
   CUtensorMap tin = {};
-  if (variant == kTensor && !pixels_map(&tin, img, batch, h2, w, frame_stride))
+  if (variant == kTensor && !view_map(&tin, img, batch, h2, w, frame_stride, kEqRowBytes, 8))
     return (int)cudaErrorInvalidValue;
   const uint8_t* in = (const uint8_t*)img;
   uint8_t* o = (uint8_t*)out;
@@ -688,7 +664,8 @@ int sdct_decq(const void* records, void* out, const float* qi, int batch, int h2
   g.end_y = 0;
   g.legacy = 0;
   CUtensorMap tpix = {};
-  if (variant == kTensor && !pixels_map(&tpix, out, batch, h2, w, (long long)h2 * w))
+  if (variant == kTensor &&
+      !view_map(&tpix, out, batch, h2, w, (long long)h2 * w, kEqRowBytes, 8))
     return (int)cudaErrorInvalidValue;
   const uint8_t* in = (const uint8_t*)records;
   uint8_t* o = (uint8_t*)out;

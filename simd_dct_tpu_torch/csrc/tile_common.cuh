@@ -1,18 +1,21 @@
 // Device and host helpers of the strip-tile kernels (color32.cu,
 // color420.cu, stereo.cu, tiles.cu, dct32.cu, encq.cu): exact byte <-> f32
 // conversions that keep off the conversion unit, the quantizer on them, the
-// bulk-copy plumbing (shared addresses, the mbarrier wait, bulk loads, the
-// bulk-group waits and the proxy fence), the DCT basis as compile-time
+// bulk-copy plumbing (shared addresses, the mbarrier wait, bulk loads and
+// stores, 3-D tensor copies and stores, the bulk-group waits and the proxy
+// fence), the DCT basis as compile-time
 // values, the walk, the plain row loads and the crossing buffers of tiles
 // of one strip row, the encode's two passes, the decode's dequantizer and
 // its two passes with the pixel rounding and packing, the scales in shared
 // memory, the colour kernels' crossing buffer, and
 // cuTensorMapEncodeTiled, reached through the runtime, with the planar-RGB
-// tensor map built on it.
+// and the (W, H2, B) view tensor maps built on it.
 //
-// Every helper keeps the bytes of dct_common.cuh's forms: u8f is exact,
+// Every helper keeps the bytes of the thread-per-block forms: u8f is exact,
 // rint_bits rounds half to even as rintf does, quantize_byte<R> equals
-// quantize<R> for every finite input.
+// dct_common.cuh's quantize<R> for every finite input, and the passes keep
+// the order of the golden model's dct2d and idct2d (core/golden.py _dct2d,
+// _idct2d).
 
 #pragma once
 
@@ -90,6 +93,32 @@ __device__ __forceinline__ void bulk_store(void* dst, const void* src, unsigned 
                : "memory");
 }
 
+// One thread: the 3-D box at (x, y, z) of tensor map `m` into `stage` by one
+// tensor copy, completing on `bar` with all `bytes` of the box (past the
+// tensor's edge it comes in as zeros).
+__device__ __forceinline__ void tensor_load_3d(const CUtensorMap* m, int x, int y, int z,
+                                               uint8_t* stage, uint64_t* bar, unsigned bytes) {
+  arrive_expect(bar, bytes);
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];" ::"r"(saddr(stage)),
+      "l"(m), "r"(x), "r"(y), "r"(z), "r"(saddr(bar))
+      : "memory");
+}
+
+// The storing thread: `src` to the 3-D box at (x, y, z) of tensor map `m`
+// by one tensor store, as its own bulk group (past the tensor's edge
+// nothing is written).
+__device__ __forceinline__ void tensor_store_3d(const CUtensorMap* m, int x, int y, int z,
+                                                const uint8_t* src) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.tile.bulk_group [%0, {%1, %2, %3}], [%4];" ::"l"(
+          m),
+      "r"(x), "r"(y), "r"(z), "r"(saddr(src))
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
 // The generic proxy's shared-memory writes, before the bulk stores read them.
 __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
@@ -164,13 +193,13 @@ __device__ __forceinline__ void row_scales(const float* table, int u, float (&q)
   q[4] = hi.x, q[5] = hi.y, q[6] = hi.z, q[7] = hi.w;
 }
 
-// -- tiles of NB blocks of one strip row (stereo.cu, encq.cu) ----------------
+// -- tiles of NB blocks of one strip row (stereo.cu, encq.cu, dct32.cu) ------
 
 // A CTA's walk over the tiles, numbered over (frame, row of the frame, tile
 // of the row): `rows` rows a frame (stereo: its (strip, view) pairs;
-// enc-quant: its strips) of `tpr` tiles, the last of a row short where NB
-// does not divide it.  Tile t as mixed-radix digits, advanced by the grid's
-// digits with carries, so a step costs no division.
+// enc-quant and mode32: its strips) of `tpr` tiles, the last of a row
+// short where NB does not divide it.  Tile t as mixed-radix digits,
+// advanced by the grid's digits with carries, so a step costs no division.
 template <int NB>
 struct TileWalk {
   unsigned f, r, x;     // the current tile's digits
@@ -387,6 +416,22 @@ inline bool planes_map(CUtensorMap* m, const void* base, int batch, int h2, int 
   const cuuint32_t box[4] = {128, rows, 3, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return fn(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(base), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The (batch, h2, w) u8 frames at `base`, rows w bytes apart and frames
+// `frame_stride`, as a tensor map whose box is `cols` columns x `rows`
+// rows x 1 frame (dct32.cu, encq.cu).
+inline bool view_map(CUtensorMap* m, const void* base, int batch, int h2, int w,
+                     long long frame_stride, unsigned cols, unsigned rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)w, (cuuint64_t)h2, (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)w, (cuuint64_t)frame_stride};
+  const cuuint32_t box[3] = {cols, rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(base), dims, strides, box,
             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
             CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

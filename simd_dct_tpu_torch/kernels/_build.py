@@ -137,10 +137,14 @@ def build() -> str:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     ull = ctypes.c_ulonglong
-    lib.sdct_enc32.argtypes = [p, p, p, i, i, i, ll, i, i, i, p]
+    lib.sdct_enc32.argtypes = [p, p, p, i, i, i, ll, i, i, i, i, i, p]
     lib.sdct_enc32.restype = i
-    lib.sdct_dec32.argtypes = [p, p, p, i, i, i, p]
+    lib.sdct_enc32_capacity.argtypes = [i, p, p, p, p]
+    lib.sdct_enc32_capacity.restype = i
+    lib.sdct_dec32.argtypes = [p, p, p, i, i, i, i, i, p]
     lib.sdct_dec32.restype = i
+    lib.sdct_dec32_capacity.argtypes = [p, p, p, p]
+    lib.sdct_dec32_capacity.restype = i
     lib.sdct_roundtrip32.argtypes = [p, p, p, p, i, i, i, ll, i, i, p]
     lib.sdct_roundtrip32.restype = i
     lib.sdct_roundtrip32_capacity.argtypes = [p, p, p, p, p, p]

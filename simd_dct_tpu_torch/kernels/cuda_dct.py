@@ -238,19 +238,32 @@ def encode_quantize32(img: torch.Tensor, lut, start_y: int = 0,
         raise ValueError(f"rounding must be one of {ROUNDING_MODES}")
     if img.device.type == "cpu":
         return _tp.encode_quantize32(img, lut, start_y, end_y, rounding)
-    batch = _batch_of(img, 2)
-    h2 = h // 2
-    out = torch.empty(img.shape[:-2] + (h2 * w,), dtype=torch.uint8,
+    out = torch.empty(img.shape[:-2] + (h // 2 * w,), dtype=torch.uint8,
                       device=img.device)
-    if out.numel() == 0:
-        return out
-    q, _ = _host_scales(lut)
-    _launch("enc32", (img, out), batch,
-            lambda lib, src, dst, n: lib.sdct_enc32(
-                src, dst, q.ctypes.data, n, h2, w, h * w,
-                _clamp_i32(start_y), _clamp_i32(end_y),
-                _ROUNDING_CODE[rounding], _stream(img)))
+    _enc32(img, out, h // 2, w, h * w, lut, start_y, end_y, rounding)
     return out
+
+
+def _enc32(src: torch.Tensor, out: torch.Tensor, h2: int, w: int,
+           frame_stride: int, lut, start_y: int, end_y: int,
+           rounding: str) -> None:
+    """The encode's launches: the top h2 rows of each of ``out``'s frames
+    of ``src``, ``frame_stride`` bytes apart."""
+    if out.numel() == 0:
+        return
+    batch = out.numel() // (h2 * w)
+    q, _ = _host_scales(lut)
+
+    def launch(lib, src_p, dst_p, n):
+        plan = _row_tile_plan_of("enc32", src, n, h2, w, src_p, dst_p,
+                                 frame_stride, rounding=rounding)
+        return lib.sdct_enc32(
+            src_p, dst_p, q.ctypes.data, n, h2, w, frame_stride,
+            _clamp_i32(start_y), _clamp_i32(end_y), _ROUNDING_CODE[rounding],
+            plan.grid, plan.smem, _stream(src))
+
+    _launch("enc32", (src, out), batch, launch,
+            frame_bytes=[frame_stride, h2 * w])
 
 
 def decode_quantize32(data: torch.Tensor, lut, size_x: int,
@@ -271,9 +284,14 @@ def decode_quantize32(data: torch.Tensor, lut, size_x: int,
     if out.numel() == 0:
         return out
     _, qi = _host_scales(lut)
-    _launch("dec32", (data, out), batch,
-            lambda lib, src, dst, n: lib.sdct_dec32(
-                src, dst, qi.ctypes.data, n, h2, size_x, _stream(data)))
+
+    def launch(lib, src, dst, n):
+        plan = _row_tile_plan_of("dec32", data, n, h2, size_x, dst, src,
+                                 h2 * size_x)
+        return lib.sdct_dec32(src, dst, qi.ctypes.data, n, h2, size_x,
+                              plan.grid, plan.smem, _stream(data))
+
+    _launch("dec32", (data, out), batch, launch)
     return out
 
 
@@ -442,8 +460,8 @@ def _encode_quantize(img: torch.Tensor, lut, start_y: int = 0,
     q, _ = _host_scales(lut)
 
     def launch(lib, src, dst, n):
-        plan = _launching("encq", _eq_plan_of(
-            "encq", img, n, h2, w, layout, src, dst, h * w, rounding,
+        plan = _launching("encq", _row_tile_plan_of(
+            "encq", img, n, h2, w, src, dst, h * w, layout, rounding,
             variant), n, h, w, layout)
         return lib.sdct_encq(
             src, dst, q.ctypes.data, n, h2, w, h * w, _clamp_i32(start_y),
@@ -485,8 +503,8 @@ def _decode_quantize(data: torch.Tensor, lut, size_x: int, size_y: int,
     _, qi = _host_scales(lut)
 
     def launch(lib, src, dst, n):
-        plan = _launching("decq", _eq_plan_of(
-            "decq", data, n, h2, size_x, layout, dst, src, h2 * size_x,
+        plan = _launching("decq", _row_tile_plan_of(
+            "decq", data, n, h2, size_x, dst, src, h2 * size_x, layout,
             variant=variant), n, size_y, size_x, layout)
         return lib.sdct_decq(
             src, dst, qi.ctypes.data, n, h2, size_x, _LAYOUT_CODE[layout],
@@ -502,8 +520,10 @@ ENCQ_TILE_BLOCKS = 32     # blocks of one strip a tile (kEqTileBlocks)
 _EQ_KINDS = ("encq", "decq")
 
 
-class EncqPlan(NamedTuple):
-    """A launch of ``encq_kernel`` or ``decq_kernel``."""
+class RowTilePlan(NamedTuple):
+    """A launch of a kernel on tiles of blocks of one strip row:
+    ``encq_kernel``, ``decq_kernel``, ``enc32_kernel`` or
+    ``dec32_kernel``."""
     variant: str          # "tensor" or "plain": how the pixels move
     tile_blocks: int      # blocks of one strip a tile
     tiles_per_strip: int
@@ -537,19 +557,17 @@ def decq_smem() -> int:
     return 64 * 4 + 3 * 64 * ENCQ_TILE_BLOCKS + 4 * 64 * ENCQ_TILE_BLOCKS
 
 
-def _eq_plan(kind: str, batch: int, h2: int, w: int, layout: str, *,
-             pixels: int, records: int, frame_stride: int,
-             capacity: Callable[[str], tuple[int, int]],
-             variant: str | None, tile_blocks: int, smem: int) -> EncqPlan:
-    if kind not in _EQ_KINDS:
-        raise ValueError(f"no enc-quant plan for {kind!r}")
-    layouts = _LAYOUT_CODE if kind == "encq" else ("scalar", "pair")
-    if layout not in layouts:
-        raise ValueError(f"{kind}: layout must be one of {tuple(layouts)}")
-    wmul = 8 if layout == "scalar" else 16
+def _row_tile_plan(kind: str, batch: int, h2: int, w: int, wmul: int, *,
+                   pixels: int, records: int, frame_stride: int,
+                   capacity: Callable[[str], tuple[int, int]],
+                   variant: str | None, tile_blocks: int,
+                   smem: int) -> RowTilePlan:
+    """The launch of ``batch`` frames of (h2, W) views, W % ``wmul`` == 0,
+    in tiles of ``tile_blocks`` blocks of one strip (the encq_plan and
+    enc32_plan rules)."""
     if h2 <= 0 or h2 % 8 or w <= 0 or w % wmul:
-        raise ValueError(f"{kind} ({layout}) needs H2 % 8 == 0 and W % {wmul}"
-                         f" == 0, got H2={h2}, W={w}")
+        raise ValueError(f"{kind} needs H2 % 8 == 0 and W % {wmul} == 0, got "
+                         f"H2={h2}, W={w}")
     if not 1 <= batch <= _MAX_BATCH:
         raise ValueError(f"{kind}: a launch takes 1 to {_MAX_BATCH} frames, "
                          f"got {batch}")
@@ -564,7 +582,9 @@ def _eq_plan(kind: str, batch: int, h2: int, w: int, layout: str, *,
     elif variant not in _VARIANT_CODE or (variant == "tensor"
                                           and best != "tensor"):
         raise ValueError(f"{kind}: variant {variant!r} is not possible here "
-                         f"(W={w}, pixels at {pixels}, stride {frame_stride})")
+                         f"(tensor copies need W % 16 == 0 and 16-byte pixels"
+                         f" and stride; W={w}, pixels at {pixels}, stride "
+                         f"{frame_stride})")
     bw = w // 8
     tps = -(-bw // tile_blocks)
     tiles = batch * (h2 // 8) * tps
@@ -574,14 +594,31 @@ def _eq_plan(kind: str, batch: int, h2: int, w: int, layout: str, *,
     per_sm, sms = capacity(variant)
     if per_sm < 1:
         raise ValueError(f"{kind}: no CTA of {smem} shared bytes fits an SM")
-    return EncqPlan(variant, tile_blocks, tps, bw - (tps - 1) * tile_blocks,
-                    tiles, smem, per_sm, min(tiles, sms * per_sm))
+    return RowTilePlan(variant, tile_blocks, tps, bw - (tps - 1) * tile_blocks,
+                       tiles, smem, per_sm, min(tiles, sms * per_sm))
+
+
+def _eq_plan(kind: str, batch: int, h2: int, w: int, layout: str, *,
+             pixels: int, records: int, frame_stride: int,
+             capacity: Callable[[str], tuple[int, int]],
+             variant: str | None, tile_blocks: int,
+             smem: int) -> RowTilePlan:
+    if kind not in _EQ_KINDS:
+        raise ValueError(f"no enc-quant plan for {kind!r}")
+    layouts = _LAYOUT_CODE if kind == "encq" else ("scalar", "pair")
+    if layout not in layouts:
+        raise ValueError(f"{kind}: layout must be one of {tuple(layouts)}")
+    return _row_tile_plan(f"{kind} ({layout})", batch, h2, w,
+                          8 if layout == "scalar" else 16,
+                          pixels=pixels, records=records,
+                          frame_stride=frame_stride, capacity=capacity,
+                          variant=variant, tile_blocks=tile_blocks, smem=smem)
 
 
 def encq_plan(batch: int, h2: int, w: int, layout: str, *, pixels: int,
               records: int, frame_stride: int,
               capacity: Callable[[str], tuple[int, int]],
-              variant: str | None = None) -> EncqPlan:
+              variant: str | None = None) -> RowTilePlan:
     """The launch of the encode for ``batch`` frames whose top (h2, W) views
     start at address ``pixels``, ``frame_stride`` bytes apart, into records
     at ``records``.  A tile is ``ENCQ_TILE_BLOCKS`` blocks of one strip,
@@ -598,7 +635,7 @@ def encq_plan(batch: int, h2: int, w: int, layout: str, *, pixels: int,
 
 def decq_plan(batch: int, h2: int, w: int, layout: str, *, records: int,
               pixels: int, capacity: Callable[[str], tuple[int, int]],
-              variant: str | None = None) -> EncqPlan:
+              variant: str | None = None) -> RowTilePlan:
     """The launch of the decode of ``batch`` frames of records at address
     ``records`` into (h2, W) views at ``pixels``, H2*W bytes apart, in the
     encode's tiles."""
@@ -608,58 +645,9 @@ def decq_plan(batch: int, h2: int, w: int, layout: str, *, records: int,
                     smem=decq_smem())
 
 
-@functools.lru_cache(maxsize=64)
-def _eq_capacity(device: int, kind: str, rounding: str, layout: str,
-                 variant: str) -> tuple[int, int]:
-    lib = _build.load()
-    out = np.zeros(4, np.int32)
-    ptrs = tuple(out.ctypes.data + 4 * i for i in range(4))
-    with torch.cuda.device(device):
-        rc = (lib.sdct_encq_capacity(_ROUNDING_CODE[rounding],
-                                     _LAYOUT_CODE[layout],
-                                     _VARIANT_CODE[variant], *ptrs)
-              if kind == "encq" else
-              lib.sdct_decq_capacity(_LAYOUT_CODE[layout],
-                                     _VARIANT_CODE[variant], *ptrs))
-        _build.check(lib, rc, f"{kind} capacity")
-    smem = encq_smem() if kind == "encq" else decq_smem()
-    if (int(out[0]), int(out[1])) != (ENCQ_TILE_BLOCKS, smem):
-        raise RuntimeError(f"{kind}: the kernel lays out tiles of "
-                           f"{int(out[0])} blocks in {int(out[1])} shared "
-                           f"bytes, the plan {ENCQ_TILE_BLOCKS} in {smem}")
-    return int(out[2]), int(out[3])
-
-
-def _eq_plan_of(kind: str, t: torch.Tensor, batch: int, h2: int, w: int,
-                layout: str, pixels: int, records: int, frame_stride: int,
-                rounding: str = "rne",
-                variant: str | None = None) -> EncqPlan:
-    """The plan of a launch on ``t``'s card.  It depends on the addresses
-    only through their offsets from a 16-byte boundary, so it is cached by
-    those: a wrapper call pays one lookup (its host time: PERF.md)."""
-    return _eq_plan_cached(kind, _device_index(t), batch, h2, w, layout,
-                           pixels % 16, records % 16, frame_stride, rounding,
-                           variant)
-
-
-@functools.lru_cache(maxsize=256)
-def _eq_plan_cached(kind: str, dev: int, batch: int, h2: int, w: int,
-                    layout: str, pixels: int, records: int, frame_stride: int,
-                    rounding: str, variant: str | None) -> EncqPlan:
-    def capacity(v):
-        return _eq_capacity(dev, kind, rounding, layout, v)
-
-    if kind == "encq":
-        return encq_plan(batch, h2, w, layout, pixels=pixels, records=records,
-                         frame_stride=frame_stride, capacity=capacity,
-                         variant=variant)
-    return decq_plan(batch, h2, w, layout, records=records, pixels=pixels,
-                     capacity=capacity, variant=variant)
-
-
 def encq_launch_plan(kind: str, t: torch.Tensor, layout: str = "scalar",
                      rounding: str = "rne", *, size_x: int | None = None,
-                     size_y: int | None = None) -> EncqPlan:
+                     size_y: int | None = None) -> RowTilePlan:
     """The plan ``encode_quantize`` (kind "encq", ``t`` a (H, W) or
     (B, H, W) image) or ``decode_quantize`` ("decq", ``t`` the records of a
     ``size_y`` x ``size_x`` image) launches for a CUDA tensor of at most
@@ -667,11 +655,155 @@ def encq_launch_plan(kind: str, t: torch.Tensor, layout: str = "scalar",
     wrappers allocate it."""
     if kind == "encq":
         h, w = t.shape[-2:]
-        return _eq_plan_of(kind, t, _batch_of(t, 2), h // 2, w, layout,
-                           t.data_ptr(), 0, h * w, rounding)
+        return _row_tile_plan_of(kind, t, _batch_of(t, 2), h // 2, w,
+                                 t.data_ptr(), 0, h * w, layout, rounding)
     h2 = size_y // 2
-    return _eq_plan_of(kind, t, _batch_of(t, 1), h2, size_x, layout, 0,
-                       t.data_ptr(), h2 * size_x)
+    return _row_tile_plan_of(kind, t, _batch_of(t, 1), h2, size_x, 0,
+                             t.data_ptr(), h2 * size_x, layout)
+
+
+# -- the mode32 encode's and decode's launch plans (csrc/dct32.cu) ------------
+
+MODE32_TILE_BLOCKS = 32   # blocks of one strip a tile (kM32TileBlocks)
+_M32_KINDS = ("enc32", "dec32")
+_GROUP_STRIDE = 528       # a staged 512-byte group record (kGroupStride)
+
+
+def enc32_smem() -> int:
+    """Dynamic shared bytes of an encode CTA (``kE32Smem`` in dct32.cu): the
+    scales, one pixel tile (64 bytes a block), two record buffers of padded
+    groups (``_GROUP_STRIDE`` bytes for 8 blocks) and the f32 crossing
+    buffer."""
+    nb = MODE32_TILE_BLOCKS
+    return 64 * 4 + 64 * nb + 2 * (nb // 8) * _GROUP_STRIDE + 4 * 64 * nb
+
+
+def dec32_smem() -> int:
+    """Dynamic shared bytes of a decode CTA (``kD32Smem`` in dct32.cu): the
+    scales, two pixel tiles, one record buffer of padded groups and the f32
+    crossing buffer."""
+    nb = MODE32_TILE_BLOCKS
+    return 64 * 4 + 2 * 64 * nb + (nb // 8) * _GROUP_STRIDE + 4 * 64 * nb
+
+
+def _m32_plan(kind: str, batch: int, h2: int, w: int, *, pixels: int,
+              records: int, frame_stride: int,
+              capacity: Callable[[str], tuple[int, int]], tile_blocks: int,
+              smem: int) -> RowTilePlan:
+    if kind not in _M32_KINDS:
+        raise ValueError(f"no mode32 plan for {kind!r}")
+    return _row_tile_plan(kind, batch, h2, w, 64, pixels=pixels,
+                          records=records, frame_stride=frame_stride,
+                          capacity=capacity, variant="tensor",
+                          tile_blocks=tile_blocks, smem=smem)
+
+
+def enc32_plan(batch: int, h2: int, w: int, *, pixels: int, records: int,
+               frame_stride: int,
+               capacity: Callable[[str], tuple[int, int]]) -> RowTilePlan:
+    """The launch of the encode for ``batch`` frames whose top (h2, W) views
+    start at address ``pixels``, ``frame_stride`` bytes apart, into records
+    at ``records``.  A tile is ``MODE32_TILE_BLOCKS`` blocks of one strip,
+    never crossing a strip (the last of a strip holds the rest, whole
+    8-block groups), and owns its 64 bytes a block of consecutive records.
+    The pixels move by tensor copies, so the addresses and the frame stride
+    must be multiples of 16 (W % 64 == 0 keeps the rows so).
+    ``capacity("tensor")`` gives (CTAs of that launch an SM holds, SMs); the
+    grid is as many CTAs as the card holds at once, at most one a tile."""
+    return _m32_plan("enc32", batch, h2, w, pixels=pixels, records=records,
+                     frame_stride=frame_stride, capacity=capacity,
+                     tile_blocks=MODE32_TILE_BLOCKS, smem=enc32_smem())
+
+
+def dec32_plan(batch: int, h2: int, w: int, *, records: int, pixels: int,
+               capacity: Callable[[str], tuple[int, int]]) -> RowTilePlan:
+    """The launch of the decode of ``batch`` frames of records at address
+    ``records`` into (h2, W) views at ``pixels``, H2*W bytes apart, in the
+    encode's tiles."""
+    return _m32_plan("dec32", batch, h2, w, pixels=pixels, records=records,
+                     frame_stride=h2 * w, capacity=capacity,
+                     tile_blocks=MODE32_TILE_BLOCKS, smem=dec32_smem())
+
+
+def mode32_launch_plan(kind: str, t: torch.Tensor, rounding: str = "rne", *,
+                       size_x: int | None = None,
+                       size_y: int | None = None) -> RowTilePlan:
+    """The plan ``encode_quantize32`` (kind "enc32", ``t`` a (H, W) or
+    (B, H, W) image) or ``decode_quantize32`` ("dec32", ``t`` the records of
+    a ``size_y`` x ``size_x`` image) launches for a CUDA tensor of at most
+    65,535 frames; the output's address is taken as 16-byte aligned, as the
+    wrappers allocate it."""
+    if kind == "enc32":
+        h, w = t.shape[-2:]
+        return _row_tile_plan_of(kind, t, _batch_of(t, 2), h // 2, w,
+                                 t.data_ptr(), 0, h * w, rounding=rounding)
+    h2 = size_y // 2
+    return _row_tile_plan_of(kind, t, _batch_of(t, 1), h2, size_x, 0,
+                             t.data_ptr(), h2 * size_x)
+
+
+# -- the row-tile kernels' plans on a card (encq.cu, dct32.cu) ----------------
+
+@functools.lru_cache(maxsize=64)
+def _row_tile_capacity(device: int, kind: str, rounding: str, layout: str,
+                       variant: str) -> tuple[int, int]:
+    """(CTAs an SM, SMs) of ``kind``'s instantiation for these options on
+    card ``device``, once its tile width and shared bytes equal the
+    plan's."""
+    lib = _build.load()
+    r, lay, v = (_ROUNDING_CODE[rounding], _LAYOUT_CODE[layout],
+                 _VARIANT_CODE[variant])
+    # kind -> (capacity entry point, its options, tile width, shared bytes)
+    entry, options, nb, smem = {
+        "encq": (lib.sdct_encq_capacity, (r, lay, v), ENCQ_TILE_BLOCKS,
+                 encq_smem()),
+        "decq": (lib.sdct_decq_capacity, (lay, v), ENCQ_TILE_BLOCKS,
+                 decq_smem()),
+        "enc32": (lib.sdct_enc32_capacity, (r,), MODE32_TILE_BLOCKS,
+                  enc32_smem()),
+        "dec32": (lib.sdct_dec32_capacity, (), MODE32_TILE_BLOCKS,
+                  dec32_smem())}[kind]
+    out = np.zeros(4, np.int32)
+    with torch.cuda.device(device):
+        rc = entry(*options, *(out.ctypes.data + 4 * i for i in range(4)))
+        _build.check(lib, rc, f"{kind} capacity")
+    if (int(out[0]), int(out[1])) != (nb, smem):
+        raise RuntimeError(f"{kind}: the kernel lays out tiles of "
+                           f"{int(out[0])} blocks in {int(out[1])} shared "
+                           f"bytes, the plan {nb} in {smem}")
+    return int(out[2]), int(out[3])
+
+
+def _row_tile_plan_of(kind: str, t: torch.Tensor, batch: int, h2: int,
+                      w: int, pixels: int, records: int, frame_stride: int,
+                      layout: str = "scalar", rounding: str = "rne",
+                      variant: str | None = None) -> RowTilePlan:
+    """The plan of a launch of ``kind`` ("encq", "decq", "enc32" or
+    "dec32") on ``t``'s card.  It depends on the addresses only through
+    their offsets from a 16-byte boundary, so it is cached by those: a
+    wrapper call pays one lookup (its host time: PERF.md)."""
+    return _row_tile_plan_cached(kind, _device_index(t), batch, h2, w,
+                                 layout, pixels % 16, records % 16,
+                                 frame_stride, rounding, variant)
+
+
+@functools.lru_cache(maxsize=256)
+def _row_tile_plan_cached(kind: str, dev: int, batch: int, h2: int, w: int,
+                          layout: str, pixels: int, records: int,
+                          frame_stride: int, rounding: str,
+                          variant: str | None) -> RowTilePlan:
+    def capacity(v):
+        return _row_tile_capacity(dev, kind, rounding, layout, v)
+
+    at = dict(pixels=pixels, records=records, capacity=capacity)
+    if kind == "encq":
+        return encq_plan(batch, h2, w, layout, frame_stride=frame_stride,
+                         variant=variant, **at)
+    if kind == "decq":
+        return decq_plan(batch, h2, w, layout, variant=variant, **at)
+    if kind == "enc32":
+        return enc32_plan(batch, h2, w, frame_stride=frame_stride, **at)
+    return dec32_plan(batch, h2, w, **at)
 
 
 def encode_quantize_stereo(img: torch.Tensor, lut, start_y: int = 0,
@@ -1353,18 +1485,9 @@ def encode32_view(view: torch.Tensor, lut,
         raise ValueError(f"rounding must be one of {ROUNDING_MODES}")
     if view.device.type == "cpu":
         return _tp.encode32_view(view, lut, rounding)
-    batch = _batch_of(view, 2)
-    stride = _lead_stride(view)
     out = torch.empty(view.shape[:-2] + (h2 * w,), dtype=torch.uint8,
                       device=view.device)
-    if out.numel() == 0:
-        return out
-    q, _ = _host_scales(lut)
-    _launch("enc32", (view, out), batch,
-            lambda lib, src, dst, n: lib.sdct_enc32(
-                src, dst, q.ctypes.data, n, h2, w, stride, 0, _I32_MAX,
-                _ROUNDING_CODE[rounding], _stream(view)),
-            frame_bytes=[stride, h2 * w])
+    _enc32(view, out, h2, w, _lead_stride(view), lut, 0, _I32_MAX, rounding)
     return out
 
 

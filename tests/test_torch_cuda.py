@@ -108,6 +108,84 @@ def test_wrappers_reject_misaligned(gen):
     _ok(rec, TP.encode_quantize32(flat[1:].view(256, 128), LUT))
 
 
+def _over_junk(fn, *args, **kw):
+    """fn's result, its output allocated over bytes just set to 0xAB (the
+    caching allocator hands the same block back): an unwritten byte
+    shows."""
+    out = fn(*args, **kw)
+    out.fill_(0xAB)
+    del out
+    return fn(*args, **kw)
+
+
+def test_mode32_plans_and_views_off_16_bytes(gen):
+    """The encode and the decode take tensor copies on every tensor a
+    wrapper accepts; a view off a 16-byte boundary is refused, and the api
+    realigns it."""
+    img = _img(gen, 8, 1088, 1920)
+    rec = K.encode_quantize32(img, LUT)
+    for plan in (K.mode32_launch_plan("enc32", img),
+                 K.mode32_launch_plan("dec32", rec, size_x=1920,
+                                      size_y=1088)):
+        assert plan.variant == "tensor"
+        assert (plan.tiles, plan.tail_blocks) == (8 * 68 * 8, 16)
+    top = img[:, :544]
+    flat = torch.empty(top.numel() + 16, dtype=torch.uint8, device="cuda")
+    off = flat[8:8 + top.numel()].view(top.shape)
+    off.copy_(top)
+    with pytest.raises(ValueError):
+        K.encode32_view(off, LUT)
+    assert torch.equal(sd.encode_quantize32(img, LUT), rec)
+
+
+# a strip of one whole tile (W = 256), of 7 and a tile of 16 blocks (1920),
+# of one short tile (64)
+@pytest.mark.parametrize("w", [256, 1920, 64])
+@pytest.mark.parametrize("sy,ey", [(16, 16), (32, 95), (48, 1 << 40),
+                                   (-(1 << 40), 0)])
+def test_enc32_strip_ranges_leave_one_writer_a_byte(gen, w, sy, ey):
+    """Kept strips hold the full-range encode's bytes, the others zeros,
+    over outputs preset to 0xAB (the plain version agrees within +-1)."""
+    img = _img(gen, 2, 256, w)
+    whole = K.encode_quantize32(img, LUT).view(2, 16, 8 * w)
+    kept = [sy <= 16 * s <= ey for s in range(16)]
+    want = whole * torch.tensor(kept, device="cuda")[None, :, None]
+    got = _over_junk(K.encode_quantize32, img, LUT, sy, ey)
+    assert torch.equal(got, want.view(2, -1))
+    _ok(got, TP.encode_quantize32(img, LUT, sy, ey))
+
+
+def test_enc32_batch_top_views_against_plain_and_frame_by_frame(gen):
+    # frames 1088 rows apart, of which the encode reads the top 544
+    img = _img(gen, 8, 1088, 1920)
+    rec = K.encode_quantize32(img, LUT)
+    assert torch.equal(rec, TP.encode_quantize32(img, LUT))
+    for i in (0, 7):
+        assert torch.equal(rec[i], K.encode_quantize32(img[i], LUT))
+    pix = K.decode_quantize32(rec, LUT, 1920, 1088)
+    _ok(pix, TP.decode_quantize32(rec, LUT, 1920, 1088))
+    assert torch.equal(pix[7], K.decode_quantize32(rec[7], LUT, 1920, 1088))
+
+
+def test_encode32_view_of_a_shard_stride(gen):
+    img = _img(gen, 3, 544, 1920)
+    # a shard: strips 4..11 of each frame, frames 544 rows apart
+    shard = img[:, 32:96]
+    assert shard.stride(0) == 544 * 1920
+    got = K.encode32_view(shard, LUT)
+    assert torch.equal(got, K.encode32_view(shard.contiguous(), LUT))
+    _ok(got, TP.encode32_view(shard.contiguous(), LUT))
+
+
+@pytest.mark.parametrize("shape", [(16, 1984), (1088, 1920), (4, 256, 192)])
+def test_roundtrip32_equals_decode_of_encode(gen, shape):
+    img = _img(gen, *shape)
+    h, w = shape[-2:]
+    assert torch.equal(K.roundtrip_quantize32(img, LUT),
+                       K.decode_quantize32(K.encode_quantize32(img, LUT),
+                                           LUT, w, h))
+
+
 # -- enc-quant ---------------------------------------------------------------
 
 LUT_Q = default_quant_lut(50)     # enc-quant works in the 1/255 domain
@@ -199,16 +277,6 @@ def test_encq_tensor_and_plain_variants_give_the_same_bytes(gen, shape):
         assert torch.equal(
             K.decode_quantize(rec, LUT_Q, w, h, layout),
             K._decode_quantize(rec, LUT_Q, w, h, layout, variant="plain"))
-
-
-def _over_junk(fn, *args, **kw):
-    """fn's result, its output allocated over bytes just set to 0xAB (the
-    caching allocator hands the same block back): an unwritten byte
-    shows."""
-    out = fn(*args, **kw)
-    out.fill_(0xAB)
-    del out
-    return fn(*args, **kw)
 
 
 # a strip of one whole tile (W = 256), of 7 and a tile of 16 blocks (1920),

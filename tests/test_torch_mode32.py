@@ -12,6 +12,9 @@ Tolerances:
     record byte at a coarse quantizer moves pixels by far more than 2.
 """
 
+import os
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,6 +25,7 @@ from simd_dct_tpu.core import golden as G
 from simd_dct_tpu.kernels import pallas_dct as PK
 from simd_dct_tpu.kernels import xla_path as XP
 import simd_dct_tpu_torch as T
+from simd_dct_tpu_torch import api as A
 from simd_dct_tpu_torch.kernels import cuda_dct as K
 from simd_dct_tpu_torch.kernels import torch_path as TP
 from simd_dct_tpu_torch.utils.debug import compare_backends
@@ -253,3 +257,168 @@ def test_roundtrip32_plan_shared_bytes_and_refusals():
     small = _rt_plan(1, 8, 64)     # one strip of 8 blocks: one short tile
     assert small.tiles == 1 and small.grid == 1 and small.tail_blocks == 8
     assert _rt_plan(65535, 16, 128).grid == 132 * 20
+
+
+# -- the encode's and decode's launch plans (enc32_kernel, dec32_kernel) ------
+
+M32NB = K.MODE32_TILE_BLOCKS
+
+
+def _sm14(variant):
+    """A card of 132 SMs holding 14 CTAs of any launch an SM."""
+    return 14, 132
+
+
+def _m32_plan(kind, batch, h2, w, pixels=0, records=0, stride=None):
+    if kind == "enc32":
+        return K.enc32_plan(batch, h2, w, pixels=pixels, records=records,
+                            frame_stride=2 * h2 * w if stride is None
+                            else stride, capacity=_sm14)
+    return K.dec32_plan(batch, h2, w, records=records, pixels=pixels,
+                        capacity=_sm14)
+
+
+def _m32_tile_at(plan, s_n, t):
+    """(frame, strip, first block, blocks) of tile ``t`` (an integer array),
+    numbered over (frame, strip, tile of the strip) as m32_tile reads a
+    TileWalk."""
+    row, x = np.divmod(t, plan.tiles_per_strip)
+    frame, s = np.divmod(row, s_n)
+    last = x == plan.tiles_per_strip - 1
+    return frame, s, x * plan.tile_blocks, np.where(last, plan.tail_blocks,
+                                                    plan.tile_blocks)
+
+
+@pytest.mark.parametrize("batch", [1, 8, 65535])
+@pytest.mark.parametrize("w,tiles,tail", [(64, 1, 8), (192, 1, 24),
+                                          (1920, 8, 16), (1984, 8, 24),
+                                          (3840, 15, 32)])
+def test_mode32_plan_covers_each_block_once(batch, w, tiles, tail):
+    h2 = 16
+    s_n, bw = h2 // 8, w // 8
+    for kind in ("enc32", "dec32"):
+        plan = _m32_plan(kind, batch, h2, w)
+        assert (plan.tile_blocks, plan.tiles_per_strip,
+                plan.tail_blocks) == (M32NB, tiles, tail)
+        assert plan.tiles == batch * s_n * tiles < 1 << 31
+        assert 1 <= plan.grid == min(plan.tiles, 14 * 132)
+        per_frame = s_n * tiles
+        for f in sorted({0, 1, batch - 2, batch - 1} & set(range(batch))):
+            frame, s, bx0, n = _m32_tile_at(
+                plan, s_n, np.arange(f * per_frame, (f + 1) * per_frame))
+            assert (frame == f).all()
+            # a tile never crosses a strip, holds whole 8-block groups,
+            # and its records are the 64n bytes from 64 * (s*BW + bx0)
+            assert ((bx0 + n <= bw) & (n > 0) & (n % 8 == 0)).all()
+            cols = np.arange(M32NB)[None]
+            blocks = ((s * bw + bx0)[:, None] + cols)[cols < n[:, None]]
+            np.testing.assert_array_equal(np.bincount(blocks),
+                                          np.ones(s_n * bw))
+
+
+@pytest.mark.parametrize("pixels,stride,ok", [
+    (0, None, True), (4096, None, True),
+    (8, None, False),                         # a base 8 bytes off
+    (0, 2 * 32 * 3840 + 8, False),            # a frame stride off 16
+    (8, 2 * 32 * 3840 + 8, False)])
+def test_mode32_plan_takes_tensor_copies_or_refuses(pixels, stride, ok):
+    """The pixels move by tensor copies only: a base or a frame stride off
+    a 16-byte boundary is refused (the wrappers take aligned tensors)."""
+    kinds = ["enc32"] + (["dec32"] if stride is None else [])
+    for kind in kinds:     # the decode writes frames H2*W apart
+        if ok:
+            assert _m32_plan(kind, 2, 32, 3840, pixels=pixels,
+                             stride=stride).variant == "tensor"
+        else:
+            with pytest.raises(ValueError, match="16-byte"):
+                _m32_plan(kind, 2, 32, 3840, pixels=pixels, stride=stride)
+
+
+def _dct32_constants() -> dict:
+    """dct32.cu's and dct_common.cuh's ``constexpr int`` values, evaluated
+    as C ints."""
+    env = {}
+    for name in ("dct_common.cuh", "dct32.cu"):
+        path = os.path.join(os.path.dirname(K.__file__), os.pardir, "csrc",
+                            name)
+        with open(path) as f:
+            text = f.read()
+        for key, expr in re.findall(r"constexpr int (k\w+)\s*=\s*([^;]+);",
+                                    text):
+            env[key] = eval(expr.replace("/", "//"), {}, dict(env))
+    return env
+
+
+def test_mode32_plan_shared_bytes_equal_the_kernels():
+    c = _dct32_constants()
+    assert c["kM32TileBlocks"] == K.MODE32_TILE_BLOCKS
+    assert c["kGroupStride"] == K._GROUP_STRIDE
+    assert c["kE32Smem"] == K.enc32_smem() == _m32_plan("enc32", 1, 8,
+                                                        64).smem
+    assert c["kD32Smem"] == K.dec32_smem() == _m32_plan("dec32", 1, 8,
+                                                        64).smem
+    # the scales; one pixel tile and two record buffers of four padded
+    # groups (the decode: two pixel tiles and one record buffer); the f32
+    # crossing buffer, at nb = 32
+    assert (K.enc32_smem(), K.dec32_smem()) == (14720, 14656)
+    assert max(K.enc32_smem(), K.dec32_smem()) <= 48 * 1024
+
+
+# (H, W, start_y, end_y) of the strip ranges chip_smoke.py and the card
+# tests run
+M32_RANGES = [(512, 3840, 64, 191), (512, 256, 16, 16), (512, 1920, 32, 95),
+              (512, 64, 48, 1 << 40), (512, 256, -(1 << 40), 0),
+              (512, 3840, 0, 0), (512, 3840, 200, 1 << 40),
+              (512, 3840, -(1 << 40), 100), (16, 1984, 0, 1 << 30)]
+
+
+@pytest.mark.parametrize("h,w,sy,ey", M32_RANGES)
+def test_mode32_plan_each_byte_has_one_writer(h, w, sy, ey):
+    """The encode's writer rule on the plan's tiles: a kept tile's records
+    leave by its group bulk stores, an excluded tile's zeros by its
+    threads, each over its 64n bytes; together once each byte, and the
+    kept bytes are where the plain version writes.  This checks the rule,
+    not the kernel: tests/test_torch_cuda.py's
+    test_enc32_strip_ranges_leave_one_writer_a_byte runs the kernel over
+    outputs preset to 0xAB."""
+    h2 = h // 2
+    s_n, bw = h2 // 8, w // 8
+    plan = _m32_plan("enc32", 2, h2, w)
+    frame, s, bx0, n = _m32_tile_at(plan, s_n, np.arange(plan.tiles))
+    kept = (16 * s >= sy) & (16 * s <= ey)
+    stores, zeros = np.zeros(2 * h2 * w, np.int64), np.zeros(2 * h2 * w,
+                                                            np.int64)
+    for f, a, b0, nb, k in zip(frame, s, bx0, n, kept):
+        base = f * h2 * w + 64 * (a * bw + b0)
+        if k:
+            for gi in range(nb // 8):     # a 512-byte bulk store a group
+                stores[base + 512 * gi: base + 512 * (gi + 1)] += 1
+        else:
+            zeros[base: base + 64 * nb] += 1
+    np.testing.assert_array_equal(stores + zeros, 1)
+    mask = A._strip_byte_mask(h, w, sy, ey)
+    want = np.ones(h2 * w, bool) if mask is None else mask
+    np.testing.assert_array_equal(stores.reshape(2, -1) == 1, [want, want])
+
+
+def test_mode32_plan_refusals():
+    assert _m32_plan("enc32", 65535, 16, 64).tiles == 65535 * 2
+    with pytest.raises(ValueError):          # a launch takes 65,535 frames
+        _m32_plan("enc32", 65536, 8, 64)
+    with pytest.raises(ValueError):
+        _m32_plan("dec32", 0, 8, 64)
+    with pytest.raises(ValueError):          # no CTA fits
+        K.enc32_plan(1, 8, 64, pixels=0, records=0, frame_stride=1024,
+                     capacity=lambda v: (0, 132))
+    with pytest.raises(ValueError):          # 2^31 tiles or more
+        _m32_plan("enc32", 65535, 1 << 14, 1 << 15)
+    for h2, w in [(12, 64), (8, 96), (0, 64), (8, 0)]:   # geometry
+        with pytest.raises(ValueError):
+            _m32_plan("enc32", 1, h2, w)
+    for kw in [dict(records=8), dict(pixels=4), dict(stride=1028),
+               dict(stride=256)]:    # 16-byte records, 8-byte pixels and
+        with pytest.raises(ValueError):   # stride, frames that overlap
+            _m32_plan("enc32", 2, 8, 64, **kw)
+    with pytest.raises(ValueError):
+        K._m32_plan("tiles", 1, 8, 64, pixels=0, records=0, frame_stride=512,
+                    capacity=_sm14, tile_blocks=32, smem=0)

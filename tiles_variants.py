@@ -89,6 +89,10 @@ ROUND_TRIP_IMAGES = [(4096, 3840, 1), (1088, 1920, 1), (256, 192, 1),
 ORIENTATIONS = ("fy", "fx")
 _ARRIVE = ('  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"('
            'saddr(bar)) : "memory");\n  return;\n')
+# tile_common.cuh tensor_load_3d's arming: the builds without loads arrive
+# without bytes there and copy nothing (dct32.cu and encq.cu take their 3-D
+# pixel tiles through it)
+_TENSOR_LOAD = "  arrive_expect(bar, bytes);\n"
 # tile_common.cuh: the basis table and the byte conversions
 _BASIS = "  return t[i];\n}"
 _DEQ = ("  return __fmul_rn(__fsub_rn(__int_as_float(0x4B000000u | b), "
@@ -298,7 +302,7 @@ BUILDS = {
         [(_RT_FIRST, "if (g.tiles == 0) {\n" + _RT_FIRST),
          (_RT_AFTER, "    }\n" + _RT_AFTER)], (RT,), True),
     "round trip: no loads and no stores": (
-        [("  arrive_expect(bar, kRtTileBytes);\n", _ARRIVE),
+        [(_TENSOR_LOAD, _ARRIVE),
          ("if (lane == 0) rt_store(", "if (lane == 0 && g.tiles == 0) rt_store(")],
         (RT,), True),
 }
