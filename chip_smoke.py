@@ -166,14 +166,34 @@ result line):
       preflight.  Every kernel of the path launched (``ring_gather``
       once a card for each gather), and each result equals the unsharded
       api call on the card byte for byte.
-Phase 10 runs last, after phase 20; it also times the gather kernel on
+  21. the compressed stream on the card, through ``container`` with numpy
+      inputs and no device, counters set to 0 just before: .sdt containers
+      of the 4096x3840 dual view in enc-quant, enc-quant-pair and
+      enc-quant32 (its 2048x3840 top view), in enc-quant-stereo in each
+      view layout, and of (3, 2048, 3840) planes in both colour modes,
+      each with the plain, rle and sparse payloads; an 8x1088x1920
+      enc-quant32 .sdtv of each payload through ``decode_video`` and
+      ``decode_video_frame``.  Every mode's encode and decode kernel must
+      have launched; each decode equals the api decode of the api's records
+      byte for byte; each payload's ``decompress`` gives the records and
+      ``decompress_to_device`` the same bytes; SDN1 by ``compress_dense``
+      on the card's records equals the host split's stream, and the device
+      histogram the native one.  Then the stage walls of the 4K enc-quant32
+      stream (kernel, device histogram, device-to-host, host pack, unpack,
+      host-to-device, decode; the rle, sparse and SDN1 routes; the
+      container's encode and decode whole; median of ``STREAM_REPS``) and
+      the compression ratio of each payload, beside the card's name and
+      power limit.
+Phase 10 runs last, after phase 21; it also times the gather kernel on
 the 4K stereo segments of four shards against four torch.cats (its
 library call, by the same two estimators) and the bound, with the launch
 plan (CTAs a rank, tile bytes, stages); the self-ring kernel against
 torch.cat([x, x], 1), both by the profiler; and the 4-shard stereo
 encode against the one-launch call.  Each phase logs its seconds.  The
 line before the last is a JSON object with one entry per kernel (its
-time, its bound and its share of the copy); the last line is
+time, its bound, its share of the copy, its launches on its main path
+and on phase 21's, ``launches_stream``); the line before it holds phase
+21's stage walls and ratios; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -192,7 +212,7 @@ import numpy as np
 import torch
 
 from simd_dct_tpu_torch import api as sd
-from simd_dct_tpu_torch import dist
+from simd_dct_tpu_torch import container, dist, entropy
 from simd_dct_tpu_torch.dist import collectives
 from simd_dct_tpu_torch.core.dct import dct_basis_np
 from simd_dct_tpu_torch.core.quantize import VR, default_quant_lut
@@ -1631,6 +1651,207 @@ def phase_large_batch(gen, lut, lut_q):
         "halves run apart")
 
 
+# quality of each container mode: enc-quant and stereo work in the 1/255
+# domain (50), mode32 and colour in the raw domain (100, the BASELINE ladder)
+STREAM_QUALITY = {"enc-quant": 50.0, "enc-quant-pair": 50.0,
+                  "enc-quant32": 100.0, "enc-quant-stereo": 50.0,
+                  "enc-quant32-ycbcr": 100.0, "enc-quant32-ycbcr420": 100.0}
+STREAM_PAYLOADS = {"plain": {}, "rle": {"rle": True},
+                   "sparse": {"sparse": True}}
+# the kernels behind the container: each mode's encode and decode
+STREAM_KERNELS = ("enc32", "dec32", "encq", "decq", "enc_stereo",
+                  "dec_stereo", "enc32_rgb", "dec32_rgb", "enc420_rgb",
+                  "dec420_rgb")
+STREAM_REPS = 9
+
+
+def stream_records(image, mode: str, view_layout: str):
+    """The api's records of one container mode and its decode of them, on
+    the card (the reference the container must equal byte for byte)."""
+    q = STREAM_QUALITY[mode]
+    lut = default_quant_lut(q)
+    luma, chroma = lut * np.float32(255.0), \
+        (BASE_CHROMA_QUANT_TABLE * q * 255.0).astype(np.float32)
+    if mode in ("enc-quant", "enc-quant-pair"):
+        layout = "pair" if mode.endswith("pair") else "scalar"
+        rec = sd.encode_quantize(image, lut, layout=layout)
+        return rec, sd.decode_quantize(rec, lut, image.shape[-1],
+                                       image.shape[-2], layout=layout)
+    if mode == "enc-quant32":
+        rec = sd.encode_quantize32(image, luma)
+        return rec, sd.decode_quantize32(rec, luma, image.shape[-1],
+                                         image.shape[-2])
+    if mode == "enc-quant-stereo":
+        rec = sd.encode_quantize_stereo(image, lut, view_layout=view_layout)
+        return rec, sd.decode_quantize_stereo(rec, lut, image.shape[-1],
+                                              image.shape[-2],
+                                              view_layout=view_layout)
+    if mode == "enc-quant32-ycbcr":
+        rec = sd.encode_quantize32_ycbcr(image, luma, chroma)
+        return rec, sd.decode_quantize32_ycbcr(rec, luma, chroma,
+                                               image.shape[-1],
+                                               image.shape[-2])
+    rec = sd.encode_quantize32_ycbcr420(image, luma, chroma)
+    return rec, sd.decode_quantize32_ycbcr420(rec, luma, chroma,
+                                              image.shape[-1],
+                                              image.shape[-2])
+
+
+def check_payload(tag: str, payload: np.ndarray, rec: torch.Tensor) -> None:
+    """The host decompress gives the records; the device route gives the
+    host's bytes."""
+    want = rec.reshape(-1)
+    host = entropy.decompress(payload)
+    require(np.array_equal(host, want.cpu().numpy()),
+            f"{tag}: decompress == the api's records")
+    dev = entropy.decompress_to_device(payload)
+    require(dev.device.type == DEV and torch.equal(dev, want),
+            f"{tag}: decompress_to_device == decompress")
+
+
+def phase_compressed_stream(gen):
+    log("phase 21: the compressed stream on the card (.sdt / .sdtv "
+        "containers, numpy inputs, no device)")
+    view = smooth_image(gen, 4096, 3840).cpu().numpy()
+    # (3, 2048, 3840) planes of the gate input's smooth correlated field
+    rgb = np.ascontiguousarray(gate_rgb(2048, 3840)[:, :2048])
+    frames = torch.stack([smooth_image(gen, 1088, 1920)
+                          for _ in range(8)]).cpu().numpy()
+    cases = [("enc-quant", "interleaved", view),
+             ("enc-quant-pair", "interleaved", view),
+             ("enc-quant32", "interleaved", view)] + [
+        ("enc-quant-stereo", vl, view) for vl in VIEW_LAYOUTS] + [
+        ("enc-quant32-ycbcr", "interleaved", rgb),
+        ("enc-quant32-ycbcr420", "interleaved", rgb)]
+    torch.cuda.synchronize()
+    cuda_dct.reset_launch_counts()
+    sdt = {}
+    for mode, vl, image in cases:
+        for name, kw in STREAM_PAYLOADS.items():
+            blob = container.encode(image, mode,
+                                    quality=STREAM_QUALITY[mode],
+                                    view_layout=vl, **kw)
+            sdt[mode, vl, name] = (blob, container.decode(blob))
+    sdtv = {}
+    for name, kw in STREAM_PAYLOADS.items():
+        blob = container.encode_video(frames, "enc-quant32",
+                                      quality=STREAM_QUALITY["enc-quant32"],
+                                      **kw)
+        sdtv[name] = (blob, container.decode_video(blob),
+                      container.decode_video_frame(blob, 5))
+    torch.cuda.synchronize()
+    counts = dict(cuda_dct.LAUNCHES)
+    log(f"  launches: {counts}")
+    for name in STREAM_KERNELS:
+        require(counts[name] > 0, f"{name} launched on the stream path")
+
+    ratios = {}
+    for mode, vl, image in cases:
+        rec, ref = stream_records(torch.from_numpy(image).to(DEV), mode, vl)
+        host = rec.reshape(-1).cpu().numpy()
+        for name in STREAM_PAYLOADS:
+            blob, out = sdt[mode, vl, name]
+            tag = f"{mode} {vl} {name}"
+            require(out.device.type == DEV and torch.equal(out, ref),
+                    f"{tag}: container decode == api decode of the records")
+            payload, meta = container.unpack(blob)
+            require(meta.packed and meta.mode == mode, f"{tag}: header")
+            check_payload(tag, payload, rec)
+            ratios[f"{mode} {vl} {name}"] = host.size / payload.size
+        dense = entropy.compress_dense(rec)
+        require(np.array_equal(dense, entropy.compress_dense(host)),
+                f"{mode} {vl}: the device split gives the host split's bytes")
+        check_payload(f"{mode} {vl} dense", dense, rec)
+        ratios[f"{mode} {vl} dense"] = host.size / dense.size
+        require(np.array_equal(entropy.histogram(rec),
+                               entropy.histogram(host, device=False)),
+                f"{mode} {vl}: device histogram == native histogram")
+        log(f"  {mode} {vl}: {host.size} record bytes, ratio plain "
+            f"{ratios[f'{mode} {vl} plain']:.3f} rle "
+            f"{ratios[f'{mode} {vl} rle']:.3f} sparse "
+            f"{ratios[f'{mode} {vl} sparse']:.3f} dense (SDN1 "
+            f"{dense[:4].tobytes() == b'SDN1'}) "
+            f"{ratios[f'{mode} {vl} dense']:.3f}; decodes exact")
+    rec, ref = stream_records(torch.from_numpy(frames).to(DEV),
+                              "enc-quant32", "interleaved")
+    for name, (blob, out, frame5) in sdtv.items():
+        require(out.shape == (8, 544, 1920) and torch.equal(out, ref),
+                f"sdtv {name}: decode_video == api decode of the records")
+        require(torch.equal(frame5, ref[5]),
+                f"sdtv {name}: decode_video_frame(5) == frame 5")
+        ratios[f"sdtv {name}"] = rec.numel() / blob.size
+    log(f"  8x1088x1920 .sdtv: ratio " + " ".join(
+        f"{k[5:]} {v:.3f}" for k, v in ratios.items() if k[:4] == "sdtv")
+        + "; decode_video and decode_video_frame exact")
+    return counts, ratios
+
+
+def stream_wall_ms(fn, reps: int = STREAM_REPS) -> float:
+    """Median host wall of ``fn()`` up to a synchronise, in ms, after one
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls)
+
+
+def stream_stages(gen, smi: str) -> dict:
+    """Stage walls of the 4K enc-quant32 stream: each stage apart, then the
+    container's encode and decode whole, for the plain, rle, sparse and
+    SDN1 payloads."""
+    lut = default_quant_lut(100) * np.float32(255.0)
+    img = smooth_image(gen, 4096, 3840)
+    rec = sd.encode_quantize32(img, lut)
+    host = rec.cpu().numpy()
+    lengths = entropy.build_lengths(entropy.histogram(rec))
+    k = entropy.default_chunks(host.size)
+    blobs = {"plain": entropy.compress(host, lengths, streams=k),
+             "rle": entropy.compress(host, rle=True),
+             "sparse": entropy.compress_sparse(rec),
+             "dense": entropy.compress_dense(rec)}
+    st = {
+        "kernel": stream_wall_ms(lambda: sd.encode_quantize32(img, lut)),
+        "device_histogram": stream_wall_ms(lambda: entropy.histogram(rec)),
+        "device_to_host": stream_wall_ms(lambda: rec.cpu()),
+        "host_pack": stream_wall_ms(
+            lambda: entropy.compress(host, lengths, streams=k)),
+        "unpack": stream_wall_ms(lambda: entropy.decompress(blobs["plain"])),
+        "host_to_device": stream_wall_ms(
+            lambda: torch.as_tensor(host, device=DEV)),
+        "decode": stream_wall_ms(
+            lambda: sd.decode_quantize32(rec, lut, 3840, 4096)),
+        "rle_pack": stream_wall_ms(lambda: entropy.compress(host, rle=True)),
+        "rle_unpack": stream_wall_ms(
+            lambda: entropy.decompress(blobs["rle"])),
+        "sparse_compress": stream_wall_ms(
+            lambda: entropy.compress_sparse(rec)),
+        "sparse_expand": stream_wall_ms(
+            lambda: entropy.decompress_to_device(blobs["sparse"])),
+        "dense_compress": stream_wall_ms(
+            lambda: entropy.compress_dense(rec)),
+        "dense_expand": stream_wall_ms(
+            lambda: entropy.decompress_to_device(blobs["dense"])),
+    }
+    for name, kw in STREAM_PAYLOADS.items():
+        blob = container.encode(img, "enc-quant32", quality=100.0, **kw)
+        st[f"container_encode_{name}"] = stream_wall_ms(
+            lambda: container.encode(img, "enc-quant32", quality=100.0, **kw))
+        st[f"container_decode_{name}"] = stream_wall_ms(
+            lambda: container.decode(blob))
+    ratio = {name: host.size / b.size for name, b in blobs.items()}
+    log(f"  4K enc-quant32 stream stages, ms (median of {STREAM_REPS} "
+        f"walls), on {smi}: " + ", ".join(f"{n} {v:.4f}"
+                                          for n, v in st.items()))
+    log(f"  4K enc-quant32 compression ratio: " + ", ".join(
+        f"{n} {v:.4f}" for n, v in ratio.items()) + f" ({k} chunks)")
+    return {"card": smi, "ms": st, "ratio": ratio, "chunks": k}
+
+
 def copy_pair(p):
     """Device-to-device copy of p[0] into p[1]: the same-run speed limit."""
     return p[1].copy_(p[0])
@@ -2253,6 +2474,8 @@ def main(argv=None) -> int:
     timed(phase_compare_dist, gen, lut_q, errs)
     counts_d = timed(phase_main_path_dist, gen, lut100, lut_q, lut100,
                      chroma100)
+    counts_z, ratios = timed(phase_compressed_stream, gen)
+    stages = timed(stream_stages, gen, smi.stdout.strip())
     times, library = timed(phase_timing, gen, lut100, lut_q, chroma100, REPS)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
@@ -2260,8 +2483,11 @@ def main(argv=None) -> int:
                 "colour": counts_c, "colour 4:2:0": counts_420,
                 "tiles": counts_t, "dist": counts_d}
     log("compat " + json.dumps(compat_stats))
+    log(json.dumps({"stream": {"stages": stages, "ratios": ratios}}))
     rows = kernel_rows(launches, errs, times, library)
     for row in rows:
+        # launches on phase 21's run of the compressed-stream path
+        row["launches_stream"] = counts_z[row["name"]]
         if row["name"] in ("tiles", "detile"):
             row["identity_mismatches"] = sum(
                 n for k, n in identities.items()

@@ -17,6 +17,13 @@ against; this package never imports jax.  Layer map:
 * ``dist``     -- meshes of devices, strip- and frame-sharded entry points
   and the plane all-gather kernel (``csrc/collectives.cu``)
 * ``convert``  -- LUT scales and record streams shared with the JAX package
+* ``entropy``  -- the compressed stream: host Huffman / RLE / nibble coders
+  (``native/entropy.cpp``) and their device passes (histogram, splits,
+  sparse compaction, expansions) as PyTorch ops on the records' device
+* ``container`` -- the self-describing ``.sdt`` / ``.sdtv`` containers
+* ``config``   -- ``EncoderConfig`` and the ``Encoder`` facade
+* ``native``   -- the ``g++`` + ctypes loader of ``native/*.cpp`` and the
+  strict-IEEE oracle's API
 """
 
 __version__ = "0.1.0"
@@ -26,6 +33,8 @@ from . import layout
 from . import dispatch
 from . import api
 from . import dist
+from . import entropy
+from . import container
 from .api import (
     SimdDctResult, SimdDctError, InvalidParameterError, NotSupportedError,
     encode_quantize, decode_quantize, try_encode_quantize,
@@ -36,10 +45,12 @@ from .api import (
     roundtrip_quantize32_ycbcr,
     encode_quantize32_ycbcr420, decode_quantize32_ycbcr420,
 )
+from .config import EncoderConfig, Encoder
 from .core.quantize import default_quant_lut
 
 __all__ = [
-    "core", "layout", "dispatch", "api", "dist", "__version__",
+    "core", "layout", "dispatch", "api", "dist", "entropy", "container",
+    "EncoderConfig", "Encoder", "__version__",
     "SimdDctResult", "SimdDctError", "InvalidParameterError",
     "NotSupportedError",
     "encode_quantize", "decode_quantize", "try_encode_quantize",

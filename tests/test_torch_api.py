@@ -390,7 +390,9 @@ def test_import_pulls_in_no_jax():
             "simd_dct_tpu_torch.kernels.torch_path, "
             "simd_dct_tpu_torch.kernels.panel, "
             "simd_dct_tpu_torch.kernels.compat, "
-            "simd_dct_tpu_torch.utils.debug, simd_dct_tpu_torch.utils.metrics; "
+            "simd_dct_tpu_torch.utils.debug, simd_dct_tpu_torch.utils.metrics, "
+            "simd_dct_tpu_torch.entropy, simd_dct_tpu_torch.container, "
+            "simd_dct_tpu_torch.config, simd_dct_tpu_torch.native; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'simd_dct_tpu.')) or m == 'simd_dct_tpu']; "
             "assert not bad, bad")
