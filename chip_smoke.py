@@ -180,20 +180,48 @@ result line):
       on the card's records equals the host split's stream, and the device
       histogram the native one.  Then the stage walls of the 4K enc-quant32
       stream (kernel, device histogram, device-to-host, host pack, unpack,
-      host-to-device, decode; the rle, sparse and SDN1 routes; the
+      host-to-device, decode; the histogram also by ``torch.bincount``,
+      which it replaced; the rle, sparse and SDN1 routes; the
       container's encode and decode whole; median of ``STREAM_REPS``) and
       the compression ratio of each payload, beside the card's name and
       power limit.
-Phase 10 runs last, after phase 21; it also times the gather kernel on
+  22. the serving surfaces on the card: the command line (``cli.main``
+      in-process, every mode on a 4096x3840 dual view and its 3x4096x3840
+      planar RGB, --runs 16 --quality 50 --decode, the pair and native
+      layouts, --sharded 4 --device cuda:0 on mode32 and stereo: each dump
+      equal to the api's records byte for byte, and each run's launches
+      counted around its ``cli.main`` call: the encode and decode kernels
+      of its mode, and the gather for sharded stereo, must have launched),
+      then ``python -m simd_dct_tpu_torch.cli`` in processes of
+      their own (every mode with --compress --to out.sdt, enc-quant32
+      --accurate, --sharded 4 --device cuda:0) and ``python -m
+      simd_dct_tpu_torch.container`` info and decode of out.sdt (equal to
+      the api decode); the feed (``utils.feed``) on 32 frames of 4096x3840
+      at depths 1, 2 and 4: the round trip, the compressed encode (plain
+      and sparse) and the decode, each frame equal to the per-frame api
+      call, frames a second over ``SERVE_PASSES`` passes in turns with a
+      loop of api calls synchronised after each frame (and the ratio of
+      each pair), bare pinned and pageable copies of the same bytes and
+      the host stages, and one ``torch.profiler`` run of the round-trip
+      and encode loops (device idle share, copy / kernel overlap); the rd
+      sweep of enc-quant32 and enc-quant32-ycbcr420 at qualities 50, 100
+      and 200 against the host's plain version (PSNR within 0.1 dB, rate
+      within 0.2%), counters set to 0 just before the feed.  Every kernel
+      of the modes that ran must have launched.
+Phase 10 runs before phase 22 (whose profiler sessions, run first, once
+left phase 10's profiler without a self-ring kernel; where the profiler
+records none, the self-ring's time is null, never its call's wall); it
+also times the gather kernel on
 the 4K stereo segments of four shards against four torch.cats (its
 library call, by the same two estimators) and the bound, with the launch
 plan (CTAs a rank, tile bytes, stages); the self-ring kernel against
 torch.cat([x, x], 1), both by the profiler; and the 4-shard stereo
 encode against the one-launch call.  Each phase logs its seconds.  The
 line before the last is a JSON object with one entry per kernel (its
-time, its bound, its share of the copy, its launches on its main path
-and on phase 21's, ``launches_stream``); the line before it holds phase
-21's stage walls and ratios; the last line is
+time, its bound, its share of the copy, its launches on its main path,
+on phase 21's (``launches_stream``) and on phase 22's
+(``launches_serve``)); the lines before it hold phase 21's stage walls and
+ratios and phase 22's walls, rates and command-line rows; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1817,6 +1845,10 @@ def stream_stages(gen, smi: str) -> dict:
     st = {
         "kernel": stream_wall_ms(lambda: sd.encode_quantize32(img, lut)),
         "device_histogram": stream_wall_ms(lambda: entropy.histogram(rec)),
+        # the same 256 counts by torch.bincount, which entropy.histogram
+        # ran before it took histogram_tensor's sort
+        "device_histogram_bincount": stream_wall_ms(
+            lambda: torch.bincount(rec.reshape(-1), minlength=256).cpu()),
         "device_to_host": stream_wall_ms(lambda: rec.cpu()),
         "host_pack": stream_wall_ms(
             lambda: entropy.compress(host, lengths, streams=k)),
@@ -1850,6 +1882,596 @@ def stream_stages(gen, smi: str) -> dict:
     log(f"  4K enc-quant32 compression ratio: " + ", ".join(
         f"{n} {v:.4f}" for n, v in ratio.items()) + f" ({k} chunks)")
     return {"card": smi, "ms": st, "ratio": ratio, "chunks": k}
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the serving surfaces (cli, container command, feed, rd)
+# ---------------------------------------------------------------------------
+
+# the kernels of every mode the command line runs, the feed's and the
+# sharded stereo path's gather
+SERVE_KERNELS = ("enc32", "dec32", "roundtrip32", "encq", "decq",
+                 "enc_stereo", "dec_stereo", "enc32_rgb", "dec32_rgb",
+                 "enc420_rgb", "dec420_rgb", "ring_gather")
+SERVE_FRAMES = 32
+SERVE_PASSES = 5            # timed passes of each stream and of its loop
+SERVE_DISTINCT = 8          # distinct frames, cycled (126 MB of host data)
+SERVE_DEPTHS = (1, 2, 4)
+SERVE_RD_QUALITIES = (50.0, 100.0, 200.0)
+SERVE_H, SERVE_W = 4096, 3840
+# each command-line mode's encode and decode kernels (``--decode``)
+CLI_MODES = {"enc-quant": ("encq", "decq"),
+             "enc-quant32": ("enc32", "dec32"),
+             "enc-quant-stereo": ("enc_stereo", "dec_stereo"),
+             "enc-quant32-ycbcr": ("enc32_rgb", "dec32_rgb"),
+             "enc-quant32-ycbcr420": ("enc420_rgb", "dec420_rgb")}
+# the kernels of the feed's streams and of the rd sweep's two modes
+FEED_RD_KERNELS = ("enc32", "dec32", "roundtrip32", "enc420_rgb",
+                   "dec420_rgb")
+
+
+def run_module(args, timeout=300):
+    """``python -m <args>`` from the repository's root: its exit code must
+    be 0; returns its standard output."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    require(proc.returncode == 0,
+            f"python -m {' '.join(args[:1])} exits 0 "
+            f"(rc {proc.returncode}: {proc.stderr[-2000:]})")
+    log(f"  python -m {' '.join(os.path.basename(a) for a in args)}: "
+        f"{time.perf_counter() - t0:.2f} s")
+    return proc.stdout
+
+
+def cli_rows(text: str) -> list[str]:
+    """The statistics rows a command printed (codec | ...)."""
+    return [ln.strip() for ln in text.splitlines()
+            if " | " in ln and not ln.startswith("codec")]
+
+
+def serve_api_records(mode, view, rgb, lut_q, layout="scalar",
+                      view_layout="interleaved"):
+    """The api's records for one command-line mode at quality 50, on the
+    card, as host bytes."""
+    if mode == "enc-quant":
+        rec = sd.encode_quantize(view, lut_q, layout=layout)
+    elif mode == "enc-quant32":
+        rec = sd.encode_quantize32(view, lut_q * np.float32(255.0))
+    elif mode == "enc-quant-stereo":
+        rec = sd.encode_quantize_stereo(view, lut_q, view_layout=view_layout)
+    else:
+        chroma = BASE_CHROMA_QUANT_TABLE * 50.0 * 255.0
+        fn = (sd.encode_quantize32_ycbcr420 if mode.endswith("420")
+              else sd.encode_quantize32_ycbcr)
+        rec = fn(rgb, lut_q * np.float32(255.0), chroma)
+    return rec.reshape(-1).cpu().numpy()
+
+
+def serve_cli(tmp, view, rgb, serve) -> dict:
+    """The command line at 4096x3840: every mode in-process through
+    ``cli.main`` (dumps against the api, the launch counts), then the
+    ``python -m`` runs and the container command.  Returns the launches
+    made inside the ``cli.main`` calls, each of which must launch its
+    mode's kernels (and the gather, sharded stereo)."""
+    import contextlib
+    import io
+
+    from simd_dct_tpu_torch import cli
+
+    gray_path = os.path.join(tmp, "view.raw")
+    rgb_path = os.path.join(tmp, "rgb.raw")
+    view.tofile(gray_path)
+    rgb.tofile(rgb_path)
+    lut_q = default_quant_lut(50)
+    view_d = torch.from_numpy(view).to(DEV)
+    rgb_d = torch.from_numpy(rgb).to(DEV)
+    geo = [str(SERVE_W), str(SERVE_H)]
+    base = ["--runs", "16", "--quality", "50", "--decode"]
+    cases = [(m, [], {}) for m in CLI_MODES] + [
+        ("enc-quant", ["--layout", "pair"], {"layout": "pair"}),
+        ("enc-quant-stereo", ["--stereo-layout", "native"],
+         {"view_layout": "native"}),
+        ("enc-quant32", ["--sharded", "4", "--device", "cuda:0"], {}),
+        ("enc-quant-stereo", ["--sharded", "4", "--device", "cuda:0"], {})]
+    rows = {}
+    counts = dict.fromkeys(cuda_dct.LAUNCHES, 0)
+    for k, (mode, extra, kw) in enumerate(cases):
+        out = os.path.join(tmp, f"cli{k}.raw")
+        text = io.StringIO()
+        torch.cuda.synchronize()
+        before = dict(cuda_dct.LAUNCHES)
+        with contextlib.redirect_stdout(text):
+            rc = cli.main([rgb_path, *geo, *base, "--mode", mode, *extra,
+                           "--to", out])
+        require(rc == 0, f"cli.main {mode} {extra} exits 0")
+        torch.cuda.synchronize()
+        ran = {n: cuda_dct.LAUNCHES[n] - before[n] for n in counts}
+        want_kernels = CLI_MODES[mode] + (
+            ("ring_gather",) if mode == "enc-quant-stereo"
+            and "--sharded" in extra else ())
+        for name in want_kernels:
+            require(ran[name] > 0,
+                    f"cli.main {mode} {extra} launched {name}")
+        for name, n in ran.items():
+            counts[name] += n
+        want = serve_api_records(mode, view_d, rgb_d, lut_q, **kw)
+        require(np.array_equal(np.fromfile(out, np.uint8), want),
+                f"cli {mode} {extra}: dump == the api's records")
+        rows[" ".join([mode, *extra])] = cli_rows(text.getvalue())
+    log(f"  cli.main: {len(cases)} runs, every dump equal to the api's "
+        f"records, each mode's kernels launched; launches {counts}")
+
+    # the module entry points, each in a process of its own
+    sdt = os.path.join(tmp, "out.sdt")
+    text = run_module(["simd_dct_tpu_torch.cli", rgb_path, *geo, *base,
+                       "--compress", "--to", sdt])
+    rows["all modes --compress"] = cli_rows(text)
+    text = run_module(["simd_dct_tpu_torch.cli", rgb_path, *geo, "--runs",
+                       "16", "--quality", "50", "--mode", "enc-quant32",
+                       "--accurate"])
+    rows["enc-quant32 --accurate"] = cli_rows(text)
+    require(any("(slope)" in r for r in rows["enc-quant32 --accurate"]),
+            "--accurate prints the slope row")
+    sharded = os.path.join(tmp, "sharded.raw")
+    text = run_module(["simd_dct_tpu_torch.cli", rgb_path, *geo, *base,
+                       "--mode", "enc-quant32", "--mode", "enc-quant-stereo",
+                       "--sharded", "4", "--device", "cuda:0", "--to",
+                       sharded])
+    rows["sharded 4 on cuda:0"] = cli_rows(text)
+    require(np.array_equal(
+        np.fromfile(sharded, np.uint8),
+        serve_api_records("enc-quant-stereo", view_d, rgb_d, lut_q)),
+        "python -m cli --sharded 4: dump == the api's stereo records")
+    info = run_module(["simd_dct_tpu_torch.container", "info", sdt])
+    require(f"mode=enc-quant32-ycbcr420 size={SERVE_W}x{SERVE_H}" in info,
+            f"container info names the last mode: {info.strip()}")
+    dec = os.path.join(tmp, "out.dec")
+    run_module(["simd_dct_tpu_torch.container", "decode", sdt, dec])
+    luma = default_quant_lut(50) * np.float32(255.0)
+    chroma = BASE_CHROMA_QUANT_TABLE * 50.0 * 255.0
+    want = sd.decode_quantize32_ycbcr420(
+        sd.encode_quantize32_ycbcr420(rgb_d, luma, chroma), luma, chroma,
+        SERVE_W, SERVE_H).reshape(-1).cpu().numpy()
+    blob = np.fromfile(sdt, np.uint8)
+    require(np.array_equal(np.fromfile(dec, np.uint8), want),
+            "python -m container decode out.sdt == the api decode")
+    require(torch.equal(container.decode(blob).reshape(-1).cpu(),
+                        torch.from_numpy(want)),
+            "container.decode(out.sdt) == the api decode")
+    for name, r in rows.items():
+        for line in r:
+            log(f"  cli [{name}] {line}")
+    serve["cli_rows"] = rows
+    return counts
+
+
+def intervals_len(iv) -> float:
+    return sum(b - a for a, b in iv)
+
+
+def union(iv):
+    out = []
+    for a, b in sorted(iv):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def intersect(x, y):
+    """Intersection of two sorted unions of intervals."""
+    out, i, j = [], 0, 0
+    while i < len(x) and j < len(y):
+        a, b = max(x[i][0], y[j][0]), min(x[i][1], y[j][1])
+        if a < b:
+            out.append([a, b])
+        if x[i][1] < y[j][1]:
+            i += 1
+        else:
+            j += 1
+    return out
+
+
+def trace_shares(path: str) -> dict | None:
+    """Device idle share over the window annotated ``serve_window`` and the
+    overlap of copies and kernels, from a Chrome trace of torch.profiler;
+    None when it holds no device activity."""
+    with open(path) as f:
+        tr = json.load(f)
+    evs = tr["traceEvents"] if isinstance(tr, dict) else tr
+    win = [e for e in evs if e.get("name") == "serve_window"
+           and e.get("cat") == "user_annotation"]
+    evs = [e for e in evs if "dur" in e and "ts" in e]
+    kern = [[e["ts"], e["ts"] + e["dur"]] for e in evs
+            if e.get("cat") == "kernel"]
+    copies = [e for e in evs if e.get("cat") == "gpu_memcpy"]
+    if not win or not kern:
+        return None
+    w = [[win[0]["ts"], win[0]["ts"] + win[0]["dur"]]]
+    span = w[0][1] - w[0][0]
+    cp = [[e["ts"], e["ts"] + e["dur"]] for e in copies]
+    h2d = union([[e["ts"], e["ts"] + e["dur"]] for e in copies
+                 if "HtoD" in e.get("name", "")])
+    d2h = union([[e["ts"], e["ts"] + e["dur"]] for e in copies
+                 if "DtoH" in e.get("name", "")])
+    other = [[e["ts"], e["ts"] + e["dur"]] for e in evs
+             if e.get("cat") == "gpu_memset"]
+    busy = intersect(union(kern + cp + other), w)
+    k, c = intersect(union(kern), w), intersect(union(cp), w)
+    return {"window_ms": span / 1e3,
+            "idle_share": 1 - intervals_len(busy) / span,
+            "kernel_share": intervals_len(k) / span,
+            "copy_share": intervals_len(c) / span,
+            "kernel_time_under_a_copy": (intervals_len(intersect(k, c))
+                                         / max(intervals_len(k), 1e-9)),
+            "h2d_time_under_a_d2h": (intervals_len(intersect(h2d, d2h))
+                                     / max(intervals_len(h2d), 1e-9)),
+            "kernels": len(kern), "copies": len(copies)}
+
+
+def pass_rate(fn) -> tuple[float, float]:
+    """(frames a second, the process's CPU ms a frame) of one pass of the
+    stream ``fn()``, each result dropped as it comes (as a server that
+    writes it out)."""
+    torch.cuda.synchronize()
+    c0, t0 = time.process_time(), time.perf_counter()
+    n = sum(1 for _ in fn())
+    torch.cuda.synchronize()
+    return (n / (time.perf_counter() - t0),
+            (time.process_time() - c0) / n * 1e3)
+
+
+def stream_fps(fn, cpu_ms: dict, key: str,
+               passes: int = SERVE_PASSES) -> float:
+    """Median frames a second of ``passes`` runs of the stream ``fn()``;
+    the median CPU ms a frame goes to ``cpu_ms[key]``."""
+    runs = [pass_rate(fn) for _ in range(passes)]
+    cpu_ms[key] = statistics.median(c for _, c in runs)
+    return statistics.median(r for r, _ in runs)
+
+
+def paired_fps(stream, loop, cpu_ms: dict, key: str,
+               passes: int = SERVE_PASSES) -> tuple[float, float, float]:
+    """The stream ``stream()`` and its synchronised loop ``loop()`` timed in
+    turns, ``passes`` runs each (the stream first on even passes, the loop
+    first on odd ones, so a drift of the shared host's speed falls on
+    both): the median frames a second of each and the median of the
+    passes' ratios stream / loop.  The stream's median CPU ms a frame goes
+    to ``cpu_ms[key]``, the loop's to ``cpu_ms[key + "_sync_loop"]``."""
+    runs = {stream: [], loop: []}
+    for p in range(passes):
+        for fn in ((stream, loop) if p % 2 == 0 else (loop, stream)):
+            runs[fn].append(pass_rate(fn))
+    cpu_ms[key] = statistics.median(c for _, c in runs[stream])
+    cpu_ms[key + "_sync_loop"] = statistics.median(c for _, c in runs[loop])
+    return (statistics.median(r for r, _ in runs[stream]),
+            statistics.median(r for r, _ in runs[loop]),
+            statistics.median(a[0] / b[0]
+                              for a, b in zip(runs[stream], runs[loop])))
+
+
+def pack_ms(prep, lengths) -> float:
+    """Median ms of ``entropy.compress(prep(k), lengths)`` over the distinct
+    frames, twice round; ``prep`` runs outside the wall."""
+    walls = []
+    for i in range(2 * SERVE_DISTINCT):
+        src = prep(i % SERVE_DISTINCT)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        entropy.compress(src, lengths)
+        walls.append(time.perf_counter() - t0)
+    return statistics.median(walls) * 1e3
+
+
+def pack_beside_copy_ms(recs, frames, lengths, dst) -> float:
+    """Median ms of a pack of each distinct frame's records while the next
+    frame is copied into ``dst`` on the feed's staging thread, up to the
+    end of both, twice round."""
+    from simd_dct_tpu_torch.utils import feed
+    worker = feed._staging_worker()
+    walls = []
+    for i in range(2 * SERVE_DISTINCT):
+        k = i % SERVE_DISTINCT
+        t0 = time.perf_counter()
+        copying = worker.submit(np.copyto, dst,
+                                frames[(k + 1) % SERVE_DISTINCT])
+        entropy.compress(recs[k], lengths)
+        copying.result()
+        walls.append(time.perf_counter() - t0)
+    return statistics.median(walls) * 1e3
+
+
+def loop_fps(fn, items) -> float:
+    """Frames a second of ``fn`` on each item, synchronised at the end."""
+    fn(items[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for x in items:
+        fn(x)
+    torch.cuda.synchronize()
+    return len(items) / (time.perf_counter() - t0)
+
+
+def host_stage_ms(stream, owner, attr) -> dict:
+    """One pass of ``stream(2)`` with ``owner.attr`` timed on each call:
+    the wall a frame and the time a frame spent in that host stage."""
+    orig = getattr(owner, attr)
+    spent = [0.0, 0]
+
+    def timed_call(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return orig(*a, **kw)
+        finally:
+            spent[0] += time.perf_counter() - t0
+            spent[1] += 1
+
+    setattr(owner, attr, timed_call)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = len(list(stream(2)))
+        wall = time.perf_counter() - t0
+    finally:
+        setattr(owner, attr, orig)
+    return {"stage": f"{getattr(owner, '__name__', owner)}.{attr}",
+            "wall_ms": wall / n * 1e3, "stage_ms": spent[0] / n * 1e3,
+            "calls": spent[1], "frames": n}
+
+
+def serve_feed(gen, lut, tmp, serve):
+    """The feed on 32 frames of 4096x3840: each stream at each depth
+    against the per-frame api calls, its frames a second beside a loop of
+    api calls synchronised after each frame and bare copies of the same
+    bytes, and one profiled run of the loop."""
+    from simd_dct_tpu_torch.utils import feed
+
+    distinct_d = [smooth_image(gen, SERVE_H, SERVE_W)
+                  for _ in range(SERVE_DISTINCT)]
+    distinct = [f.cpu().numpy() for f in distinct_d]
+    frames = [distinct[i % SERVE_DISTINCT] for i in range(SERVE_FRAMES)]
+    rt_ref = [sd.roundtrip_quantize32(f, lut).cpu().numpy()
+              for f in distinct_d]
+    rec_d = [sd.encode_quantize32(f, lut) for f in distinct_d]
+    rec_ref = [r.reshape(-1).cpu().numpy() for r in rec_d]
+    dec_ref = [sd.decode_quantize32(r, lut, SERVE_W, SERVE_H).cpu().numpy()
+               for r in rec_d]
+    blobs = {}
+
+    def check(kind, outs):
+        require(len(outs) == SERVE_FRAMES, f"{kind}: every frame came back")
+        for i, out in enumerate(outs):
+            k = i % SERVE_DISTINCT
+            if kind == "roundtrip":
+                ok = np.array_equal(out, rt_ref[k])
+            elif kind.startswith("encode"):
+                ok = np.array_equal(entropy.decompress(out), rec_ref[k])
+            else:
+                ok = np.array_equal(out, dec_ref[k])
+            require(ok, f"{kind} frame {i} == the per-frame api call")
+
+    streams = {
+        "roundtrip": lambda d: feed.stream_roundtrip32(frames, lut, depth=d),
+        "encode": lambda d: feed.stream_encode32_compressed(frames, lut,
+                                                            depth=d),
+        "encode_sparse": lambda d: feed.stream_encode32_compressed(
+            frames, lut, depth=d, sparse=True),
+        "decode": lambda d: feed.stream_decode32_compressed(
+            blobs["encode"], lut, SERVE_W, SERVE_H, depth=d),
+    }
+    # the same work as loops of api calls, synchronised after each frame
+    def sync_encode():
+        """The stream's codec one frame at a time: the shared table, rebuilt
+        when a frame holds a symbol it lacks (decided, as the feed does,
+        from the frame's histogram before the pack)."""
+        lengths = None
+        for fr in frames:
+            rec = sd.encode_quantize32(fr, lut)
+            hist = entropy.histogram(rec)
+            rec = rec.cpu().numpy()
+            if lengths is None or hist[lengths == 0].any():
+                lengths = entropy.build_lengths(hist)
+            yield entropy.compress(rec, lengths)
+
+    sync = {
+        "roundtrip": lambda: (sd.roundtrip_quantize32(fr, lut).cpu().numpy()
+                              for fr in frames),
+        "encode": sync_encode,
+        "encode_sparse": lambda: (entropy.compress_sparse(
+            sd.encode_quantize32(fr, lut)) for fr in frames),
+        "decode": lambda: (sd.decode_quantize32(
+            entropy.decompress_to_device(b), lut, SERVE_W,
+            SERVE_H).cpu().numpy() for b in blobs["encode"]),
+    }
+    fps, cpu_ms, ratio = {}, {}, {}
+    for kind, stream in streams.items():
+        # at each depth a checked pass, whose held results also fill
+        # torch's page-locked cache, then the timed passes (steady state),
+        # in turns with the synchronised loop
+        for d in SERVE_DEPTHS:
+            outs = list(stream(d))
+            check(kind, outs)
+            if kind.startswith("encode") and d == 2:
+                blobs[kind] = outs
+            outs = None
+            if d == SERVE_DEPTHS[0]:
+                check(f"{kind} synchronised loop", list(sync[kind]()))
+            key = f"{kind}_depth{d}"
+            fps[key], fps[f"{kind}_sync_loop_depth{d}"], ratio[key] = \
+                paired_fps(lambda: stream(d), sync[kind], cpu_ms, key)
+        fps[f"{kind}_sync_loop"] = statistics.median(
+            fps[f"{kind}_sync_loop_depth{d}"] for d in SERVE_DEPTHS)
+    # each frame packed with its own table (no shared table, no rebuild)
+    own = lambda: feed.stream_encode32_compressed(frames, lut, depth=2,
+                                                  shared_table=False)
+    check("encode, own tables", list(own()))
+    fps["encode_own_table_depth2"] = stream_fps(
+        own, cpu_ms, "encode_own_table_depth2")
+    sparse_dec = list(feed.stream_decode32_compressed(
+        blobs["encode_sparse"], lut, SERVE_W, SERVE_H, depth=2))
+    check("decode of the sparse streams", sparse_dec)
+    del sparse_dec
+
+    # the host's share of each stream at depth 2: the time spent in its
+    # host stage (the staging copy, the coder), summed over the frames
+    share = {}
+    for kind, (owner, attr) in {
+            "roundtrip": (feed._Staging, "fill"),
+            "encode": (entropy, "compress"),
+            "encode_sparse": (entropy, "compress_sparse"),
+            "decode": (entropy, "decompress_to_device")}.items():
+        share[kind] = host_stage_ms(streams[kind], owner, attr)
+    # a table that covers every distinct frame's symbols
+    lengths = entropy.build_lengths(
+        sum(np.bincount(r, minlength=256) for r in rec_ref))
+
+    # bare copies of the same bytes, and the host stages of the feed
+    dev_in = torch.empty((SERVE_H, SERVE_W), dtype=torch.uint8, device=DEV)
+    pinned = torch.empty((SERVE_H, SERVE_W), dtype=torch.uint8,
+                         pin_memory=True)
+    pinned.copy_(torch.from_numpy(frames[0]))
+    top = torch.empty((SERVE_H // 2, SERVE_W), dtype=torch.uint8, device=DEV)
+    pinned_top = torch.empty(top.shape, dtype=torch.uint8, pin_memory=True)
+    rec_pinned = torch.empty(rec_ref[0].shape, dtype=torch.uint8,
+                             pin_memory=True)
+    fps["h2d_pinned_copy"] = loop_fps(
+        lambda _: dev_in.copy_(pinned, non_blocking=True), frames)
+    fps["h2d_pageable_copy"] = loop_fps(
+        lambda fr: dev_in.copy_(torch.from_numpy(fr), non_blocking=True),
+        frames)
+    fps["d2h_pinned_copy_of_a_top_view"] = loop_fps(
+        lambda _: pinned_top.copy_(top, non_blocking=True), frames)
+    stage_ms = {
+        "staging_torch_copy": 1e3 / loop_fps(
+            lambda fr: pinned.copy_(torch.from_numpy(fr)), frames),
+        "staging_numpy_copyto": 1e3 / loop_fps(
+            lambda fr: np.copyto(pinned.numpy(), fr), frames),
+        "host_pack": stream_wall_ms(
+            lambda: entropy.compress(rec_ref[1], lengths)),
+        # the same pack on each distinct frame's records in turn: as they
+        # come from numpy, from a page-locked buffer just written by a
+        # download, right after a staging copy by torch's threads, and
+        # beside the encode streams' staging copy on its thread (the wall
+        # of both)
+        "host_pack_each_frame": pack_ms(lambda k: rec_ref[k], lengths),
+        "host_pack_after_download": pack_ms(
+            lambda k: rec_pinned.copy_(rec_d[k].reshape(-1)).numpy(),
+            lengths),
+        "host_pack_after_staging_copy": pack_ms(
+            lambda k: (pinned.copy_(torch.from_numpy(frames[k])),
+                       rec_ref[k])[1], lengths),
+        "host_pack_beside_staging_copy": pack_beside_copy_ms(
+            rec_ref, frames, lengths, pinned.numpy()),
+        "host_unpack": stream_wall_ms(
+            lambda: entropy.decompress(blobs["encode"][1])),
+        "decompress_to_device": stream_wall_ms(
+            lambda: entropy.decompress_to_device(blobs["encode"][1])),
+        "sparse_compress": stream_wall_ms(
+            lambda: entropy.compress_sparse(rec_d[1])),
+    }
+    for name in ("h2d_pinned_copy", "h2d_pageable_copy",
+                 "d2h_pinned_copy_of_a_top_view"):
+        stage_ms[name] = 1e3 / fps[name]
+    del dev_in, pinned, top, pinned_top, rec_pinned
+
+    # one profiled run of the loop: the device's idle share and the overlap
+    trace = {}
+    for kind in ("roundtrip", "encode"):
+        from torch.profiler import ProfilerActivity, profile, record_function
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function("serve_window"):
+                n = sum(1 for _ in streams[kind](2))
+        require(n == SERVE_FRAMES, f"profiled {kind}: every frame came back")
+        path = os.path.join(tmp, f"{kind}.trace.json")
+        prof.export_chrome_trace(path)
+        trace[kind] = trace_shares(path)
+        log(f"  profiled {kind} stream, depth 2: {trace[kind]}")
+    for kind in streams:
+        log(f"  {kind}, medians of {SERVE_PASSES} passes of {SERVE_FRAMES} "
+            "frames in turns with its synchronised api loop: frames/s at "
+            "depth " + ", ".join(
+                f"{d} {fps[f'{kind}_depth{d}']:.2f} (loop "
+                f"{fps[f'{kind}_sync_loop_depth{d}']:.2f}, ratio "
+                f"{ratio[f'{kind}_depth{d}']:.3f})" for d in SERVE_DEPTHS)
+            + "; CPU ms a frame " + ", ".join(
+                f"{cpu_ms[f'{kind}_depth{d}']:.2f} (loop "
+                f"{cpu_ms[f'{kind}_depth{d}_sync_loop']:.2f})"
+                for d in SERVE_DEPTHS))
+    log(f"  encode with a table a frame, depth 2: "
+        f"{fps['encode_own_table_depth2']:.2f} frames/s")
+    log("  bare copies, frames/s: " + ", ".join(
+        f"{k} {fps[k]:.2f}" for k in ("h2d_pinned_copy", "h2d_pageable_copy",
+                                      "d2h_pinned_copy_of_a_top_view")))
+    log("  stages, ms a frame: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in stage_ms.items()))
+    log("  depth 2, ms a frame (wall / in the host stage): " + ", ".join(
+        f"{k} {v['wall_ms']:.4f} / {v['stage_ms']:.4f} ({v['stage']}, "
+        f"{v['calls']} calls for {v['frames']} frames)"
+        for k, v in share.items()))
+    serve.update({"fps": fps, "cpu_ms": cpu_ms, "stage_ms": stage_ms,
+                  "fps_ratio_to_sync_loop": ratio,
+                  "trace": trace,
+                  "host_stage_share": share})
+
+
+def serve_rd(view, rgb, serve):
+    """rd_curve on the card against the same sweep on the host's plain
+    version: PSNR within 0.1 dB, rate within 0.2% (the +-1 contract moves
+    at most 0.2% of the record bytes by one)."""
+    from simd_dct_tpu_torch.bench import rd
+    points = {}
+    for mode, img in (("enc-quant32", view), ("enc-quant32-ycbcr420", rgb)):
+        card = rd.rd_curve(img, SERVE_RD_QUALITIES, mode=mode)
+        host = rd.rd_curve(img, SERVE_RD_QUALITIES, mode=mode, device="cpu")
+        for c, h in zip(card, host):
+            require(abs(c.psnr_db - h.psnr_db) < 0.1,
+                    f"rd {mode} q={c.quality}: PSNR within 0.1 dB")
+            require(abs(c.bits_per_px - h.bits_per_px)
+                    <= 0.002 * h.bits_per_px,
+                    f"rd {mode} q={c.quality}: rate within 0.2%")
+            log(f"  rd {mode} card {c.row()} | plain {h.row()}")
+        points[mode] = [[c.quality, c.bits_per_px, c.psnr_db, h.bits_per_px,
+                         h.psnr_db] for c, h in zip(card, host)]
+    serve["rd"] = points
+
+
+def phase_serve(gen, lut100):
+    log("phase 22: the serving surfaces on the card (command line, "
+        "container command, feed, rd sweep)")
+    import tempfile
+    serve = {}
+    view = smooth_image(gen, SERVE_H, SERVE_W).cpu().numpy()
+    rgb = np.clip(np.stack([view, view * 0.9 + 12, view * 0.8 + 25]), 0,
+                  255).astype(np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        cli_counts = serve_cli(tmp, view, rgb, serve)
+        serve["cli_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        cuda_dct.reset_launch_counts()
+        t0 = time.perf_counter()
+        serve_feed(gen, lut100, tmp, serve)
+        serve["feed_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        serve_rd(view, rgb, serve)
+        serve["rd_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        feed_counts = dict(cuda_dct.LAUNCHES)
+    log(f"  launches of the feed and the rd sweep: {feed_counts}")
+    for name in FEED_RD_KERNELS:
+        require(feed_counts[name] > 0,
+                f"{name} launched by the feed and the rd sweep")
+    counts = {n: cli_counts[n] + feed_counts[n] for n in feed_counts}
+    for name in SERVE_KERNELS:
+        require(counts[name] > 0, f"{name} launched on the serving path")
+    return counts, serve
 
 
 def copy_pair(p):
@@ -2271,7 +2893,8 @@ def timing_dist(gen, lut_q, reps, cycles_per_ms, rows, table):
     xs = [torch.randint(0, 256, (8, 8, 128), generator=gen,
                         dtype=torch.uint8, device=DEV) for _ in range(4)]
     s_wall = wall_ms(collectives.selfring, xs, reps) * 1e3
-    s_prof, s_names = profiled_us(collectives.selfring, xs, match="selfring")
+    s_prof, s_names = profiled_us(collectives.selfring, xs, tries=8,
+                                  match="selfring")
     s_plan = collectives._self_meshes[xs[0].device] \
         ._collective_workspace.last_plan._asdict()
     sp_prof, _ = profiled_us(collectives.selfring_plain, xs)
@@ -2283,9 +2906,12 @@ def timing_dist(gen, lut_q, reps, cycles_per_ms, rows, table):
 
     s_lib_queued = queued_ms(cat2, xs, reps, cycles_per_ms) * 1e3
     s_lib_prof, _ = profiled_us(cat2, xs)
-    s_us = s_prof if s_prof is not None else s_wall
+    # the call synchronises, so only the profiler times the kernel: where
+    # it recorded none, the kernel's time is not measured (null), never
+    # the call's wall
     s_lib = s_lib_prof if s_lib_prof is not None else s_lib_queued
-    rows["selfring"] = (s_us / 1e3, sp_us / 1e3, None, 3 * 8 * 8 * 128, 0)
+    rows["selfring"] = (None if s_prof is None else s_prof / 1e3,
+                        sp_us / 1e3, None, 3 * 8 * 8 * 128, 0)
     table.append({"kernel": "selfring", "shape": "(8, 8, 128)",
                   "kernel_profiler_us": s_prof, "kernel_wall_us": s_wall,
                   "plain_us": sp_us, "library_profiler_us": s_lib_prof,
@@ -2340,9 +2966,12 @@ def kernel_rows(launches, errs, times, library):
                "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
                "bound_ms": bound, "bound_by": bound_by,
                "library_ms": library.get(name),
-               "us": ms * 1e3, "gbps": n_bytes / (ms * 1e6),
-               "frac_of_copy": None if copy is None else copy / ms,
-               "frac_of_bound": bound / ms}
+               # ms is None where the profiler recorded no kernel
+               "us": None if ms is None else ms * 1e3,
+               "gbps": None if ms is None else n_bytes / (ms * 1e6),
+               "frac_of_copy": None if ms is None or copy is None
+               else copy / ms,
+               "frac_of_bound": None if ms is None else bound / ms}
         for layout in ("pair", "as_written", "planar", "native"):
             if f"{name}_{layout}" in times:
                 ms_l, plain_l, _, bytes_l, px_l = times[f"{name}_{layout}"]
@@ -2476,7 +3105,10 @@ def main(argv=None) -> int:
                      chroma100)
     counts_z, ratios = timed(phase_compressed_stream, gen)
     stages = timed(stream_stages, gen, smi.stdout.strip())
+    # phase 22 after phase 10: where its profiler sessions came first,
+    # phase 10's profiler recorded no self-ring kernel in two runs of five
     times, library = timed(phase_timing, gen, lut100, lut_q, chroma100, REPS)
+    counts_serve, serve = timed(phase_serve, gen, lut100)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     launches = {"mode32": counts, "enc-quant": counts_q, "stereo": counts_s,
@@ -2484,10 +3116,13 @@ def main(argv=None) -> int:
                 "tiles": counts_t, "dist": counts_d}
     log("compat " + json.dumps(compat_stats))
     log(json.dumps({"stream": {"stages": stages, "ratios": ratios}}))
+    log(json.dumps({"serve": serve}))
     rows = kernel_rows(launches, errs, times, library)
     for row in rows:
         # launches on phase 21's run of the compressed-stream path
         row["launches_stream"] = counts_z[row["name"]]
+        # launches on phase 22's run of the serving surfaces
+        row["launches_serve"] = counts_serve[row["name"]]
         if row["name"] in ("tiles", "detile"):
             row["identity_mismatches"] = sum(
                 n for k, n in identities.items()

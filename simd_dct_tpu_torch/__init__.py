@@ -24,6 +24,18 @@ against; this package never imports jax.  Layer map:
 * ``config``   -- ``EncoderConfig`` and the ``Encoder`` facade
 * ``native``   -- the ``g++`` + ctypes loader of ``native/*.cpp`` and the
   strict-IEEE oracle's API
+* ``utils``    -- profiling and roofline reports (``utils.profiling``), the
+  pipelined frame feed on CUDA streams and page-locked buffers
+  (``utils.feed``), verification aids and metrics
+* ``bench``    -- the harness's run statistics (``bench.stats``) and the
+  rate-distortion sweep (``bench.rd``, ``python -m
+  simd_dct_tpu_torch.bench.rd``)
+* ``cli``      -- the reference harness's command line (``python -m
+  simd_dct_tpu_torch.cli``); ``python -m simd_dct_tpu_torch.container``
+  prints or decodes a container
+
+``utils``, ``bench`` and ``cli`` load on first use, as the JAX package's
+``bench`` does.
 """
 
 __version__ = "0.1.0"

@@ -26,12 +26,19 @@ lies; other input goes to ``device``, the card unless the call names
 another.  A decode unpacks on its target device (``device``, the card
 unless it names another): the host decompress for the CPU, the device
 expansion otherwise.
+
+Command line (``python -m simd_dct_tpu_torch.container``)::
+
+    info FILE                  print the header of a .sdt or .sdtv file
+    decode FILE OUT [--device cpu]
+                               decode it to raw u8 (the card by default)
 """
 
 from __future__ import annotations
 
 import dataclasses
 import struct
+import sys
 
 import numpy as np
 import torch
@@ -456,3 +463,64 @@ def decode_video(blob, *, backend: str | None = None, compat: bool = False,
         _payload_records(data[offs[i]:offs[i + 1]], m.packed, device)
         for i in range(m.n_frames)])
     return _decode_records(batch, m, backend, compat, device)
+
+
+def _layout_text(m) -> str:
+    if m.stereo_native:
+        return " stereo_layout=native"
+    if m.stereo_planar:
+        return " stereo_layout=planar"
+    return ""
+
+
+def _main(argv=None) -> int:
+    """``python -m simd_dct_tpu_torch.container {info,decode} file [out]``"""
+    import argparse
+
+    from .api import NotSupportedError
+
+    p = argparse.ArgumentParser(prog="simd_dct_tpu_torch.container")
+    sub = p.add_subparsers(dest="cmd", required=True)
+    pi = sub.add_parser("info", help="print container metadata")
+    pi.add_argument("file")
+    pd = sub.add_parser("decode", help="decode a container to raw u8")
+    pd.add_argument("file")
+    pd.add_argument("out")
+    pd.add_argument("--device", default=None,
+                    help="where to decode: the card by default; 'cpu' runs "
+                         "the plain version on the host")
+    args = p.parse_args(argv)
+
+    blob = np.fromfile(args.file, np.uint8)
+    is_video = blob.size >= 4 and blob[:4].tobytes() == MAGIC_V
+    if args.cmd == "info":
+        if is_video:
+            m = video_info(blob)
+            print(f"video mode={m.mode} size={m.size_x}x{m.size_y} "
+                  f"frames={m.n_frames} rounding={m.rounding} "
+                  f"packed={m.packed} "
+                  f"chroma={'yes' if m.chroma_lut is not None else 'no'}"
+                  + _layout_text(m))
+        else:
+            m = info(blob)
+            print(f"mode={m.mode} size={m.size_x}x{m.size_y} "
+                  f"rounding={m.rounding} strips=[{m.start_y},{m.end_y}) "
+                  f"packed={m.packed} "
+                  f"chroma={'yes' if m.chroma_lut is not None else 'no'}"
+                  + _layout_text(m))
+        return 0
+    try:
+        dev = default_device(args.device)
+    except NotSupportedError:
+        print("error: no CUDA device on this machine; pass --device cpu to "
+              "decode with the plain version on the host")
+        return 1
+    out = (decode_video(blob, device=dev) if is_video
+           else decode(blob, device=dev)).cpu().numpy()
+    out.tofile(args.out)
+    print(f"decoded {out.shape} -> {args.out}")
+    return 0
+
+
+if __name__ == "__main__":   # pragma: no cover
+    sys.exit(_main())

@@ -76,3 +76,17 @@ def idct8x8(coeffs: torch.Tensor) -> torch.Tensor:
     """Inverse 2-D DCT on ``(..., 8, 8)`` coefficients: ``X = D.T @ C @ D``."""
     d = dct_basis(coeffs.dtype, coeffs.device)
     return torch.einsum("ju,...jk,kv->...uv", d, coeffs, d)
+
+
+def dct8(vecs: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """1-D 8-point DCT-II along ``axis`` (which must have length 8)."""
+    d = dct_basis(vecs.dtype, vecs.device)
+    moved = torch.movedim(vecs, axis, -1)
+    return torch.movedim(torch.einsum("kj,...j->...k", d, moved), -1, axis)
+
+
+def idct8(vecs: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """1-D inverse 8-point DCT along ``axis``."""
+    d = dct_basis(vecs.dtype, vecs.device)
+    moved = torch.movedim(vecs, axis, -1)
+    return torch.movedim(torch.einsum("jk,...j->...k", d, moved), -1, axis)

@@ -164,17 +164,39 @@ def _slots(flags: torch.Tensor, cap: int) -> torch.Tensor:
 
 def histogram(records, *, device=True) -> np.ndarray:
     """256-bin u64 histogram of u8 records.  ``device=False`` counts host
-    bytes with the native loop.  Otherwise the count runs on a device in
-    one int64 pass and only the 256 counts cross to the host: a tensor's
-    own device, or for other input the card (``device=True``) or the
-    device named."""
+    bytes with the native loop.  Otherwise the count runs on a device
+    (``histogram_tensor``) and only the 256 counts cross to the host: a
+    tensor's own device, or for other input the card (``device=True``) or
+    the device named."""
     if device is False:
         data = _host_bytes(records)
         out = np.zeros(256, np.uint64)
         _load().entropy_histogram(_u8p(data), data.size, _u64p(out))
         return out
     flat = _device_bytes(records, None if device is True else device)
-    return _host(torch.bincount(flat, minlength=256)).astype(np.uint64)
+    return _host(histogram_tensor(flat)).astype(np.uint64)
+
+
+# bytes sorted at a time by histogram_tensor (its sort's int64 indices
+# take 8 bytes a byte)
+_HIST_CHUNK = 1 << 28
+
+
+def histogram_tensor(records: torch.Tensor) -> torch.Tensor:
+    """The 256 int64 counts of a u8 tensor as a tensor on its device,
+    queued with no host synchronisation (``torch.bincount`` reads the
+    maximum back to size its output).  The bytes are sorted and each
+    value's count is the step between its end and the previous value's
+    (``searchsorted``): record streams are mostly one byte value, which
+    serialises the atomic adds of a scatter count (``bincount``,
+    ``histc``) on one bin."""
+    flat = records.reshape(-1)
+    values = torch.arange(256, dtype=torch.uint8, device=flat.device)
+    hist = torch.zeros(256, dtype=torch.int64, device=flat.device)
+    for part in flat.split(_HIST_CHUNK):
+        ends = torch.searchsorted(torch.sort(part)[0], values, right=True)
+        hist += torch.diff(ends, prepend=ends.new_zeros(1))
+    return hist
 
 
 def build_lengths(hist) -> np.ndarray:

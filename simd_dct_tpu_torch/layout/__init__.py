@@ -1,6 +1,6 @@
 """Blocking, the dual-view geometry, the enc-quant scalar / pair-cell
 layouts, the mode32 record layout, the stereo plane layouts, the
-YCbCr colour planes and the 4:2:0 record stream."""
+YCbCr colour planes, the 4:2:0 record stream and the zigzag order."""
 
 from .blocks import blockize, unblockize
 from .color import (BASE_CHROMA_QUANT_TABLE, RGB2YCC, YCC2RGB, YCC_BIAS,
@@ -16,3 +16,5 @@ from .reorder import (block_contiguous, block_contiguous_inverse,
                       stereo_interleaved_to_views, stereo_views_to_interleaved,
                       stereo_views_to_native)
 from .stereo import native_stereo_bwp, split_views, stack_views, top_view
+from .zigzag import (from_zigzag, to_zigzag, zigzag_inverse_order,
+                     zigzag_order)

@@ -392,7 +392,11 @@ def test_import_pulls_in_no_jax():
             "simd_dct_tpu_torch.kernels.compat, "
             "simd_dct_tpu_torch.utils.debug, simd_dct_tpu_torch.utils.metrics, "
             "simd_dct_tpu_torch.entropy, simd_dct_tpu_torch.container, "
-            "simd_dct_tpu_torch.config, simd_dct_tpu_torch.native; "
+            "simd_dct_tpu_torch.config, simd_dct_tpu_torch.native, "
+            "simd_dct_tpu_torch.cli, simd_dct_tpu_torch.utils.feed, "
+            "simd_dct_tpu_torch.utils.profiling, "
+            "simd_dct_tpu_torch.bench.stats, simd_dct_tpu_torch.bench.rd, "
+            "simd_dct_tpu_torch.layout.zigzag; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'simd_dct_tpu.')) or m == 'simd_dct_tpu']; "
             "assert not bad, bad")

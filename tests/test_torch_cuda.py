@@ -987,3 +987,70 @@ def test_sharded_mode32_and_colour_equal_the_unsharded_calls(gen):
     crec = dist.encode_quantize32_ycbcr_sharded(rgb, LUT, CHROMA, mesh)
     assert torch.equal(crec.full().reshape(3, -1),
                        sd.encode_quantize32_ycbcr(rgb, LUT, CHROMA))
+
+
+@pytest.mark.parametrize("depth", [1, 3])
+def test_feed_streams_equal_the_api_on_the_card(gen, depth):
+    """The feed's streams (upload, compute and download streams, the
+    page-locked ring) against per-frame api calls, byte for byte."""
+    from simd_dct_tpu_torch import entropy
+    from simd_dct_tpu_torch.utils import feed
+    frames = [_img(gen, 256, 384).cpu().numpy() for _ in range(5)]
+    outs = list(feed.stream_roundtrip32(frames, LUT, depth=depth))
+    blobs = list(feed.stream_encode32_compressed(frames, LUT, depth=depth))
+    sparse = list(feed.stream_encode32_compressed(frames, LUT, depth=depth,
+                                                  sparse=True))
+    dec = list(feed.stream_decode32_compressed(blobs, LUT, 384, 256,
+                                               depth=depth))
+    for fr, out, blob, sblob, d in zip(frames, outs, blobs, sparse, dec):
+        rec = sd.encode_quantize32(fr, LUT)
+        assert np.array_equal(out, sd.roundtrip_quantize32(fr, LUT).cpu())
+        assert np.array_equal(entropy.decompress(blob), rec.cpu().reshape(-1))
+        assert np.array_equal(entropy.decompress(sblob),
+                              rec.cpu().reshape(-1))
+        assert np.array_equal(d, sd.decode_quantize32(rec, LUT, 384,
+                                                      256).cpu())
+    got = [t.cpu() for t in feed.FrameFeeder(
+        lambda x: x * 2, depth=depth).map(frames)]
+    assert all(torch.equal(g, torch.from_numpy(f) * 2)
+               for g, f in zip(got, frames))
+
+
+@pytest.mark.parametrize("depth", [1, 2, 4])
+@pytest.mark.parametrize("sparse", [False, True])
+def test_feed_encode_from_a_source_that_refills_its_buffer(gen, depth,
+                                                           sparse):
+    """The encode streams fill the ring in the background: a source that
+    refills one buffer for every frame (a video reader) still gives each
+    frame its own records, and frames of a new shape reallocate the ring."""
+    from simd_dct_tpu_torch import entropy
+    from simd_dct_tpu_torch.utils import feed
+    frames = ([_img(gen, 256, 384).cpu().numpy() for _ in range(6)]
+              + [_img(gen, 128, 192).cpu().numpy() for _ in range(3)])
+
+    def reader():
+        buf = {}
+        for fr in frames:
+            b = buf.setdefault(fr.shape, np.empty_like(fr))
+            np.copyto(b, fr)
+            yield b
+
+    blobs = list(feed.stream_encode32_compressed(reader(), LUT, depth=depth,
+                                                 sparse=sparse))
+    assert len(blobs) == len(frames)
+    for fr, blob in zip(frames, blobs):
+        assert np.array_equal(entropy.decompress(blob),
+                              sd.encode_quantize32(fr, LUT).cpu().reshape(-1))
+
+
+def test_histogram_tensor_queues_without_a_synchronisation(gen):
+    from simd_dct_tpu_torch import entropy
+    rec = _img(gen, 1 << 20)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        hist = entropy.histogram_tensor(rec)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.array_equal(hist.cpu().numpy(),
+                          np.bincount(rec.cpu().numpy(), minlength=256))

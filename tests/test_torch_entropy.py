@@ -424,20 +424,33 @@ def test_expand_slots_are_int64():
 
 
 def test_histogram_counts_in_one_int64_pass(monkeypatch):
-    """One bincount in int64 over the whole stream, no 2**31-byte slices
-    (the JAX package slices only because its TPU lacks an i64 scatter)."""
+    """One count over the whole stream, no 2**31-byte slices (the JAX
+    package slices only because its TPU lacks an i64 scatter): one sort of
+    every byte, int64 counts equal to the native loop's."""
     calls = []
-    real = torch.bincount
+    real = torch.sort
 
     def spy(x, *a, **kw):
-        out = real(x, *a, **kw)
-        calls.append((x.numel(), out.dtype))
-        return out
+        calls.append((x.numel(), x.dtype))
+        return real(x, *a, **kw)
 
-    monkeypatch.setattr(torch, "bincount", spy)
+    monkeypatch.setattr(torch, "sort", spy)
     x = torch.from_numpy(_streams()["mode32"])
-    E.histogram(x)
-    assert calls == [(x.numel(), torch.int64)]
+    hist = E.histogram(x)
+    assert calls == [(x.numel(), torch.uint8)]
+    assert E.histogram_tensor(x).dtype == torch.int64
+    np.testing.assert_array_equal(hist, E.histogram(x, device=False))
+
+
+@pytest.mark.parametrize("n", [0, 1, 4097])
+def test_histogram_tensor_in_chunks(monkeypatch, n):
+    """A stream longer than the sort's chunk is counted chunk by chunk
+    into the same int64 counts; empty and one-byte streams count too."""
+    monkeypatch.setattr(E, "_HIST_CHUNK", 1000)
+    x = torch.from_numpy(
+        np.random.default_rng(n).integers(0, 256, n, np.uint8))
+    np.testing.assert_array_equal(E.histogram_tensor(x).numpy(),
+                                  np.bincount(x.numpy(), minlength=256))
 
 
 def test_stored_precheck_is_a_lower_bound(monkeypatch):
