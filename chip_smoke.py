@@ -208,6 +208,35 @@ result line):
       and 200 against the host's plain version (PSNR within 0.1 dB, rate
       within 0.2%), counters set to 0 just before the feed.  Every kernel
       of the modes that ran must have launched.
+  23. the dist path across processes: ``--procs-worker`` processes of this
+      script, one a rank (two on card 0, each given ``cuda:0``; with
+      ``--cards 4`` four, one a card), bootstrapped by
+      ``dist.initialize_distributed`` on a gloo group at 127.0.0.1 and a
+      free port, killed after ``PROCS_LIMIT_S``.  Each rank builds the
+      4096x3840 dual view and a 64-frame 1088x1920 batch from one seed,
+      computes the unsharded api calls on its card, then, counters set to
+      0 just before, the strip-sharded mode32 encode and decode, the
+      stereo encode with ``gather=True`` in the interleaved and native
+      layouts, and the frame-sharded ``roundtrip_quantize32_batch``: its
+      shards equal the unsharded calls' rows and its gathered planes the
+      whole call, byte for byte, the ranks' hashes agree, ``ring_gather``
+      launched once per ``gather=True`` in each process and no collective
+      of the process group ran.  Then a store round trip, the gather's
+      call wall (``PROCS_REPS`` gathers) and its kernel's device time by
+      torch.profiler (as many more), beside one process's gather of the
+      same segments over as many shards of card 0 (profiler, queued
+      events, wall); a gather the last rank skips: the others raise
+      ``SimdDctError`` within the spin bound plus 1 s and every rank's
+      next gather is exact; and rank 0, the store's host, exiting at
+      once: every other rank's next gather raises ``SimdDctError`` within
+      the spin bound plus 1 s;
+  24. the NumPy golden tier with a card present: ``backend="numpy"`` on a
+      256x1920 view (mode32, enc-quant scalar and pair, stereo; encode,
+      decode, the round trip) within +-1 on at most 0.2% of bytes of the
+      card's kernels, and under ``compat=True`` equal to the C++ oracle;
+      a CUDA tensor under ``numpy`` raises naming ``.cpu()``; ``cli.main``
+      with ``--max-simd none`` launches no kernel and dumps the golden's
+      bytes; the golden's seconds a call.
 Phase 10 runs before phase 22 (whose profiler sessions, run first, once
 left phase 10's profiler without a self-ring kernel; where the profiler
 records none, the self-ring's time is null, never its call's wall); it
@@ -220,9 +249,11 @@ encode against the one-launch call.  Each phase logs its seconds.  The
 line before the last is a JSON object with one entry per kernel (its
 time, its bound, its share of the copy, its launches on its main path,
 on phase 21's (``launches_stream``) and on phase 22's
-(``launches_serve``)); the lines before it hold phase 21's stage walls and
-ratios and phase 22's walls, rates and command-line rows; the last line is
-``{"ok": true, "device": {...}}``.
+(``launches_serve``) and in each process of phase 23 (``launches_procs``,
+rank order), the gather's row also its times across processes); the lines
+before it hold phase 21's stage walls and ratios, phase 22's walls, rates
+and command-line rows, phase 24's golden seconds and phase 23's results
+(``{"procs": ...}``); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1640,6 +1671,413 @@ def phase_main_path_dist(gen, lut, lut_q, luma, chroma):
     return counts
 
 
+# -- the dist path across processes (phase 23) --------------------------------
+
+# a worker's time limit, the gathers each form is timed over, and the seed
+# every rank draws the same images from
+PROCS_LIMIT_S = 240
+PROCS_REPS = 25
+PROCS_SEED = 23
+
+
+def procs_images(dev):
+    """The same 4096x3840 dual view and 64-frame 1088x1920 batch on every
+    rank (a generator of one seed on each rank's card)."""
+    g = torch.Generator(device=dev).manual_seed(PROCS_SEED)
+    img = torch.randint(0, 256, (4096, 3840), generator=g, dtype=torch.uint8,
+                        device=dev)
+    video = torch.randint(0, 256, (64, 1088, 1920), generator=g,
+                          dtype=torch.uint8, device=dev)
+    return img, video
+
+
+def digest(t: torch.Tensor) -> str:
+    import hashlib
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def procs_gather_times(mesh, seg, want) -> dict:
+    """``PROCS_REPS`` gathers of the 4K interleaved segments: the call's
+    wall and the host's phases (medians); then as many again under
+    torch.profiler, for the kernel's device time (the mean over the
+    launches it recorded, null where it recorded none: one session, no
+    retry, so that every rank makes the same gathers); and the last
+    result's exactness."""
+    import torch.distributed as tdist
+    from torch.profiler import ProfilerActivity, profile
+    walls, host = [], []
+    tdist.barrier()
+    try:
+        for _ in range(PROCS_REPS):
+            t0 = time.perf_counter()
+            out = collectives.gather_planes_remote(seg, mesh)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            host.append(mesh._collective_workspace.last_host)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROCS_REPS):
+                collectives.gather_planes_remote(seg, mesh)
+            torch.cuda.synchronize()
+        evts = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "ring_gather" in e.key and e.count > 0]
+        recorded = sum(e.count for e in evts)
+        res = {"kernel_us": (sum(e.self_device_time_total for e in evts)
+                             / recorded if recorded else None),
+               "kernel_records": recorded,
+               "wall_us": statistics.median(walls) * 1e3,
+               "wall_us_max": max(walls) * 1e3,
+               "host_us": {k: statistics.median(h[k] for h in host) * 1e6
+                           for k in host[0]},
+               "exact": torch.equal(out.full().reshape(-1), want),
+               "plan": mesh._collective_workspace.last_plan._asdict()}
+    except sd.SimdDctError as e:
+        res = {"error": str(e)}
+    return res
+
+
+def procs_worker(rank: int, world: int, port: int, devices: list[str],
+                 out_path: str) -> int:
+    """One rank of phase 23 (``chip_smoke.py --procs-worker RANK ...``):
+    bootstrap, the main path across processes, its checks, the gather's
+    times, the skipped gather, and the store's host (rank 0) dying: rank 0
+    writes its results as JSON in ``out_path`` and exits at once, every
+    other rank's next gather must raise, and then it writes its own."""
+    import datetime
+    import torch.distributed as tdist
+    res = {"rank": rank}
+    ok = dist.initialize_distributed(
+        coordinator_address=f"127.0.0.1:{port}", num_processes=world,
+        process_id=rank)
+    require(ok and tdist.get_backend() == "gloo",
+            "initialize_distributed: a gloo group")
+    mesh = dist.make_mesh(world, devices=devices)
+    dev = mesh.devices.flat[rank]
+    torch.cuda.set_device(dev)
+    res["device"] = str(dev)
+    lut_q = default_quant_lut(50)
+    lut = default_quant_lut(100) * np.float32(255.0)
+    img, video = procs_images(dev)
+    s_rows, f_rows = 256 // world, 64 // world
+    want = {vl: sd.encode_quantize_stereo(img, lut_q, view_layout=vl)
+            for vl in ("interleaved", "native")}
+    rec_all = sd.encode_quantize32(img, lut).reshape(256, 8 * 3840)
+    pix_all = sd.decode_quantize32(rec_all.reshape(-1), lut, 3840, 4096)
+    vid_all = sd.roundtrip_quantize32(video, lut)
+    torch.cuda.synchronize()
+    # the group's collectives are counted: none may carry the card's bytes
+    group_calls = {"n": 0}
+    for name in ("all_gather", "all_gather_into_tensor", "broadcast",
+                 "all_gather_object", "send", "recv", "all_reduce"):
+        fn = getattr(tdist, name)
+
+        def counted(*a, _fn=fn, **kw):
+            group_calls["n"] += 1
+            return _fn(*a, **kw)
+        setattr(tdist, name, counted)
+    tdist.barrier()
+    cuda_dct.reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = dist.encode_quantize32_sharded(img, lut, mesh)
+    pix = dist.decode_quantize32_sharded(rec, lut, 3840, 4096, mesh)
+    planes = {vl: dist.encode_quantize_stereo_sharded(
+        img, lut_q, mesh, gather=True, view_layout=vl) for vl in want}
+    vid = dist.roundtrip_quantize32_batch(video, lut, mesh)
+    torch.cuda.synchronize()
+    res["main_path_s"] = time.perf_counter() - t0
+    counts = dict(cuda_dct.LAUNCHES)
+    res["launches"] = counts
+    res["group_calls"] = group_calls["n"]
+    mine = slice(rank * s_rows, (rank + 1) * s_rows)
+    checks = {
+        "encode_quantize32_sharded": torch.equal(rec.shards[0],
+                                                 rec_all[mine]),
+        "decode_quantize32_sharded": torch.equal(
+            pix.shards[0], pix_all[rank * 8 * s_rows:
+                                   (rank + 1) * 8 * s_rows]),
+        "roundtrip_quantize32_batch": torch.equal(
+            vid.shards[0], vid_all[rank * f_rows:(rank + 1) * f_rows]),
+    }
+    for vl, g in planes.items():
+        got = g.full()
+        checks[f"stereo gather=True {vl}"] = torch.equal(
+            got.reshape(want[vl].shape), want[vl])
+    res["checks"] = checks
+    res["hashes"] = {vl: digest(g.full()) for vl, g in planes.items()}
+    res["ipc"] = dict(mesh._collective_workspace.stats)
+    # a round trip to the group's store (rank 0's process serves it)
+    kv = dist.mesh.store()
+    tdist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        kv.add(f"smoke/rt/{rank}", 0)
+    res["store_round_trip_us"] = (time.perf_counter() - t0) * 1e4
+    # the gather's times
+    seg = dist.encode_quantize_stereo_sharded(img, lut_q, mesh)
+    res["timing"] = procs_gather_times(mesh, seg, want["interleaved"])
+    # a skipped gather: the last rank skips it; the others raise within the
+    # spin bound plus 1 s; then every rank's next gather is exact
+    tdist.barrier()
+    skipper = world - 1
+    if rank == skipper:
+        kv.wait([f"smoke/skip/{r}" for r in range(world - 1)],
+                datetime.timedelta(seconds=60))
+        res["skip"] = {"skipped": True}
+    else:
+        t0 = time.perf_counter()
+        try:
+            collectives.gather_planes_remote(seg, mesh)
+            raised = None
+        except sd.SimdDctError as e:
+            raised = str(e)
+        res["skip"] = {"raised": raised,
+                       "after_s": time.perf_counter() - t0}
+        kv.set(f"smoke/skip/{rank}", b"1")
+    fresh = collectives.gather_planes_remote(seg, mesh)
+    res["skip"]["fresh_exact"] = torch.equal(fresh.full().reshape(-1),
+                                             want["interleaved"])
+    res["ipc_end"] = dict(mesh._collective_workspace.stats)
+    tdist.barrier()
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(res, f)
+        sys.stdout.flush()
+        os._exit(0)         # the store's host dies, its group unfinished
+    time.sleep(0.5)
+    t0 = time.perf_counter()
+    try:
+        collectives.gather_planes_remote(seg, mesh)
+        raised = None
+    except sd.SimdDctError as e:
+        raised = str(e)
+    res["host_died"] = {"raised": raised,
+                        "after_s": time.perf_counter() - t0}
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+    sys.stdout.flush()
+    os._exit(0)             # the group cannot be torn down without rank 0
+
+
+def free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def run_procs(world: int, devices: list[str]) -> list[dict]:
+    """Phase 23's workers, one process a rank, killed at ``PROCS_LIMIT_S``;
+    their results.  A worker that fails or runs out of time fails the
+    phase."""
+    import tempfile
+    port = free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(world)]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--procs-worker",
+             str(r), "--world", str(world), "--port", str(port),
+             "--devices", ",".join(devices), "--out", outs[r]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(world)]
+        deadline = time.monotonic() + PROCS_LIMIT_S
+        texts = []
+        try:
+            for p in procs:
+                left = max(1.0, deadline - time.monotonic())
+                try:
+                    texts.append(p.communicate(timeout=left)[0])
+                except subprocess.TimeoutExpired:
+                    texts.append(None)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, text) in enumerate(zip(procs, texts)):
+            tail = "" if text is None else text[-3000:]
+            log(f"  rank {r} exit {p.returncode}: {tail.strip()[-600:]}")
+            require(text is not None,
+                    f"worker {r} ended within {PROCS_LIMIT_S} s")
+            require(p.returncode == 0, f"worker {r} exited 0:\n{tail}")
+        results = []
+        for path in outs:
+            with open(path) as f:
+                results.append(json.load(f))
+    return results
+
+
+def one_process_gather(lut_q, world: int, reps: int, cycles_per_ms) -> dict:
+    """The same segments gathered by one process over ``world`` shards of
+    card 0 (the gather of phase 10's kind): queued events, profiler and
+    call wall."""
+    mesh = dist.make_mesh(world, devices=[f"{DEV}:0"] * world)
+    img, _ = procs_images(f"{DEV}:0")
+    segs = [dist.encode_quantize_stereo_sharded(x, lut_q, mesh)
+            for x in (img, img.flip(0), img.flip(1), img.flip(0, 1))]
+
+    def kern(seg):
+        return collectives.gather_planes_remote(seg, mesh)
+
+    k_us = queued_ms(kern, segs, reps, cycles_per_ms) * 1e3
+    k_prof, _ = profiled_us(kern, segs, match="ring_gather")
+    k_wall = wall_ms(kern, segs, reps) * 1e3
+    collectives.check_workspace(mesh)
+    lib_us = queued_ms(four_cats, segs, reps, cycles_per_ms) * 1e3
+    return {"shards": world, "shape": list(segs[0].shards[0].shape),
+            "kernel_us": k_us, "kernel_profiler_us": k_prof,
+            "wall_us": k_wall, "library_us": lib_us,
+            "plan": mesh._collective_workspace.last_plan._asdict()}
+
+
+def phase_procs(lut_q, devices: list[str]) -> tuple[dict, list[dict]]:
+    world = len(devices)
+    log(f"phase 23: the dist path across {world} processes ({devices}), a "
+        "gloo group on 127.0.0.1")
+    results = run_procs(world, devices)
+    for r in results:
+        log(f"  rank {r['rank']} on {r['device']}: checks {r['checks']}, "
+            f"launches ring_gather {r['launches']['ring_gather']}, group "
+            f"collectives {r['group_calls']}, IPC {r['ipc_end']}")
+        log(f"  rank {r['rank']} gather times: {json.dumps(r['timing'])}")
+        log(f"  rank {r['rank']} skipped gather: {r['skip']}")
+        for name, ok in r["checks"].items():
+            require(ok, f"rank {r['rank']}: {name} equals the unsharded api "
+                    "call byte for byte")
+        counts = r["launches"]
+        require(counts["ring_gather"] == 2,
+                f"rank {r['rank']}: one ring_gather launch per gather=True")
+        for name in ("enc32", "dec32", "enc_stereo", "roundtrip32"):
+            require(counts[name] > 0, f"rank {r['rank']}: {name} launched")
+        require(r["group_calls"] == 0,
+                "no collective of the process group moved the card's bytes")
+        require("error" not in r["timing"] and r["timing"]["exact"],
+                f"rank {r['rank']}: the timed gathers are exact")
+        if r["rank"] != 0:
+            died = r["host_died"]
+            log(f"  rank {r['rank']} after the store's host died: {died}")
+            require(died["raised"] is not None and "store" in died["raised"]
+                    and died["after_s"] < collectives.SPIN_TIMEOUT_S + 1.0,
+                    f"rank {r['rank']}: with rank 0 (the store's host) dead "
+                    "a gather raises SimdDctError within the spin bound "
+                    "plus 1 s")
+        if r["skip"].get("skipped"):
+            continue
+        require(r["skip"]["raised"] is not None and r["skip"]["after_s"]
+                < collectives.SPIN_TIMEOUT_S + 1.0,
+                f"rank {r['rank']}: a skipped gather raises SimdDctError "
+                "within the spin bound plus 1 s")
+    for r in results:
+        require(r["skip"]["fresh_exact"],
+                f"rank {r['rank']}: the gather after the skipped one is "
+                "exact")
+    for vl in ("interleaved", "native"):
+        require(len({r["hashes"][vl] for r in results}) == 1,
+                f"every rank gathered the same {vl} bytes")
+    one = one_process_gather(lut_q, world, REPS, sleep_cycles_per_ms())
+    log(f"  one process, {world} shards of {DEV}:0, the same segments: "
+        f"{json.dumps(one)}")
+    summary = {"world": world, "devices": devices, "one_process": one,
+               "ranks": results}
+    return summary, results
+
+
+# -- the golden tier with a card present (phase 24) ---------------------------
+
+GOLDEN_H, GOLDEN_W = 256, 1920
+
+
+def phase_golden(gen, lut, lut_q) -> dict:
+    """backend="numpy" on a small view against the card's kernels (+-1 on at
+    most 0.2% of bytes) and, under compat=True, against the C++ oracle
+    exactly; a CUDA tensor under numpy raises; --max-simd none launches no
+    kernel and dumps the golden's bytes."""
+    import tempfile
+    from simd_dct_tpu_torch import cli, native
+    log(f"phase 24: the NumPy golden tier (backend='numpy') on a "
+        f"{GOLDEN_H}x{GOLDEN_W} view with a card present")
+    h, w = GOLDEN_H, GOLDEN_W
+    view = random_images(gen, h, w, 1).cpu().numpy()
+    errs, seconds = {}, {}
+
+    def golden(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, backend="numpy", **kw)
+        seconds[name] = time.perf_counter() - t0
+        require(out.device.type == "cpu", f"{name}: a CPU tensor")
+        return out
+
+    cases = [("enc-quant32", sd.encode_quantize32, sd.decode_quantize32, lut,
+              {}, native.encode_quantize32, native.decode_quantize32),
+             ("enc-quant scalar", sd.encode_quantize, sd.decode_quantize,
+              lut_q, {"layout": "scalar"}, native.encode_quantize,
+              native.decode_quantize),
+             ("enc-quant pair", sd.encode_quantize, sd.decode_quantize,
+              lut_q, {"layout": "pair"}, native.encode_quantize,
+              native.decode_quantize),
+             ("stereo", sd.encode_quantize_stereo, sd.decode_quantize_stereo,
+              lut_q, {}, native.encode_quantize_stereo,
+              native.decode_quantize_stereo)]
+    for name, enc, dec, lt, kw, n_enc, n_dec in cases:
+        g = golden(f"{name} encode", enc, view, lt, **kw)
+        k = enc(view, lt, **kw)
+        require(k.device.type == DEV, f"{name}: the card's kernel ran")
+        agree(f"golden {name} encode vs the card", k.cpu(), g, errs,
+              f"{name} encode")
+        gc = golden(f"{name} encode compat", enc, view, lt, compat=True,
+                    **kw)
+        same = np.array_equal(gc.numpy(), n_enc(view, lt, **kw))
+        log(f"  golden {name} encode, compat=True == the C++ oracle: {same}")
+        require(same, f"golden {name} compat encode == the oracle exactly")
+        dkw = {"layout": kw["layout"]} if "layout" in kw else {}
+        rec = k.cpu().numpy()
+        gd = golden(f"{name} decode", dec, rec, lt, w, h, **dkw)
+        agree(f"golden {name} decode vs the card", dec(rec, lt, w, h, **dkw)
+              .cpu(), gd, errs, f"{name} decode")
+        gdc = golden(f"{name} decode compat", dec, rec, lt, w, h,
+                     compat=True, **dkw)
+        same = np.array_equal(gdc.numpy(), n_dec(rec, lt, w, h, **dkw))
+        require(same, f"golden {name} compat decode == the oracle exactly")
+    rt = golden("roundtrip32", sd.roundtrip_quantize32, view, lut)
+    agree("golden roundtrip32 vs the card", sd.roundtrip_quantize32(
+        view, lut).cpu(), rt, errs, "roundtrip32")
+    try:
+        sd.encode_quantize32(torch.from_numpy(view).to(DEV), lut,
+                             backend="numpy")
+        raised = None
+    except sd.NotSupportedError as e:
+        raised = str(e)
+    log(f"  a CUDA tensor under numpy: {raised!r}")
+    require(raised is not None and ".cpu()" in raised,
+            "a CUDA tensor under numpy raises NotSupportedError naming .cpu()")
+    with tempfile.TemporaryDirectory() as tmp:
+        raw, dump = os.path.join(tmp, "view.raw"), os.path.join(tmp, "out")
+        view.tofile(raw)
+        torch.cuda.synchronize()
+        cuda_dct.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            rc = cli.main([raw, str(w), str(h), "--runs", "1", "--quality",
+                           "50", "--mode", "enc-quant32", "--max-simd",
+                           "none", "--to", dump])
+        finally:
+            capability.set_max_backend("cuda")
+        seconds["cli --max-simd none"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launched = sum(cuda_dct.LAUNCHES.values())
+        got = np.fromfile(dump, np.uint8)
+    want = sd.encode_quantize32(view, default_quant_lut(50)
+                                * np.float32(255.0), backend="numpy")
+    same = rc == 0 and np.array_equal(got, want.numpy())
+    log(f"  cli --max-simd none: exit {rc}, kernels launched {launched}, "
+        f"dump == the api's numpy result: {same}")
+    require(same and launched == 0,
+            "--max-simd none runs the golden, launches no kernel and dumps "
+            "its bytes")
+    log(f"  golden seconds a call ({h}x{w}): {json.dumps(seconds)}")
+    return {"view": [h, w], "seconds": seconds, "max_abs_diff": errs}
+
+
 # -- a batch longer than one launch takes -------------------------------------
 
 def phase_large_batch(gen, lut, lut_q):
@@ -2982,6 +3420,24 @@ def kernel_rows(launches, errs, times, library):
     return rows
 
 
+def add_procs(rows, results, one) -> None:
+    """Phase 23 in the kernels line: each kernel's launches in each process
+    (``launches_procs``, rank order), and beside the gather's row its
+    times across processes (rank 0's: the profiler's kernel time, the
+    median wall) and the one process's gather of the same segments (the
+    profiler's kernel time beside it, and its queued events)."""
+    for row in rows:
+        row["launches_procs"] = [r["launches"][row["name"]] for r in results]
+        if row["name"] != "ring_gather":
+            continue
+        t = results[0]["timing"]
+        row["procs"] = {k: t.get(k) for k in ("kernel_us", "wall_us",
+                                              "error")}
+        row["one_process"] = {k: one[k] for k in (
+            "shards", "kernel_profiler_us", "kernel_us", "wall_us",
+            "library_us")}
+
+
 def log_ptxas(lines) -> None:
     """Registers, stack and spills per kernel instantiation from the
     ``ptxas -v`` lines of the build log, e.g. ``encq_kernel<1,2>``; kept in
@@ -3023,10 +3479,15 @@ def main_cards(gen, kind, t_start) -> int:
     rows, table = {}, []
     library = timed(timing_dist, gen, lut_q, REPS, sleep_cycles_per_ms(),
                     rows, table)
+    procs, procs_results = timed(phase_procs, lut_q, DIST_DEVICES)
     log(f"chip_smoke --cards 4: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"procs": procs}))
     log(json.dumps({"cards": DIST_DEVICES, "errs": errs, "launches": {
         k: counts[k] for k in ("ring_gather", "selfring")},
+        "launches_procs": {k: [r["launches"][k] for r in procs_results]
+                           for k in ("ring_gather", "enc32", "dec32",
+                                     "enc_stereo", "roundtrip32")},
         "library_ms": library, "timing": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -3048,11 +3509,20 @@ def main(argv=None) -> int:
     ap.add_argument("--cards", type=int, choices=(1, 4), default=1,
                     help="4: one dist shard on each of four cards, and only "
                     "the build and the dist phases")
+    ap.add_argument("--procs-worker", type=int, default=None,
+                    metavar="RANK", help=argparse.SUPPRESS)
+    ap.add_argument("--world", type=int, default=2, help=argparse.SUPPRESS)
+    ap.add_argument("--port", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--devices", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--out", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    if args.procs_worker is not None:
+        return procs_worker(args.procs_worker, args.world, args.port,
+                            args.devices.split(","), args.out)
 
     log("phase 1: the card")
     smi = subprocess.run(
@@ -3103,6 +3573,8 @@ def main(argv=None) -> int:
     timed(phase_compare_dist, gen, lut_q, errs)
     counts_d = timed(phase_main_path_dist, gen, lut100, lut_q, lut100,
                      chroma100)
+    procs, procs_results = timed(phase_procs, lut_q, [f"{DEV}:0"] * 2)
+    golden = timed(phase_golden, gen, lut100, lut_q)
     counts_z, ratios = timed(phase_compressed_stream, gen)
     stages = timed(stream_stages, gen, smi.stdout.strip())
     # phase 22 after phase 10: where its profiler sessions came first,
@@ -3117,7 +3589,10 @@ def main(argv=None) -> int:
     log("compat " + json.dumps(compat_stats))
     log(json.dumps({"stream": {"stages": stages, "ratios": ratios}}))
     log(json.dumps({"serve": serve}))
+    log(json.dumps({"golden": golden}))
+    log(json.dumps({"procs": procs}))
     rows = kernel_rows(launches, errs, times, library)
+    add_procs(rows, procs_results, procs["one_process"])
     for row in rows:
         # launches on phase 21's run of the compressed-stream path
         row["launches_stream"] = counts_z[row["name"]]

@@ -17,11 +17,22 @@ the host.  The result lies on the input's device.  A ``(B, H, W)`` batch
 (``(B, 3, H, W)`` for colour) is one batch dimension all the way down: one
 kernel launch covers up to 65,535 frames.
 
+``backend="numpy"`` (or the cap ``set_max_backend("numpy")``, the CLI's
+``--max-simd none``) runs the scalar NumPy golden (``core/golden.py``) on
+the host, a batch looped frame by frame: data that is not a tensor yet is
+placed on the CPU for it, a CUDA tensor raises ``NotSupportedError``
+(move it with ``.cpu()``), and the result is a CPU u8 tensor of the
+golden's bytes.  The colour entry points have no golden and raise under
+it, as the JAX package's do.
+
 ``compat=True`` (enc-quant, mode32 and stereo, encode and decode) selects
 the strict-IEEE tier (``kernels/compat.py``): byte-identical to the C++
 oracle (``native/golden_dct.cpp``), on the input's device, as eager
 PyTorch ops; a conformance tier, not a fast path.  Without it, each tier
-agrees with the oracle within +-1 on rounding-boundary bytes.
+agrees with the oracle within +-1 on rounding-boundary bytes.  On the
+numpy tier ``compat=True`` takes the butterfly (``core/butterfly.py``) in
+the encodes and the C++ oracle itself (``native.py``) in the decodes, as
+the JAX package does.
 """
 
 from __future__ import annotations
@@ -32,13 +43,15 @@ from typing import Any
 import numpy as np
 import torch
 
+from .core import golden as _golden
 from .core.quantize import ROUNDING_MODES, lut_array
 from .dispatch.capability import default_device, select_backend
 from .kernels import compat as _compat
 from .kernels import cuda_dct as _cuda
 from .kernels import torch_path as _tp
+from .layout import reorder as _reorder
 from .layout.color420 import record_bytes_420
-from .layout.stereo import VIEW_LAYOUTS, record_shape
+from .layout.stereo import VIEW_LAYOUTS, native_stereo_bwp, record_shape
 
 
 class SimdDctResult(enum.IntEnum):
@@ -63,10 +76,11 @@ class NotSupportedError(SimdDctError):
 _END_Y_SENTINEL = 1 << 30
 
 
-def _as_tensor(x: Any, device, name: str) -> torch.Tensor:
+def _as_tensor(x: Any, device, name: str,
+               backend: str | None = None) -> torch.Tensor:
     """A tensor stays where it is (a ``device`` that differs raises: data
     is never moved quietly); anything else is placed on ``device``, by
-    default the card (``default_device``)."""
+    default the card, or the host for the numpy tier (``default_device``)."""
     if isinstance(x, torch.Tensor):
         if device is not None:
             want = torch.device(device)
@@ -76,7 +90,7 @@ def _as_tensor(x: Any, device, name: str) -> torch.Tensor:
                     f"{name} lies on {x.device}, but device={want} was "
                     "requested; move it explicitly")
         return x
-    dev = default_device(device)
+    dev = default_device(device, backend)
     arr = np.asarray(x)
     if not arr.flags.writeable:     # torch warns on read-only buffers
         arr = arr.copy()
@@ -93,10 +107,10 @@ def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
 
 
 def _validate(image: Any, lut: Any, *, multiple_of_64: bool = False,
-              allow_spill: bool = False, device=None):
+              allow_spill: bool = False, device=None, backend=None):
     if image is None or lut is None:
         raise InvalidParameterError("image and lut must not be None")
-    img = _as_tensor(image, device, "image")
+    img = _as_tensor(image, device, "image", backend)
     if img.ndim not in (2, 3):
         raise InvalidParameterError(
             f"expected a (H, W) image or (B, H, W) batch, got shape "
@@ -167,6 +181,18 @@ def _spill_stereo_image(img: torch.Tensor, w: int) -> torch.Tensor:
     return torch.cat([img[..., :rows, :], img[..., h // 2:, :], pad], dim=-2)
 
 
+def _on_host(x: torch.Tensor, fn, base_ndim: int = 2) -> torch.Tensor:
+    """``fn`` (a golden function of numpy arrays) on each item of an
+    optional leading batch axis, looped on the host as the JAX package's
+    numpy tier does (``simd_dct_tpu/api.py:138-151``); the bytes as a CPU
+    u8 tensor."""
+    arr = x.numpy()
+    out = (np.stack([fn(a) for a in arr]) if arr.ndim == base_ndim + 1
+           else fn(arr))
+    return torch.from_numpy(np.ascontiguousarray(out, np.uint8))
+
+
+
 # ---------------------------------------------------------------------------
 # enc-quant: encode / decode
 # ---------------------------------------------------------------------------
@@ -186,7 +212,7 @@ def encode_quantize(image, lut, start_y: int = 0, end_y: int | None = None,
     accepts H % 16 == 8 with the reference's spill semantics (the output
     grows to ceil((H/2)/8)*8*W)."""
     img, lut_arr, h, w = _validate(image, lut, allow_spill=spill,
-                                   device=device)
+                                   device=device, backend=backend)
     _check_rounding(rounding)
     if spill and h % 16:
         img = _spill_view_image(img, w)
@@ -201,6 +227,10 @@ def encode_quantize(image, lut, start_y: int = 0, end_y: int | None = None,
     tier = select_backend(backend, device=img.device)
     args = (int(start_y), _resolve_end_y(end_y), rounding, layout,
             bool(legacy_range))
+    if tier == "numpy":
+        return _on_host(img, lambda im: _golden.encode_quantize_golden(
+            im, lut_arr, args[0], args[1], rounding=rounding, layout=layout,
+            legacy_range=args[4], compat=compat))
     if compat:
         return _compat.encode_quantize(img, lut_arr, *args)
     if tier == "cuda":
@@ -223,8 +253,14 @@ def decode_quantize(data, lut, size_x: int, size_y: int, *,
         raise NotSupportedError(
             f"layout 'pair' requires W % 16 == 0, got W={size_x}")
     d, lut_arr = _validate_decode(data, lut, size_x, size_y,
-                                  (size_y // 2) * size_x, device)
+                                  (size_y // 2) * size_x, device, backend)
     tier = select_backend(backend, device=d.device)
+    if tier == "numpy":
+        from . import native as _native
+        return _on_host(d, (lambda dd: _native.decode_quantize(
+            dd, lut_arr, size_x, size_y, layout)) if compat else (
+            lambda dd: _golden.decode_quantize_golden(
+                dd, lut_arr, size_x, size_y, layout=layout)), base_ndim=1)
     if compat:
         return _compat.decode_quantize(d, lut_arr, size_x, size_y, layout)
     if tier == "cuda":
@@ -247,12 +283,16 @@ def encode_quantize32(image, lut, start_y: int = 0, end_y: int | None = None,
     [start_y, end_y] are zero.  ``spill=True`` accepts H % 16 == 8 with the
     reference's spill semantics (the output grows to ceil((H/2)/8)*8*W)."""
     img, lut_arr, h, w = _validate(image, lut, multiple_of_64=True,
-                                   allow_spill=spill, device=device)
+                                   allow_spill=spill,
+                                   device=device, backend=backend)
     _check_rounding(rounding)
     if spill and h % 16:
         img = _spill_view_image(img, w)
     tier = select_backend(backend, device=img.device)
     ey = _resolve_end_y(end_y)
+    if tier == "numpy":
+        return _on_host(img, lambda im: _golden.encode_quantize32_golden(
+            im, lut_arr, int(start_y), ey, rounding=rounding, compat=compat))
     if compat:
         return _compat.encode_quantize32(img, lut_arr, int(start_y), ey,
                                          rounding)
@@ -280,11 +320,12 @@ def _check_u8_records(d: torch.Tensor):
             f"record streams must be uint8, got {d.dtype}")
 
 
-def _validate_decode(data, lut, size_x, size_y, expect_bytes, device):
+def _validate_decode(data, lut, size_x, size_y, expect_bytes, device,
+                     backend):
     if data is None or lut is None:
         raise InvalidParameterError("data and lut must not be None")
     _check_decode_dims(size_x, size_y)
-    d = _as_tensor(data, device, "data")
+    d = _as_tensor(data, device, "data", backend)
     _check_u8_records(d)
     if d.numel() % expect_bytes:
         raise InvalidParameterError(
@@ -305,8 +346,14 @@ def decode_quantize32(data, lut, size_x: int, size_y: int, *,
     if size_x % 64:
         raise NotSupportedError("enc-quant32 requires W % 64 == 0")
     d, lut_arr = _validate_decode(data, lut, size_x, size_y,
-                                  (size_y // 2) * size_x, device)
+                                  (size_y // 2) * size_x, device, backend)
     tier = select_backend(backend, device=d.device)
+    if tier == "numpy":
+        from . import native as _native
+        return _on_host(d, (lambda dd: _native.decode_quantize32(
+            dd, lut_arr, size_x, size_y)) if compat else (
+            lambda dd: _golden.decode_quantize32_golden(
+                dd, lut_arr, size_x, size_y)), base_ndim=1)
     if compat:
         return _compat.decode_quantize32(d, lut_arr, size_x, size_y)
     if tier == "cuda":
@@ -321,8 +368,12 @@ def roundtrip_quantize32(image, lut, *, backend: str | None = None,
     (B, H/2, W) u8.  The ``cuda`` tier runs one fused kernel whose records
     never reach device memory; it equals decode(encode(x)) byte for byte."""
     img, lut_arr, h, w = _validate(image, lut, multiple_of_64=True,
-                                   device=device)
+                                   device=device, backend=backend)
     tier = select_backend(backend, device=img.device)
+    if tier == "numpy":
+        # golden encode then golden decode (simd_dct_tpu/api.py:614-618)
+        return _on_host(img, lambda im: _golden.decode_quantize32_golden(
+            _golden.encode_quantize32_golden(im, lut_arr), lut_arr, w, h))
     if tier == "cuda":
         return _cuda.roundtrip_quantize32(_kernel_ready(img), lut_arr)
     return _tp.roundtrip_quantize32(img, lut_arr)
@@ -359,12 +410,22 @@ def encode_quantize_stereo(image, lut, start_y: int = 0,
     semantics (``_spill_stereo_image``; the output grows to 2*R*W bytes)."""
     _check_view_layout(view_layout)
     img, lut_arr, h, w = _validate(image, lut, allow_spill=spill,
-                                   device=device)
+                                   device=device, backend=backend)
     if spill and h % 16:
         img = _spill_stereo_image(img, w)
     _check_rounding(rounding)
     tier = select_backend(backend, device=img.device)
     args = (int(start_y), _resolve_end_y(end_y), rounding, view_layout)
+    if tier == "numpy":
+        h = img.shape[-2]
+        flat = _on_host(img, lambda im: _golden.encode_quantize_stereo_golden(
+            im, lut_arr, args[0], args[1], rounding=rounding, compat=compat))
+        if view_layout == "interleaved":
+            return flat
+        views = _reorder.stereo_interleaved_to_views(flat, h // 16, w // 8)
+        row = native_stereo_bwp(w) if view_layout == "native" else w // 8
+        return _reorder.stereo_views_to_native(
+            views, row, _tp._strip_mask(h // 16, *args[:2])).contiguous()
     if compat:
         return _compat.encode_quantize_stereo(img, lut_arr, *args)
     if tier == "cuda":
@@ -373,12 +434,13 @@ def encode_quantize_stereo(image, lut, start_y: int = 0,
     return _tp.encode_quantize_stereo(img, lut_arr, *args)
 
 
-def _validate_stereo_planes(data, lut, size_x, size_y, view_layout, device):
+def _validate_stereo_planes(data, lut, size_x, size_y, view_layout, device,
+                            backend):
     """Planar or native stereo records: (2, 64, S, BW[P]) or a batch of
     them, exactly."""
     if data is None or lut is None:
         raise InvalidParameterError("data and lut must not be None")
-    d = _as_tensor(data, device, "data")
+    d = _as_tensor(data, device, "data", backend)
     expect = record_shape(view_layout, size_y, size_x)
     if d.ndim not in (4, 5) or tuple(d.shape[-4:]) != expect:
         raise InvalidParameterError(
@@ -399,11 +461,21 @@ def decode_quantize_stereo(data, lut, size_x: int, size_y: int, *,
     _check_view_layout(view_layout)
     if view_layout == "interleaved":
         d, lut_arr = _validate_decode(data, lut, size_x, size_y,
-                                      size_y * size_x, device)
+                                      size_y * size_x, device, backend)
     else:
         d, lut_arr = _validate_stereo_planes(data, lut, size_x, size_y,
-                                             view_layout, device)
+                                             view_layout, device, backend)
     tier = select_backend(backend, device=d.device)
+    if tier == "numpy":
+        # planar and native go through the reference stream, as the JAX
+        # package's host tiers do
+        if view_layout != "interleaved":
+            d = _reorder.stereo_views_to_interleaved(d[..., : size_x // 8])
+        from . import native as _native
+        return _on_host(d, (lambda dd: _native.decode_quantize_stereo(
+            dd, lut_arr, size_x, size_y)) if compat else (
+            lambda dd: _golden.decode_quantize_stereo_golden(
+                dd, lut_arr, size_x, size_y)), base_ndim=1)
     if compat:
         return _compat.decode_quantize_stereo(d, lut_arr, size_x, size_y,
                                               view_layout)
@@ -417,12 +489,12 @@ def decode_quantize_stereo(data, lut, size_x: int, size_y: int, *,
 # YCbCr 4:4:4 colour: encode / decode / round trip
 # ---------------------------------------------------------------------------
 
-def _validate_color(planes, luma_lut, chroma_lut, device):
+def _validate_color(planes, luma_lut, chroma_lut, device, backend):
     """(3, H, W) planar RGB or a (B, 3, H, W) batch, with the mode32
     geometry of each plane and two valid LUTs."""
     if planes is None or luma_lut is None or chroma_lut is None:
         raise InvalidParameterError("planes and luts must not be None")
-    p = _as_tensor(planes, device, "planes")
+    p = _as_tensor(planes, device, "planes", backend)
     if p.ndim not in (3, 4) or p.shape[-3] != 3:
         raise InvalidParameterError(
             "expected (3, H, W) planar RGB or a (B, 3, H, W) batch, got "
@@ -431,6 +503,16 @@ def _validate_color(planes, luma_lut, chroma_lut, device):
     _, lut_c, _, _ = _validate(p[..., 0, :, :], chroma_lut,
                                multiple_of_64=True)
     return p, lut_l, lut_c
+
+
+def _reject_numpy_tier(tier: str):
+    """The colour pipelines have no NumPy golden: the numpy tier, asked for
+    or capped to, raises, as ``simd_dct_tpu/api.py:632-643`` does (the
+    reference's mode32 has no NoSimd variant, src/simd_dct.cpp:127)."""
+    if tier == "numpy":
+        raise NotSupportedError(
+            "the ycbcr pipelines have no numpy tier (the plain PyTorch "
+            "version, backend='torch', is their host tier)")
 
 
 def encode_quantize32_ycbcr(planes, luma_lut, chroma_lut, *,
@@ -443,8 +525,10 @@ def encode_quantize32_ycbcr(planes, luma_lut, chroma_lut, *,
     0..255 domain (255x hotter than enc-quant's; the chroma table is
     ``layout.BASE_CHROMA_QUANT_TABLE * quality * 255``)."""
     _check_rounding(rounding)
-    p, lut_l, lut_c = _validate_color(planes, luma_lut, chroma_lut, device)
+    p, lut_l, lut_c = _validate_color(planes, luma_lut, chroma_lut,
+                                      device, backend)
     tier = select_backend(backend, device=p.device)
+    _reject_numpy_tier(tier)
     if tier == "cuda":
         return _cuda.encode_quantize32_ycbcr(_kernel_ready(p), lut_l, lut_c,
                                              rounding)
@@ -463,7 +547,7 @@ def decode_quantize32_ycbcr(data, luma_lut, chroma_lut, size_x: int,
     _check_decode_dims(size_x, size_y)
     if size_x % 64:
         raise NotSupportedError("enc-quant32 requires W % 64 == 0")
-    d = _as_tensor(data, device, "data")
+    d = _as_tensor(data, device, "data", backend)
     _check_u8_records(d)
     plane = (size_y // 2) * size_x
     if d.numel() == 0 or d.numel() % (3 * plane):
@@ -476,6 +560,7 @@ def decode_quantize32_ycbcr(data, luma_lut, chroma_lut, size_x: int,
         else d.reshape(3, plane)
     lut_l, lut_c = _lut_array(luma_lut), _lut_array(chroma_lut)
     tier = select_backend(backend, device=d.device)
+    _reject_numpy_tier(tier)
     if tier == "cuda":
         return _cuda.decode_quantize32_ycbcr(_kernel_ready(d), lut_l, lut_c,
                                              size_x, size_y)
@@ -489,8 +574,10 @@ def roundtrip_quantize32_ycbcr(planes, luma_lut, chroma_lut, *,
     (B, 3, H, W) u8 planar RGB -> (3, H/2, W) or (B, 3, H/2, W) u8.  The
     ``cuda`` tier runs one fused kernel whose records never reach device
     memory; it equals decode(encode(x)) byte for byte."""
-    p, lut_l, lut_c = _validate_color(planes, luma_lut, chroma_lut, device)
+    p, lut_l, lut_c = _validate_color(planes, luma_lut, chroma_lut,
+                                      device, backend)
     tier = select_backend(backend, device=p.device)
+    _reject_numpy_tier(tier)
     if tier == "cuda":
         return _cuda.roundtrip_quantize32_ycbcr(_kernel_ready(p), lut_l,
                                                 lut_c)
@@ -524,10 +611,12 @@ def encode_quantize32_ycbcr420(planes, luma_lut, chroma_lut, *,
     0..255 domain, as ``encode_quantize32_ycbcr``).  Needs W % 128 == 0 and
     H % 32 == 0, so the half-resolution planes meet mode32's geometry."""
     _check_rounding(rounding)
-    p, lut_l, lut_c = _validate_color(planes, luma_lut, chroma_lut, device)
+    p, lut_l, lut_c = _validate_color(planes, luma_lut, chroma_lut,
+                                      device, backend)
     h, w = p.shape[-2:]
     _check_420_geometry(h, w)
     tier = select_backend(backend, device=p.device)
+    _reject_numpy_tier(tier)
     if tier == "cuda":
         return _cuda.encode_quantize32_ycbcr420(_kernel_ready(p), lut_l,
                                                 lut_c, rounding)
@@ -549,7 +638,7 @@ def decode_quantize32_ycbcr420(data, luma_lut, chroma_lut, size_x: int,
         raise InvalidParameterError(
             f"invalid dimensions {(size_x, size_y)}")
     _check_420_geometry(size_y, size_x)
-    d = _as_tensor(data, device, "data")
+    d = _as_tensor(data, device, "data", backend)
     _check_u8_records(d)
     frame = record_bytes_420(size_y // 2, size_x)
     if d.numel() == 0 or d.numel() % frame:
@@ -560,6 +649,7 @@ def decode_quantize32_ycbcr420(data, luma_lut, chroma_lut, size_x: int,
     d = d.reshape(batch, frame) if batch > 1 or d.ndim >= 2 else d.reshape(-1)
     lut_l, lut_c = _lut_array(luma_lut), _lut_array(chroma_lut)
     tier = select_backend(backend, device=d.device)
+    _reject_numpy_tier(tier)
     if tier == "cuda":
         return _cuda.decode_quantize32_ycbcr420(_kernel_ready(d), lut_l,
                                                 lut_c, size_x, size_y)

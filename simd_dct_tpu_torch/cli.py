@@ -8,9 +8,10 @@ Reference usage (src/main.cpp:106-119):
         --quality <0-100>     quantization quality level
         --runs <uint>         benchmark run count (default 128, max 1024)
         --cpu-core <n>        pin the host thread
-        --max-simd <tier>     cap the backend tier (cuda / torch natively;
-                              the reference's ISA names map onto tiers:
-                              avx* -> cuda, sse* -> torch, none -> torch)
+        --max-simd <tier>     cap the backend tier (cuda / torch / numpy
+                              natively; the reference's ISA names map onto
+                              tiers: avx* -> cuda, sse* -> torch, none ->
+                              numpy, the NumPy golden on the host)
         --mode <mode>         enc-quant / enc-quant32 / enc-quant-stereo
                               (+ enc-quant32-ycbcr and enc-quant32-ycbcr420:
                               3-plane colour, past the grayscale reference)
@@ -22,6 +23,10 @@ The work runs on the card; ``--device cpu`` runs the plain version on the
 host (``--device`` is the one flag the JAX package's command lacks: it
 stands for its ``JAX_PLATFORMS``).  Without a card and without
 ``--device cpu`` the command exits with an error that names the option.
+``--max-simd none`` (or ``numpy``) runs the NumPy golden, a host tier: the
+work runs on the host with no ``--device``, a ``--device`` naming a card
+exits with an error, ``--accurate`` takes direct walls, and the colour
+modes, which have no golden, print a row saying so.
 
 Differences from the reference, by design: the default quality is only
 applied when --quality is passed (src/main.cpp:123,214 declare a default
@@ -40,13 +45,12 @@ import numpy as np
 
 MAX_SIMD_TO_TIER = {
     # native tier names
-    "cuda": "cuda", "torch": "torch",
-    # reference ISA names (src/main.cpp:89-98) mapped onto tiers; "none"
-    # (the JAX package's numpy golden tier) takes the plain version
+    "cuda": "cuda", "torch": "torch", "numpy": "numpy",
+    # reference ISA names (src/main.cpp:89-98) mapped onto tiers
     "avx512bw": "cuda", "avx512f": "cuda", "avx2": "cuda", "avx": "cuda",
     "sse4.2": "torch", "sse4.1": "torch", "ssse3": "torch", "sse3": "torch",
     "sse2": "torch",
-    "none": "torch",
+    "none": "numpy",
 }
 
 MODES = ("enc-quant", "enc-quant32", "enc-quant-stereo",
@@ -151,8 +155,15 @@ def main(argv=None) -> int:
     from .dispatch.capability import DeviceInfo, default_device
     from .utils.metrics import psnr
 
+    golden = (args.max_simd is not None
+              and MAX_SIMD_TO_TIER[args.max_simd] == "numpy")
+    if golden and args.device is not None and \
+            torch.device(args.device).type != "cpu":
+        print(f"error: --max-simd {args.max_simd} runs the NumPy golden on "
+              f"the host; it cannot run on --device {args.device}")
+        return 1
     try:
-        dev = default_device(args.device)
+        dev = default_device("cpu" if golden else args.device)
     except NotSupportedError:
         print("error: no CUDA device on this machine; pass --device cpu to "
               "run the plain version on the host")
@@ -276,7 +287,8 @@ def main(argv=None) -> int:
     if args.sharded is not None:
         from . import dist
         try:
-            mesh = (dist.make_mesh(args.sharded) if args.device is None
+            mesh = (dist.make_mesh(args.sharded) if on_card
+                    and args.device is None
                     else dist.make_mesh(args.sharded,
                                         devices=[dev] * args.sharded))
         except ValueError as e:
@@ -363,7 +375,9 @@ def main(argv=None) -> int:
              "needs W % 128 == 0 and H % 32 == 0")):
         if name not in modes:
             continue
-        if not ok:
+        if golden:
+            print(f"{name:<28} | not supported (no numpy tier)")
+        elif not ok:
             print(f"{name:<28} | not supported ({why})")
         elif mesh is not None:
             print(f"{name:<28} | no sharded path; skipped")

@@ -26,8 +26,8 @@ class EncoderConfig:
     stereo_layout: enc-quant-stereo records, 'interleaved' (the reference's
         stream, default), 'planar' (views apart) or 'native' (plane rows
         padded to 128-byte multiples).
-    backend: a tier of ``TIERS`` ('cuda', 'torch') or None for the device
-        rule.
+    backend: a tier of ``TIERS`` ('cuda', 'torch', 'numpy') or None for
+        the device rule; 'numpy' runs the golden on the host.
     start_y/end_y: the reference's strip range.
     compat: the strict-IEEE tier, byte-identical to the C++ oracle.
     device: where input that is not a tensor yet goes, as in the api: None

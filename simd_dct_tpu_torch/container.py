@@ -269,23 +269,25 @@ def encode(image, mode: str = "enc-quant32", *, quality: float | None = None,
     return pack(payload, meta)
 
 
-def _payload_records(payload: np.ndarray, packed: bool,
-                     device) -> torch.Tensor:
-    """A frame's payload -> flat records on the target device."""
+def _payload_records(payload: np.ndarray, packed: bool, device,
+                     backend) -> torch.Tensor:
+    """A frame's payload -> flat records on the target device
+    (``default_device``: the host for the numpy tier)."""
+    dev = default_device(device, backend)
     if packed:
-        return entropy.decompress_on(payload, device)
+        return entropy.decompress_on(payload, dev)
     # a copy: on the CPU the tensor would share the caller's blob
-    return torch.as_tensor(payload.copy(), device=default_device(device))
+    return torch.as_tensor(payload.copy(), device=dev)
 
 
 def decode(blob, *, backend: str | None = None, compat: bool = False,
            device=None) -> torch.Tensor:
     """.sdt container -> decoded u8 image on ``device`` (the card unless it
-    names another): the top view; stereo gives the whole dual view, the
-    colour modes (3, H/2, W) RGB planes.  On the card, SDN1 / SDN2 and SDS1
-    payloads expand there."""
+    names another, or the host for the numpy tier): the top view; stereo
+    gives the whole dual view, the colour modes (3, H/2, W) RGB planes.  On
+    the card, SDN1 / SDN2 and SDS1 payloads expand there."""
     payload, m = unpack(blob)
-    rec = _payload_records(payload, m.packed, device)
+    rec = _payload_records(payload, m.packed, device, backend)
     return _decode_records(rec, m, backend, compat, device)
 
 
@@ -450,7 +452,7 @@ def decode_video_frame(blob, index: int, *, backend: str | None = None,
         raise ContainerError(f"frame index {index} out of range "
                              f"[0, {m.n_frames})")
     rec = _payload_records(data[offs[index]:offs[index + 1]], m.packed,
-                           device)
+                           device, backend)
     return _decode_records(rec, m, backend, compat, device)
 
 
@@ -460,7 +462,8 @@ def decode_video(blob, *, backend: str | None = None, compat: bool = False,
     the target device, stacked there, and decoded in one batched call."""
     data, offs, m = _parse_video(blob)
     batch = torch.stack([
-        _payload_records(data[offs[i]:offs[i + 1]], m.packed, device)
+        _payload_records(data[offs[i]:offs[i + 1]], m.packed, device,
+                         backend)
         for i in range(m.n_frames)])
     return _decode_records(batch, m, backend, compat, device)
 

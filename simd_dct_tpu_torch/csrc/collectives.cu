@@ -105,9 +105,21 @@
 // A store into a peer card's memory is a bulk store too: the peer's memory
 // is mapped into this card's address space (peer access), and the TMA
 // takes any global address there.
+//
+// Across processes the same kernel stores into the other processes'
+// outputs through CUDA IPC: sdct_ipc_handle exports the allocation that
+// holds a pointer (its 64-byte handle and the pointer's offset from the
+// allocation's base), sdct_ipc_open maps a peer process's allocation into
+// this one (cudaIpcMemLazyEnablePeerAccess; on the same card or another),
+// and the host puts the mapped base plus the offset into the descriptor.
+// dist/collectives.py orders the ranks on the host: the descriptor holds
+// no barrier slots and no arrival counter, so the kernel never waits for
+// another process.
 
+#include <cuda.h>  // CUdeviceptr; cuMemGetAddressRange comes from cudaGetDriverEntryPoint
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -384,7 +396,8 @@ __device__ void arrive(const GatherParams& p, const RankDesc& r, bool copied) {
   if constexpr (!kBulk) fence_scope<kSys>();
   for (int d = 0; d < r.ndst; ++d)
     if (r.dst_flag[d] != nullptr) add_release<kSys>(r.dst_flag[d]);
-  if (blockIdx.x == 0 && !wait_for<kSys>(r.arr, r.arr_target, p.timeout_ns))
+  // no arrival counter (across processes): the host orders the ranks
+  if (blockIdx.x == 0 && r.arr != nullptr && !wait_for<kSys>(r.arr, r.arr_target, p.timeout_ns))
     report(p.err, kErrArrival);
 }
 
@@ -503,9 +516,60 @@ int launch(int selfring, const long long* desc, int local_ranks, int blocks, lon
                                           (cudaStream_t)stream);
 }
 
+typedef CUresult (*AddressRange)(CUdeviceptr*, size_t*, CUdeviceptr);
+
+// cuMemGetAddressRange through cudaGetDriverEntryPoint (no link to
+// libcuda); null where the CUDA installation has none.
+AddressRange address_range() {
+  static AddressRange fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuMemGetAddressRange", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuMemGetAddressRange", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (AddressRange)p;
+  }
+  return fn;
+}
+
 }  // namespace
 
 extern "C" {
+
+// The IPC handle (CUDA_IPC_HANDLE_SIZE = 64 bytes, into `handle`) of the
+// device allocation that holds `ptr`, and ptr's byte offset from that
+// allocation's base (a handle names a whole allocation; the caching
+// allocator hands out pieces of larger ones).
+int sdct_ipc_handle(const void* ptr, void* handle, long long* offset) {
+  const AddressRange range = address_range();
+  if (!range) return (int)cudaErrorSymbolNotFound;
+  CUdeviceptr base = 0;
+  size_t size = 0;
+  if (range(&base, &size, (CUdeviceptr)ptr) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidDevicePointer;
+  cudaIpcMemHandle_t h;
+  const cudaError_t e = cudaIpcGetMemHandle(&h, (void*)base);
+  if (e != cudaSuccess) return (int)e;
+  memcpy(handle, &h, sizeof h);
+  *offset = (long long)((CUdeviceptr)ptr - base);
+  return 0;
+}
+
+// Map another process's allocation (its handle from sdct_ipc_handle) into
+// this process on the current card; its base into *ptr.  A process cannot
+// open its own handle, nor one allocation twice.
+int sdct_ipc_open(const void* handle, void** ptr) {
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof h);
+  return (int)cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess);
+}
+
+// Unmap a base that sdct_ipc_open returned (no kernel may still use it).
+int sdct_ipc_close(void* ptr) { return (int)cudaIpcCloseMemHandle(ptr); }
 
 // desc: local_ranks descriptors of kDescWords int64 each, as
 // dist/collectives.py packs them.  blocks: CTAs per rank (the same for

@@ -3,13 +3,19 @@
 
     tier "cuda"  -- the hand-written kernels (kernels/cuda_dct.py)
     tier "torch" -- the plain PyTorch version (kernels/torch_path.py)
+    tier "numpy" -- the scalar NumPy golden (core/golden.py), on the host
 
 Device rule: a CUDA tensor goes to the ``cuda`` tier and a CPU tensor to
 the ``torch`` tier.  Data that is not a tensor yet is placed on the card
 unless the caller names another device (``default_device``); with no card
-that raises, it never falls back to the host.  ``set_max_backend("torch")`` caps a CUDA tensor to the
-plain version on the card (the counterpart of ``--max-simd``).  Unlike the
-JAX package's probe, which degrades quietly when its trial compile fails,
+that raises, it never falls back to the host.  ``set_max_backend("torch")``
+caps a CUDA tensor to the plain version on the card (the counterpart of
+``--max-simd``).  ``numpy``, asked for by ``backend="numpy"`` or by the
+cap ``set_max_backend("numpy")`` (``--max-simd none``), is the golden: a
+host tier, so data that is not a tensor yet goes to the CPU for it
+(``default_device``), and a CUDA tensor under it raises ``NotSupportedError`` (move it
+with ``.cpu()``), as a CPU tensor under ``cuda`` does.  Unlike the JAX
+package's probe, which degrades quietly when its trial compile fails,
 ``probe()`` on a machine with a GPU builds the library, launches the trial
 kernel, and raises if either step fails.
 """
@@ -21,7 +27,7 @@ import functools
 
 import torch
 
-TIERS = ("cuda", "torch")
+TIERS = ("cuda", "torch", "numpy")
 
 _max_backend: str = "cuda"
 
@@ -66,13 +72,14 @@ def probe() -> DeviceInfo:
 
 
 def available_tiers() -> tuple[str, ...]:
-    """Tiers usable on this machine, strongest first."""
-    return TIERS if probe().supports_cuda else ("torch",)
+    """Tiers usable on this machine, strongest first: ``numpy`` always."""
+    return TIERS if probe().supports_cuda else ("torch", "numpy")
 
 
 def set_max_backend(tier: str, *, strict: bool = False) -> None:
-    """Cap dispatch at a tier (the counterpart of ``--max-simd``).  With
-    ``strict=True`` the tier must be available on this machine."""
+    """Cap dispatch at a tier (the counterpart of ``--max-simd``);
+    ``numpy`` forces the golden.  With ``strict=True`` the tier must be
+    available on this machine."""
     global _max_backend
     if tier not in TIERS:
         raise ValueError(f"unknown backend tier {tier!r}; expected one of {TIERS}")
@@ -88,10 +95,21 @@ def get_max_backend() -> str:
     return _max_backend
 
 
-def default_device(device=None) -> torch.device:
-    """Where data that is not a tensor yet goes: ``device``, or the card
-    when it is None.  A CUDA device on a machine without one raises
-    ``NotSupportedError``, which names ``device="cpu"``."""
+def is_numpy_tier(requested: str | None = None) -> bool:
+    """Whether a call with this ``backend=`` runs the golden: asked for,
+    or no request under the cap ``numpy``."""
+    return requested == "numpy" or (requested is None
+                                    and _max_backend == "numpy")
+
+
+def default_device(device=None, backend: str | None = None) -> torch.device:
+    """Where data that is not a tensor yet goes: ``device``; when it is
+    None, the host for a call with this ``backend=`` that runs the numpy
+    tier (the golden is a host tier), else the card.  A CUDA device on a
+    machine without one raises ``NotSupportedError``, which names
+    ``device="cpu"``."""
+    if device is None and is_numpy_tier(backend):
+        return torch.device("cpu")
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         from ..api import NotSupportedError
@@ -106,13 +124,19 @@ def select_backend(requested: str | None = None, *,
                    device: torch.device | str | None = None) -> str:
     """The tier for a call on data that lies on ``device``: an explicit
     request, else the device rule under the global cap.  ``cuda`` for data
-    that is not on a CUDA device raises ``NotSupportedError``: the data is
-    never moved quietly."""
+    that is not on a CUDA device, and ``numpy`` for data that is not on the
+    host, raise ``NotSupportedError``: the data is never moved quietly."""
     from ..api import NotSupportedError
     if requested is not None and requested not in TIERS:
         raise ValueError(f"unknown backend {requested!r}; expected one of {TIERS}")
     dev = torch.device(device) if device is not None else None
     on_cuda = dev is not None and dev.type == "cuda"
+    if is_numpy_tier(requested):
+        if dev is not None and dev.type != "cpu":
+            raise NotSupportedError(
+                f"backend 'numpy' is the host golden; the data lies on {dev} "
+                "(move it with .cpu() first)")
+        return "numpy"
     if requested == "cuda":
         if dev is not None and not on_cuda:
             raise NotSupportedError(

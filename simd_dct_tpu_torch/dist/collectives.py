@@ -46,13 +46,59 @@ streams hold the card: that becomes ``SimdDctError``.
 ``remote_dma_selfring_smoke`` is the one-card preflight of the kernel's
 machinery (``selfring_kernel``, the same device code on a ring of one whose
 peer is the card itself).
+
+Across processes (a mesh whose positions are the ranks of a process
+group, ``mesh.py``), each rank holds one segment.  On a mesh of CPUs the
+plain version is a ``torch.distributed.all_gather`` over the group (gloo)
+of the local segments, joined in ring order.  On a mesh of cards each
+rank launches ``ring_gather_kernel`` once, for its own segment, storing it
+into slot ``me`` of its own output and, through CUDA IPC, of every peer's
+output (``sdct_ipc_handle`` / ``sdct_ipc_open``; a peer's mapped
+allocation is cached per card by its handle, since one process may not
+open an allocation twice, and a rank's own slot takes its own pointer).
+Events cannot cross processes, so the host orders the ranks, through
+rendezvous in the group's key-value store (``_meet``), in this order:
+
+1. the rank synchronises its stream, so nothing queued earlier on it
+   still uses the memory of the new output that peers will store into;
+2. rendezvous 1: each rank posts its output's handle and offset and
+   reads every peer's; every rank launches only once every rank has come;
+3. the launch, with no barrier slots and no arrival counter in the
+   descriptor: the kernel never waits for another process, so two
+   processes that time-slice one card cannot stall it (a kernel that
+   waited for its peers' flags across processes took milliseconds on one
+   card, PERF.md);
+4. the rank synchronises its stream (its stores into every output have
+   landed) and meets the others again (rendezvous 2: one counter a ring,
+   each rank adding its arrival and whether its part failed): no output
+   is returned, and no peer's memory freed, before every kernel that
+   stores into it has ended.  Every rank told to go comes to rendezvous
+   2, also when its mapping or launch failed, so the ring's counter stays
+   in step and the peers learn that a segment is missing.
+
+A rendezvous's keys are deleted once every rank is past it, by a thread
+with a client of its own (``_Deleter``), off the gather's path.
+
+A rendezvous that is not complete within ``timeout_s`` (the spin bound)
+is aborted for the whole ring: every rank that had come raises
+``SimdDctError``; a rank that comes later finds the abort and joins the
+ring's next gather instead, so the ranks stay in step and no rank hangs.
+A store that fails (its host, rank 0, died, or the connection to it
+broke) raises ``SimdDctError`` at once.  An output whose second
+rendezvous failed, or whose first failed by the store, is kept, never
+freed, since a peer's kernel may still store into it.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
+import datetime
 import math
+import struct
 import threading
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -62,7 +108,7 @@ from ..api import InvalidParameterError, NotSupportedError, SimdDctError
 from ..dispatch.capability import default_device
 from ..kernels import _build
 from ..kernels import cuda_dct as _cuda
-from .mesh import DATA_AXIS, Mesh, Sharded, shard
+from .mesh import DATA_AXIS, Mesh, Sharded, shard, store
 
 # How long a CTA spins on a flag before it gives up and reports.
 SPIN_TIMEOUT_S = 1.0
@@ -86,6 +132,11 @@ _U32 = 0xFFFFFFFF
 _ERRORS = {1: "a peer never entered the kernel (barrier)",
            2: "a peer's stores never arrived",
            3: "a bulk load into shared memory never completed"}
+# peer allocations kept mapped, per card, before the least recently used
+# is unmapped
+_OPEN_CACHE = 64
+# CUDA_IPC_HANDLE_SIZE
+_IPC_HANDLE = 64
 
 
 def _segments(segments, mesh: Mesh, axis_name: str) -> Sharded:
@@ -141,6 +192,8 @@ def gather_planes_ring(segments, mesh: Mesh, *,
     segment in slot k (``simd_dct_tpu/dist/collectives.py:125-153``)."""
     seg = _segments(segments, mesh, axis_name)
     a = mesh.axis(axis_name)
+    if mesh.process_count > 1:
+        return _replicated_along(seg, a, [_allgather_procs(seg, a)])
     d = seg.dims[a]
     out = [None] * mesh.size
     for ring in _rings(mesh, a):
@@ -161,9 +214,14 @@ def gather_planes_ring(segments, mesh: Mesh, *,
 
 def gather_planes_allgather(segments, mesh: Mesh, *,
                             axis_name: str = DATA_AXIS) -> Sharded:
-    """Every rank joins the ring's segments in order: one ``torch.cat``."""
+    """Every rank joins the ring's segments in order: one ``torch.cat``.
+    Across processes: a ``torch.distributed.all_gather`` of the local
+    segments over the ring's process group (gloo), joined in ring order
+    (a CUDA segment goes through the host)."""
     seg = _segments(segments, mesh, axis_name)
     a = mesh.axis(axis_name)
+    if mesh.process_count > 1:
+        return _replicated_along(seg, a, [_allgather_procs(seg, a)])
     d = seg.dims[a]
     out = [None] * mesh.size
     for ring in _rings(mesh, a):
@@ -180,11 +238,19 @@ def gather_planes_remote(segments, mesh: Mesh, *, axis_name: str = DATA_AXIS,
     mesh the plain version (``gather_planes_ring``).  It does not wait for
     the cards: a spin that ran out (after ``timeout_s``) raises
     ``SimdDctError`` from the next gather on the mesh or from
-    ``check_workspace``."""
+    ``check_workspace``.  Across processes: one launch in each process
+    (``_gather_procs``), or on a mesh of CPUs the all-gather over the
+    process group; a rendezvous incomplete after ``timeout_s`` raises
+    ``SimdDctError`` in the call."""
     seg = _segments(segments, mesh, axis_name)
     a = mesh.axis(axis_name)
     if mesh.devices.shape[a] == 1:
         return _replicated_along(seg, a, seg.shards)
+    if mesh.process_count > 1:
+        if mesh.device_type == "cpu":
+            return gather_planes_allgather(seg, mesh, axis_name=axis_name)
+        return _replicated_along(seg, a, [_gather_procs(seg, a,
+                                                        timeout_s=timeout_s)])
     if mesh.device_type == "cpu":
         return gather_planes_ring(seg, mesh, axis_name=axis_name)
     return _replicated_along(seg, a,
@@ -193,7 +259,9 @@ def gather_planes_remote(segments, mesh: Mesh, *, axis_name: str = DATA_AXIS,
 
 def gather_planes_auto(segments, mesh: Mesh, *,
                        axis_name: str = DATA_AXIS) -> Sharded:
-    """What ``gather=True`` uses: ``gather_planes_remote``."""
+    """What ``gather=True`` uses: ``gather_planes_remote`` (the kernel on a
+    mesh of cards, within a process or across processes; the plain
+    version on a mesh of CPUs)."""
     return gather_planes_remote(segments, mesh, axis_name=axis_name)
 
 
@@ -327,9 +395,11 @@ def _raise_reported(mesh: Mesh, ws: _Workspace, *, wait: bool) -> None:
 def check_workspace(mesh: Mesh) -> None:
     """Wait for the mesh's cards and raise ``SimdDctError`` if a spin of
     one of its gathers timed out.  The counters are then out of step, so
-    the workspace is dropped and the next gather allocates a new one."""
+    the workspace is dropped and the next gather allocates a new one.
+    Across processes a gather raises in the call, so there is nothing
+    left to report here."""
     ws = mesh._collective_workspace
-    if ws is not None:
+    if ws is not None and not isinstance(ws, _ProcWorkspace):
         _raise_reported(mesh, ws, wait=True)
 
 
@@ -540,6 +610,424 @@ def _gather_on_cards(seg: Sharded, a: int, *,
         _drop(mesh, ws)     # kernels already launched run out first
         raise
     return outs
+
+
+# -- across processes ---------------------------------------------------------
+
+def _my_ring(mesh: Mesh, a: int) -> tuple[list[int], int]:
+    """The ring along axis ``a`` that holds this process's position, and
+    that position's index in it."""
+    p = mesh.local_positions[0]
+    for ring in _rings(mesh, a):
+        if p in ring:
+            return ring, ring.index(p)
+    raise AssertionError("a position lies on no ring")
+
+
+def _ring_group(mesh: Mesh, a: int, ring: list[int]):
+    """The process group of this process's ring along axis ``a``: the
+    default group when the ring is the whole world, else one made for each
+    ring of the axis (collective the first time, in the same order on
+    every rank) and kept on the mesh."""
+    import torch.distributed as tdist
+    ranks = [int(mesh.ranks.flat[q]) for q in ring]
+    if len(ranks) == tdist.get_world_size():
+        return None
+    groups = mesh.__dict__.setdefault("_ring_groups", {})
+    if a not in groups:
+        groups[a] = {}
+        for r in _rings(mesh, a):
+            rr = tuple(int(mesh.ranks.flat[q]) for q in r)
+            groups[a][rr] = tdist.new_group(list(rr))
+    return groups[a][tuple(ranks)]
+
+
+def _allgather_procs(seg: Sharded, a: int) -> torch.Tensor:
+    """The plain version across processes: the ring's segments gathered
+    over its process group and joined in ring order, on the segment's
+    device (through the host)."""
+    import torch.distributed as tdist
+    mesh = seg.mesh
+    ring, _ = _my_ring(mesh, a)
+    d = seg.dims[a]
+    local = seg.shards[0]
+    host = local.cpu().contiguous()
+    pieces = [torch.empty_like(host) for _ in ring]
+    tdist.all_gather(pieces, host, group=_ring_group(mesh, a, ring))
+    return torch.cat(pieces, dim=d).to(local.device)
+
+
+class _StoreLost(SimdDctError):
+    """The process group's key-value store failed, not by a timeout: its
+    host, rank 0, died or the connection to it broke."""
+
+
+@contextlib.contextmanager
+def _store_lost(key: str):
+    """Store errors within the block as ``_StoreLost``."""
+    try:
+        yield
+    except RuntimeError as e:    # torch's DistNetworkError and the like
+        why = str(e).strip().splitlines()[0] if str(e).strip() else ""
+        raise _StoreLost(
+            f"plane gather across processes: the process group's store "
+            f"failed at {key} ({type(e).__name__}: {why}); rank 0, which "
+            "hosts it, may have died") from None
+
+
+def _meet(kv, key: str, me: int, n: int, payload: bytes,
+          timeout_s: float) -> list[bytes] | None:
+    """One rendezvous of a ring's ``n`` ranks under ``key``: post
+    ``payload`` and agree.  Exactly one decision is taken, by the store's
+    compare-and-set: "go" by the last rank to come, or "abort" by a rank
+    that waited ``timeout_s`` in vain.  Returns every rank's payload in
+    ring order on "go"; None where this rank was there when the ring
+    aborted; ``[]`` where it came after the abort (it joins the next
+    gather).  A failing store raises ``_StoreLost``."""
+    import torch.distributed as tdist
+    with _store_lost(key):
+        kv.set(f"{key}/p{me}", payload)
+        came = kv.add(f"{key}/n", 1)
+        dec = f"{key}/dec"
+        if came == n:
+            decision = kv.compare_set(dec, "", "go")
+        else:
+            try:
+                kv.wait([dec], datetime.timedelta(seconds=timeout_s))
+                decision = kv.get(dec)
+            except tdist.DistStoreError:     # the wait timed out
+                decision = kv.compare_set(dec, "",
+                                          f"abort {kv.add(f'{key}/n', 0)}")
+        if decision == b"go":
+            # every payload is posted: the last rank decides after posting
+            # its own, the others posted before they counted themselves
+            # (after an abort a payload may never come, so it is read only
+            # on "go")
+            return kv.multi_get([f"{key}/p{k}" for k in range(n)])
+    there = int(decision.split()[1])
+    return None if came <= there else []
+
+
+def _forget(kv, key: str, me: int) -> None:
+    """Delete a finished rendezvous's keys: each rank its own payload, the
+    ring's first rank the count and the decision (on the deleting thread
+    where the store has one)."""
+    drop = _deleter(kv)
+    drop(f"{key}/p{me}")
+    if me == 0:
+        drop(f"{key}/n")
+        drop(f"{key}/dec")
+
+
+# a rank's arrival at the second rendezvous adds 1 to its ring's counter,
+# and this much more if its part of the gather failed
+_ERR_UNIT = 1 << 40
+
+
+def _done(kv, key: str, k: int, n: int, failed: bool,
+          timeout_s: float) -> int | None:
+    """The second rendezvous of the ring's k-th gather (every rank told to
+    go comes here unless it died): each rank adds its arrival, and
+    ``_ERR_UNIT`` if its part failed, to the ring's one counter; the rank
+    that brings the arrivals to n*k posts the counter under
+    ``{key}/done{k}``, which the others wait for.  Returns the error units
+    the ring has counted so far, or None after ``timeout_s``.  A failing
+    store raises ``_StoreLost``."""
+    import torch.distributed as tdist
+    mark = f"{key}/done{k}"
+    with _store_lost(mark):
+        v = kv.add(f"{key}/done", 1 + (_ERR_UNIT if failed else 0))
+        if v % _ERR_UNIT == n * k:
+            kv.set(mark, str(v))
+        else:
+            try:
+                kv.wait([mark], datetime.timedelta(seconds=timeout_s))
+            except tdist.DistStoreError:     # the wait timed out
+                return None
+            v = int(kv.get(mark))
+    return v // _ERR_UNIT
+
+
+class _Deleter:
+    """Deletes finished rendezvous keys on a thread of its own, through a
+    client of its own to the same store (connected on that thread), so
+    that no gather waits for the round trips."""
+
+    def __init__(self, kv):
+        import queue
+        self.host, self.port = kv.host, kv.port
+        self.keys: queue.Queue = queue.Queue()
+        self.thread = threading.Thread(target=self._run, daemon=True,
+                                       name="sdct-store-deleter")
+        self.thread.start()
+
+    def __call__(self, key: str) -> None:
+        self.keys.put(key)
+
+    def _run(self) -> None:
+        import torch.distributed as tdist
+        try:
+            client = tdist.TCPStore(self.host, self.port, is_master=False,
+                                    timeout=datetime.timedelta(seconds=30))
+        except RuntimeError:     # the store is gone: nothing to delete
+            client = None
+        while True:
+            key = self.keys.get()
+            try:
+                if key is None:
+                    return
+                if client is not None:
+                    client.delete_key(key)
+            except RuntimeError:     # the store is gone: nothing to keep
+                pass
+            finally:
+                self.keys.task_done()
+
+    def flush(self) -> None:
+        """Wait until every key handed over so far is deleted."""
+        self.keys.join()
+
+    def stop(self) -> None:
+        self.keys.put(None)
+        self.thread.join(timeout=5.0)
+
+
+_deleters: dict[int, _Deleter] = {}
+_deleters_lock = threading.Lock()
+
+
+def _deleter(kv):
+    """The deleting thread of the store ``initialize_distributed`` made (a
+    ``TCPStore``), else the store's own ``delete_key``."""
+    import torch.distributed as tdist
+    if not isinstance(kv, tdist.TCPStore):
+        return kv.delete_key
+    with _deleters_lock:
+        if id(kv) not in _deleters:
+            _deleters[id(kv)] = _Deleter(kv)
+            import atexit
+            atexit.register(_deleters[id(kv)].stop)
+        return _deleters[id(kv)]
+
+
+_opened_lock = threading.Lock()
+# (card index, handle bytes) -> mapped base, least recently used first
+_opened: collections.OrderedDict = collections.OrderedDict()
+
+
+def _export(lib, t: torch.Tensor) -> tuple[bytes, int]:
+    """The IPC handle of the allocation holding ``t`` and t's offset in it."""
+    handle = ctypes.create_string_buffer(_IPC_HANDLE)
+    off = ctypes.c_longlong()
+    _build.check(lib, lib.sdct_ipc_handle(t.data_ptr(), handle,
+                                          ctypes.byref(off)),
+                 "exporting a CUDA IPC handle")
+    return handle.raw, off.value
+
+
+def _open_peer(lib, dev: torch.device, handle: bytes, stats: dict) -> int:
+    """A peer process's allocation mapped into this one on ``dev`` (cached
+    by its handle; the least recently used mapping beyond ``_OPEN_CACHE``
+    a card is unmapped once the card has finished its work)."""
+    key = (dev.index, handle)
+    with _opened_lock:
+        if key in _opened:
+            _opened.move_to_end(key)
+            stats["hits"] += 1
+            return _opened[key]
+        t0 = time.perf_counter()
+        ptr = ctypes.c_void_p()
+        with torch.cuda.device(dev):
+            rc = lib.sdct_ipc_open(handle, ctypes.byref(ptr))
+        if rc:
+            raise SimdDctError(
+                f"cannot map a peer process's memory on {dev} (CUDA IPC: "
+                f"{lib.sdct_error_string(rc).decode(errors='replace')})")
+        stats["opens"] += 1
+        stats["open_s"] += time.perf_counter() - t0
+        _opened[key] = ptr.value
+        mine = [k for k in _opened if k[0] == dev.index]
+        if len(mine) > _OPEN_CACHE:
+            torch.cuda.synchronize(dev)     # no kernel still stores there
+            old = mine[0]
+            _build.check(lib, lib.sdct_ipc_close(_opened.pop(old)),
+                         "unmapping a peer's memory")
+        return ptr.value
+
+
+def _procs_desc(src: int, me: int, outs, row: int, gen: int) -> list[int]:
+    """This rank's descriptor for the gather across processes: no arrival
+    counter, no barrier slots.  ``outs[k]``: ring position k's output as
+    this process addresses it (its own pointer at ``me``, a peer's mapped
+    base plus its offset elsewhere); the segment goes to slot ``me`` of
+    each, ``me * row`` bytes into a row."""
+    n = len(outs)
+    return _desc(src, 0, gen, 0, [o + me * row for o in outs], [0] * n,
+                 [], [])
+
+
+# a rank's payload at the first rendezvous: its output's IPC handle and
+# offset, and whether its segment and output take the 16-byte variant
+_PAYLOAD = struct.Struct(f"<{_IPC_HANDLE}sqi")
+
+
+class _ProcWorkspace:
+    """A mesh's state for the gather across processes, in one process: its
+    card's error word, the last generation and the gathers ended of each
+    ring, the error units seen, and the host's phases of the last
+    gather."""
+
+    def __init__(self, lib, dev: torch.device):
+        self.lock = threading.Lock()
+        self.dev = dev
+        self.err = _ERROR_WORDS.take(lib)
+        self.gen: dict[str, int] = {}
+        self.done: dict[str, int] = {}
+        self.errors_seen: dict[str, int] = {}
+        self.capacity: dict[bool, tuple[int, int]] = {}
+        self.last_plan: _Plan | None = None
+        self.last_host: dict[str, float] = {}
+        self.stats = {"opens": 0, "hits": 0, "open_s": 0.0, "skipped": 0}
+
+    def error(self) -> int:
+        words, i = self.err
+        return int(words[i])
+
+    def err_ptr(self) -> int:
+        words, i = self.err
+        return words.ctypes.data + 4 * i
+
+    def capacity_of(self, lib, vec: bool) -> tuple[int, int]:
+        if vec not in self.capacity:
+            out = np.zeros(2, np.int32)
+            with torch.cuda.device(self.dev):
+                _build.check(lib, lib.sdct_gather_capacity(
+                    int(vec), out.ctypes.data, out.ctypes.data + 4),
+                    "gather capacity")
+            self.capacity[vec] = (int(out[0]), int(out[1]))
+        return self.capacity[vec]
+
+
+# outputs into which a peer's kernel may still store: their memory is never
+# given back
+_held: list[torch.Tensor] = []
+
+
+def _gather_procs(seg: Sharded, a: int, *, timeout_s: float) -> torch.Tensor:
+    """This process's rank of the gather across processes (module
+    docstring): one launch of ``ring_gather_kernel``."""
+    mesh = seg.mesh
+    ring, me = _my_ring(mesh, a)
+    n = len(ring)
+    if n > MAX_RING:
+        raise NotSupportedError(
+            f"the gather kernel takes rings of at most {MAX_RING} ranks, "
+            f"got {n}")
+    d = seg.dims[a]
+    dev = seg.shards[0].device
+    lib = _build.load()
+    with _workspace_lock:
+        if mesh._collective_workspace is None:
+            mesh._collective_workspace = _ProcWorkspace(lib, dev)
+        ws = mesh._collective_workspace
+    view = _gather_view(seg.shards[0], d)
+    outer, chunk, inner = view.shape
+    row = chunk * inner
+    shape = list(seg.shards[0].shape)
+    shape[d] *= n
+    out = torch.empty(shape, dtype=torch.uint8, device=dev)
+    vec = row % 16 == 0 and view.data_ptr() % 16 == 0 \
+        and out.data_ptr() % 16 == 0
+    kv = store()
+    ring_key = f"{mesh.key}/a{a}/r{ring[0]}"
+    stream = _stream(dev)
+    t0 = time.perf_counter()
+    with ws.lock:
+        # step 1: nothing queued earlier still uses out's memory
+        stream.synchronize()
+        t1 = time.perf_counter()
+        handle, off = _export(lib, out)
+        payload = _PAYLOAD.pack(handle, off, int(vec))
+        try:
+            while True:
+                gen = ws.gen[ring_key] = ws.gen.get(ring_key, 0) + 1
+                got = _meet(kv, f"{ring_key}/g{gen}", me, n, payload,
+                            timeout_s)
+                if got != []:
+                    break
+                ws.stats["skipped"] += 1    # came after an abort: next one
+        except _StoreLost:
+            _held.append(out)     # a peer may have been told to go
+            raise
+        t2 = time.perf_counter()
+        if got is None:
+            raise SimdDctError(
+                f"plane gather across processes: not every rank of the ring "
+                f"came within {timeout_s} s (rank "
+                f"{int(mesh.ranks.flat[ring[me]])}, generation {gen})")
+        k = ws.done[ring_key] = ws.done.get(ring_key, 0) + 1
+        fault = None
+        t3 = t2
+        try:
+            peers = [_PAYLOAD.unpack(b) for b in got]
+            vec = all(p[2] for p in peers)
+            plan = ws.last_plan = _plan(
+                outer, row, _ctas_fit(*ws.capacity_of(lib, vec), 1), 0)
+            outs = [out.data_ptr() if j == me else
+                    _open_peer(lib, dev, h, ws.stats) + o
+                    for j, (h, o, _) in enumerate(peers)]
+            words = np.asarray(_procs_desc(view.data_ptr(), me, outs, row,
+                                           gen), np.int64)
+            t3 = time.perf_counter()
+            # no flags, so card scope (the stores are ordered by the
+            # kernel's end and step 4)
+            with torch.cuda.device(dev):
+                rc = lib.sdct_ring_gather(
+                    words.ctypes.data, 1, plan.blocks, outer, row, n * row,
+                    int(vec), 0, plan.tile, plan.stages, ws.err_ptr(),
+                    int(timeout_s * 1e9), stream.cuda_stream)
+                _cuda.LAUNCHES["ring_gather"] += 1
+            _build.check(lib, rc, "ring_gather")
+        except Exception as e:     # still meet: the ring stays in step
+            fault = e
+        # every rank is past the ring's gather before this one: its keys go
+        _forget(kv, f"{ring_key}/g{gen - 1}", me)
+        if me == 0 and k > 1:
+            _deleter(kv)(f"{ring_key}/done{k - 1}")
+        # step 4: this rank's stores have landed; then every rank's
+        stream.synchronize()
+        t4 = time.perf_counter()
+        code = ws.error()
+        try:
+            errors = _done(kv, ring_key, k, n, fault is not None or bool(code),
+                           timeout_s)
+        except _StoreLost:
+            _held.append(out)
+            raise
+        if errors is None:
+            _held.append(out)
+            raise SimdDctError(
+                f"plane gather across processes: not every rank ended its "
+                f"part within {timeout_s} s (generation {gen}); the output "
+                "is kept, never freed")
+        peer_failed = errors - ws.errors_seen.get(ring_key, 0) \
+            > (fault is not None or bool(code))
+        ws.errors_seen[ring_key] = errors
+        ws.last_host = dict(sync=t1 - t0, meet=t2 - t1, open=t3 - t2,
+                            launch_sync=t4 - t3,
+                            meet_done=time.perf_counter() - t4)
+        if fault is not None:
+            raise fault
+        if code:
+            ws.err = _ERROR_WORDS.take(lib)     # a word is never reused
+            raise SimdDctError(
+                f"plane gather across processes: "
+                f"{_ERRORS.get(code, code)}, within the spin bound")
+        if peer_failed:
+            raise SimdDctError(
+                "plane gather across processes: a peer's part failed, so "
+                "its segment is missing from the output")
+    return out
 
 
 # -- the one-card preflight ---------------------------------------------------

@@ -12,7 +12,8 @@ split over one axis and strips over the other.
 Each function takes a whole tensor (or anything ``numpy.asarray`` takes),
 which it splits over the mesh's devices, or, for the decoders, the
 encoders' ``Sharded`` output as it comes; it returns a ``Sharded`` value
-(``.full()`` joins it).  Each shard calls the kernel wrappers of
+(``.full()`` joins it).  On a mesh across processes each process passes
+the same whole value and computes its own positions only.  Each shard calls the kernel wrappers of
 ``kernels/cuda_dct.py`` on its own device's slice: the kernel on a card,
 the plain version on the CPU.  Shards on one card run one after another
 on its current stream, a launch each.
@@ -66,10 +67,11 @@ def _strips(x, mesh: Mesh, axis_name: str, dim: int) -> int:
 
 def _map(fn, *parts: Sharded, dims: tuple | None = None,
          shape: tuple | None = None) -> Sharded:
-    """``fn`` on each position's shards; the result split as ``dims``
-    (default: as the first input)."""
+    """``fn`` on the shards of each of this process's positions (every
+    position within one process); the result split as ``dims`` (default:
+    as the first input)."""
     mesh = parts[0].mesh
-    out = tuple(fn(*(p.shards[k] for p in parts)) for k in range(mesh.size))
+    out = tuple(fn(*local) for local in zip(*(p.shards for p in parts)))
     return Sharded(out, mesh, parts[0].dims if dims is None else dims, shape)
 
 

@@ -196,6 +196,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sdct_selfring.restype = i
     lib.sdct_gather_capacity.argtypes = [i, p, p]
     lib.sdct_gather_capacity.restype = i
+    lib.sdct_ipc_handle.argtypes = [p, p, ctypes.POINTER(ll)]
+    lib.sdct_ipc_handle.restype = i
+    lib.sdct_ipc_open.argtypes = [p, ctypes.POINTER(ctypes.c_void_p)]
+    lib.sdct_ipc_open.restype = i
+    lib.sdct_ipc_close.argtypes = [p]
+    lib.sdct_ipc_close.restype = i
     lib.sdct_enable_peer.argtypes = [i, i]
     lib.sdct_enable_peer.restype = i
     lib.sdct_host_words.argtypes = [i, ctypes.POINTER(ctypes.c_void_p)]

@@ -202,22 +202,25 @@ def test_sdt_decodes_in_both_packages(files, jax_runs, case):
 
 
 def test_max_simd_tier_map_follows_the_jax_map():
-    jax_to_port = {"pallas": "cuda", "xla": "torch", "numpy": "torch"}
+    jax_to_port = {"pallas": "cuda", "xla": "torch", "numpy": "numpy"}
     want = {k: jax_to_port[v] for k, v in JCLI.MAX_SIMD_TO_TIER.items()
             if k not in jax_to_port}
     got = {k: v for k, v in cli.MAX_SIMD_TO_TIER.items()
-           if k not in ("cuda", "torch")}
+           if k not in ("cuda", "torch", "numpy")}
     assert got == want
+    assert cli.MAX_SIMD_TO_TIER["numpy"] == "numpy"
     assert cli.MODES == JCLI.MODES
 
 
 def test_max_simd_none_caps_to_the_plain_version(files, capsys):
+    """--max-simd none caps to the NumPy golden tier (the JAX map's "numpy";
+    the port's plain version took its place before that tier was ported)."""
     _, paths, _ = files
     try:
         assert cli.main([str(paths["gray"]), "128", "64", "--runs", "1",
                          "--mode", "enc-quant", "--max-simd", "none",
                          *CPU]) == 0
-        assert get_max_backend() == "torch"
+        assert get_max_backend() == "numpy"
     finally:
         set_max_backend("cuda")
 

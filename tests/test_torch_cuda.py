@@ -7,8 +7,12 @@ machine with the card does not have, so run these there with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-This file imports no jax.
+This file imports no jax.  Run as a script it is one rank of the gather
+across processes (``_procs_worker``).
 """
+
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -1054,3 +1058,109 @@ def test_histogram_tensor_queues_without_a_synchronisation(gen):
         torch.cuda.set_sync_debug_mode("default")
     assert np.array_equal(hist.cpu().numpy(),
                           np.bincount(rec.cpu().numpy(), minlength=256))
+
+
+# -- the gather across processes, two ranks on card 0 ------------------------
+
+def _procs_worker(port: str, rank: str, ending: str) -> int:
+    """One rank: a strip-sharded stereo encode with gather=True over a mesh
+    of the two processes on cuda:0, against the same gather by one process
+    over two shards of cuda:0; prints the gathered bytes' checksum.  With
+    ``ending == "store host dies"`` rank 0 (the store's host) then exits
+    at once, and rank 1's next gather must raise ``SimdDctError`` within
+    the spin bound plus 1 s."""
+    import time
+    import torch.distributed as tdist
+    from simd_dct_tpu_torch import dist
+    from simd_dct_tpu_torch.dist import collectives as C
+    r = int(rank)
+    assert dist.initialize_distributed(
+        coordinator_address=f"127.0.0.1:{port}", num_processes=2,
+        process_id=r)
+    mesh = dist.make_mesh(2, devices=["cuda:0"] * 2)
+    one = dist.Mesh(["cuda:0"] * 2, ("data",))
+    g = torch.Generator(device="cuda").manual_seed(18)
+    img = torch.randint(0, 256, (512, 384), generator=g, dtype=torch.uint8,
+                        device="cuda")
+    for view_layout in ("interleaved", "native"):
+        K.reset_launch_counts()
+        got = dist.encode_quantize_stereo_sharded(
+            img, LUT_Q, mesh, gather=True, view_layout=view_layout).full()
+        assert K.LAUNCHES["ring_gather"] == 1, K.LAUNCHES
+        want = dist.encode_quantize_stereo_sharded(
+            img, LUT_Q, one, gather=True, view_layout=view_layout)
+        assert all(torch.equal(got, w) for w in want.shards)
+    print(f"PROCS_OK rank={r} sum={int(got.sum())}", flush=True)
+    tdist.barrier()
+    if ending == "clean":
+        tdist.destroy_process_group()
+        return 0
+    if r == 0:
+        os._exit(0)
+    seg = dist.encode_quantize_stereo_sharded(img, LUT_Q, mesh)
+    torch.cuda.synchronize()
+    time.sleep(0.5)         # the store's host is gone
+    t0 = time.perf_counter()
+    try:
+        C.gather_planes_remote(seg, mesh)
+    except sd.SimdDctError as e:
+        after = time.perf_counter() - t0
+        assert after < C.SPIN_TIMEOUT_S + 1.0, after
+        assert "store" in str(e), e
+        print(f"DIED_OK after={after:.3f}", flush=True)
+        os._exit(0)
+    raise AssertionError("a gather without the store's host must raise")
+
+
+@pytest.mark.parametrize("ending", ["clean", "store host dies"])
+def test_two_processes_on_one_card_gather_as_one_process(gen, ending):
+    import socket
+    import subprocess
+    if torch.cuda.device_count() < 1:
+        pytest.skip("needs a CUDA card")
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [repo, os.environ.get("PYTHONPATH")])))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), str(port), str(r),
+         ending], cwd=repo, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in (0, 1)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=240)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, text in zip(procs, outs):
+        assert p.returncode == 0, text[-3000:]
+    sums = [line.split("sum=")[1] for text in outs
+            for line in text.splitlines() if "PROCS_OK" in line]
+    assert len(sums) == 2 and sums[0] == sums[1]
+    if ending != "clean":
+        assert "DIED_OK" in outs[1], outs[1][-3000:]
+
+
+def test_numpy_tier_refuses_a_cuda_tensor_and_agrees_with_the_card(gen):
+    img = _img(gen, 64, 128)
+    with pytest.raises(sd.NotSupportedError, match=r"\.cpu\(\)"):
+        sd.encode_quantize32(img, LUT, backend="numpy")
+    from simd_dct_tpu_torch.dispatch import set_max_backend
+    set_max_backend("numpy")
+    try:
+        with pytest.raises(sd.NotSupportedError, match=r"\.cpu\(\)"):
+            sd.encode_quantize_stereo(img, LUT_Q)
+    finally:
+        set_max_backend("cuda")
+    golden = sd.encode_quantize32(img.cpu().numpy(), LUT, backend="numpy")
+    assert golden.device.type == "cpu"
+    _ok(sd.encode_quantize32(img, LUT).cpu(), golden)
+
+
+if __name__ == "__main__":
+    sys.exit(_procs_worker(*sys.argv[1:]))
