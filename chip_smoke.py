@@ -237,6 +237,30 @@ result line):
       a CUDA tensor under ``numpy`` raises naming ``.cpu()``; ``cli.main``
       with ``--max-simd none`` launches no kernel and dumps the golden's
       bytes; the golden's seconds a call.
+  25. the BASELINE ladder and the usage examples on the card: ``python -m
+      simd_dct_tpu_torch.bench.harness`` in a process of its own (exit 0,
+      five lines with no error, config 1 bit-exact, config 3's gate passed
+      at 0.1 dB on ``cuda_fused_color``), then each config in this
+      process with the counters set to 0 just before (configs 2 and 4
+      launch roundtrip32, config 3 roundtrip32_rgb, config 1 no kernel,
+      config 5 enc32 on the card count and on four virtual shards of card
+      0), then each config's kernel output on the config's own input at
+      the ladder's shape against the plain version within +-1 on at most
+      0.2% of bytes (roundtrip32 on config 2's (3, 2048, 3840) planes and
+      config 4's (64, 1088, 1920) frames, roundtrip32_rgb on config 3's
+      planes, the sharded encode of each config-5 image, which also
+      launches enc32 once a shard and equals the one-call encode); each
+      config's time an item (its line's ``ms_per_item``) beside a same-run
+      device-to-device copy of a call's bytes and the card's name and
+      power limit, where the time is queued device time (``timer``); each
+      example (``encode_decode``, ``video_pipeline``,
+      ``serving``, ``sharded``) as ``python -m
+      simd_dct_tpu_torch.examples.<name> --device cuda`` and ``--device
+      cpu``, the eight processes started together: both exit 0 and print
+      the same lines, each PSNR within 0.1 dB; then each ``main()`` in this
+      process (the card by default, the process's lines), counters set to
+      0 just before: the encode and decode kernels of its modes, the fused
+      round trip (serving) and the gather (sharded) must have launched.
 Phase 10 runs before phase 22 (whose profiler sessions, run first, once
 left phase 10's profiler without a self-ring kernel; where the profiler
 records none, the self-ring's time is null, never its call's wall); it
@@ -249,11 +273,15 @@ encode against the one-launch call.  Each phase logs its seconds.  The
 line before the last is a JSON object with one entry per kernel (its
 time, its bound, its share of the copy, its launches on its main path,
 on phase 21's (``launches_stream``) and on phase 22's
-(``launches_serve``) and in each process of phase 23 (``launches_procs``,
-rank order), the gather's row also its times across processes); the lines
-before it hold phase 21's stage walls and ratios, phase 22's walls, rates
-and command-line rows, phase 24's golden seconds and phase 23's results
-(``{"procs": ...}``); the last line is ``{"ok": true, "device": {...}}``.
+(``launches_serve``), on phase 25's in-process runs of the harness's
+configs (``launches_harness``) and of the examples (``launches_examples``)
+and in each process of phase 23 (``launches_procs``, rank order), the
+gather's row also its times across processes, the probe's row the card's
+launch floor: a one-element elementwise op by the same two estimators);
+the lines before it hold phase 21's stage walls and ratios, phase 22's
+walls, rates and command-line rows, phase 24's golden seconds, phase 25's
+lines (``{"ladder": ...}``) and phase 23's results (``{"procs": ...}``);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -281,6 +309,8 @@ from simd_dct_tpu_torch.layout import BASE_CHROMA_QUANT_TABLE
 from simd_dct_tpu_torch.layout.reorder import stereo_interleaved_to_views
 from simd_dct_tpu_torch.utils.debug import compare_backends
 from simd_dct_tpu_torch.utils.metrics import psnr
+from simd_dct_tpu_torch.utils.profiling import (queued_ms, sleep_cycles_per_ms,
+                                               wall_ms)
 
 DCT32 = "simd_dct_tpu_torch/csrc/dct32.cu"
 ENCQ = "simd_dct_tpu_torch/csrc/encq.cu"
@@ -986,16 +1016,11 @@ def random_rgb(gen, h, w, frames):
 
 
 def gate_rgb(h2: int = 1024, w: int = 3840) -> np.ndarray:
-    """The config-3 PSNR gate's input (simd_dct_tpu/bench/harness.py:62-66,
-    151-156): three correlated channels of one smooth field as the top
-    view of a (3, 2*h2, w) dual view whose bottom view is zero."""
-    rng = np.random.default_rng(8)
-    yy, xx = np.mgrid[0:h2, 0:w]
-    field = (128 + 45 * np.sin(xx / 9.0) * np.cos(yy / 7.0)
-             + 30 * (xx / max(w - 1, 1)) + rng.normal(0, 3, (h2, w)))
-    base = np.clip(field, 0, 255).astype(np.uint8).astype(np.float32)
-    top = np.clip(np.stack([base, base * 0.9 + 12, base * 0.8 + 25]), 0,
-                  255).astype(np.uint8)
+    """The config-3 PSNR gate's input (``bench.harness._gate_planes``:
+    three correlated channels of one smooth field) as the top view of a
+    (3, 2*h2, w) dual view whose bottom view is zero."""
+    from simd_dct_tpu_torch.bench.harness import _gate_planes
+    top = _gate_planes(h2, w)
     return np.concatenate([top, np.zeros_like(top)], axis=1)
 
 
@@ -2348,22 +2373,43 @@ FEED_RD_KERNELS = ("enc32", "dec32", "roundtrip32", "enc420_rgb",
                    "dec420_rgb")
 
 
-def run_module(args, timeout=300):
-    """``python -m <args>`` from the repository's root: its exit code must
-    be 0; returns its standard output."""
+def run_modules(arg_lists, timeout=300) -> list[str]:
+    """``python -m <args>`` for each argument list, all started together
+    from the repository's root: each exit code must be 0; returns their
+    standard outputs in order.  A process still running at ``timeout``
+    seconds is killed."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [root] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", *args], cwd=root, env=env,
-                          capture_output=True, text=True, timeout=timeout)
-    require(proc.returncode == 0,
-            f"python -m {' '.join(args[:1])} exits 0 "
-            f"(rc {proc.returncode}: {proc.stderr[-2000:]})")
-    log(f"  python -m {' '.join(os.path.basename(a) for a in args)}: "
-        f"{time.perf_counter() - t0:.2f} s")
-    return proc.stdout
+    procs = [subprocess.Popen([sys.executable, "-m", *args], cwd=root,
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for args in arg_lists]
+    outs = []
+    try:
+        for args, proc in zip(arg_lists, procs):
+            left = max(1.0, timeout - (time.perf_counter() - t0))
+            out, err = proc.communicate(timeout=left)
+            require(proc.returncode == 0,
+                    f"python -m {' '.join(args[:1])} exits 0 "
+                    f"(rc {proc.returncode}: {err[-2000:]})")
+            log(f"  python -m {' '.join(os.path.basename(a) for a in args)}"
+                f": {time.perf_counter() - t0:.2f} s")
+            outs.append(out)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return outs
+
+
+def run_module(args, timeout=300):
+    """``python -m <args>`` from the repository's root: its exit code must
+    be 0; returns its standard output."""
+    return run_modules([args], timeout)[0]
 
 
 def cli_rows(text: str) -> list[str]:
@@ -2912,76 +2958,210 @@ def phase_serve(gen, lut100):
     return counts, serve
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the BASELINE ladder (bench.harness) and the usage examples
+# ---------------------------------------------------------------------------
+
+# the kernels each harness config launches
+LADDER = {
+    "config1_lossless_roundtrip": (),
+    "config2_4k_rgb_roundtrip": ("roundtrip32",),
+    "config3_quantized_psnr": ("roundtrip32_rgb",),
+    "config4_video_batch": ("roundtrip32",),
+    "config5_sharded": ("enc32",),
+}
+# the virtual shards of card 0 config 5 also runs on
+LADDER_SHARDS = 4
+EXAMPLE_KERNELS = {
+    "encode_decode": ("enc32", "dec32", "enc_stereo", "dec_stereo"),
+    "video_pipeline": ("enc32", "dec32"),
+    "serving": ("enc32", "dec32", "roundtrip32"),
+    "sharded": ("enc32", "dec32", "enc_stereo", "dec_stereo", "ring_gather"),
+}
+DB_VALUE = re.compile(r"(\d+\.\d+) dB")
+
+
+def copy_ms(n_bytes: int, cycles_per_ms: float) -> float:
+    """ms of a device-to-device copy of n_bytes, queued over a rotation
+    larger than the L2 cache."""
+    pairs = [(torch.empty(n_bytes, dtype=torch.uint8, device=DEV),
+              torch.empty(n_bytes, dtype=torch.uint8, device=DEV))
+             for _ in range(max(2, -(-(64 << 20) // n_bytes)))]
+    return queued_ms(copy_pair, pairs, REPS, cycles_per_ms)
+
+
+def ladder_sharded(tag: str, kw: dict, errs: dict) -> None:
+    """Config 5 on its own input and mesh: one sharded encode launches enc32
+    once a shard, equals the one-call kernel encode byte for byte and the
+    plain version within +-1."""
+    from simd_dct_tpu_torch.bench import harness
+    mesh = harness._config5_mesh(**kw)
+    h, w = harness._config5_hw(mesh.size)
+    img = harness._random_u8(harness._generator(5, DEV), (h, w), DEV)
+    torch.cuda.synchronize()
+    cuda_dct.reset_launch_counts()
+    rec = harness._sharded_encode(img, mesh).full()
+    torch.cuda.synchronize()
+    log(f"  {tag}: one sharded encode of {h}x{w}, {mesh.size} shards, "
+        f"{cuda_dct.LAUNCHES['enc32']} enc32 launches")
+    require(cuda_dct.LAUNCHES["enc32"] == mesh.size,
+            "the sharded encode launches enc32 once a shard")
+    rec = rec.to(DEV)
+    require(torch.equal(rec, sd.encode_quantize32(
+        img, harness._lut100()).reshape(rec.shape)),
+        "the sharded encode equals the one-call encode")
+    agree(f"{tag} enc32 {h}x{w} against the plain version", rec,
+          torch_path.encode_quantize32(img, harness._lut100())
+          .reshape(rec.shape), errs, "enc32")
+
+
+def ladder_outputs(fn, tag: str, kw: dict, errs: dict) -> None:
+    """Each config's kernel output on the config's own input at the
+    ladder's shape, against the plain version (+-1 on at most 0.2%)."""
+    from simd_dct_tpu_torch.bench import harness
+    lut, chroma = harness._lut100(), harness._chroma100()
+    if fn is harness.config2_4k_rgb_roundtrip:
+        planes = harness._planar(harness._rgb_image(2, *harness.CONFIG2_HW),
+                                 DEV)
+        agree(f"{tag} roundtrip32 {tuple(planes.shape)}",
+              harness._roundtrip_planes(planes),
+              torch_path.roundtrip_quantize32(planes, lut), errs,
+              "roundtrip32")
+    elif fn is harness.config3_quantized_psnr:
+        planes = harness._planar(harness._rgb_image(3, *harness.CONFIG3_HW),
+                                 DEV)
+        agree(f"{tag} roundtrip32_rgb {tuple(planes.shape)}",
+              harness._color_roundtrip(planes),
+              torch_path.roundtrip_ycbcr32(planes, lut, chroma), errs,
+              "roundtrip32_rgb")
+    elif fn is harness.config4_video_batch:
+        frames = harness._random_u8(harness._generator(4, DEV),
+                                    harness.CONFIG4_SHAPE, DEV)
+        agree(f"{tag} roundtrip32 {tuple(frames.shape)}",
+              harness._roundtrip_planes(frames),
+              torch_path.roundtrip_quantize32(frames, lut), errs,
+              "roundtrip32")
+    elif fn is harness.config5_sharded:
+        ladder_sharded(tag, kw, errs)
+
+
+def ladder_config(fn, kw, kind: str, smi: str, cycles_per_ms: float,
+                  counts: dict, errs: dict) -> dict:
+    """One config in this process, counters set to 0 just before: its
+    kernels must have launched; then its kernel output on its own input
+    against the plain version; its time an item (the config's line) beside
+    a same-run copy of a call's bytes, where the time is queued device
+    time."""
+    kernels = LADDER[fn.__name__]
+    torch.cuda.synchronize()
+    cuda_dct.reset_launch_counts()
+    res = fn(**kw)
+    torch.cuda.synchronize()
+    ran = dict(cuda_dct.LAUNCHES)
+    tag = f"{fn.__name__}({', '.join(f'{k}={v}' for k, v in kw.items())})"
+    log(f"  {tag}: {json.dumps(res)}")
+    log(f"  {tag} launches: { {k: n for k, n in ran.items() if n} }")
+    require(res.get("device") == kind, f"{tag} ran on {kind}")
+    require(not any(ran.values()) if not kernels
+            else all(ran[k] > 0 for k in kernels),
+            f"{tag} launched {kernels or 'no kernel'}")
+    for k, n in ran.items():
+        counts[k] += n
+    ladder_outputs(fn, tag, kw, errs)
+    if "ms_per_item" not in res:
+        return {"config": tag, "result": res}
+    item_ms = res["ms_per_item"]
+    require(item_ms is not None, f"{tag} has a finite time")
+    out = {"config": tag, "result": res, "ms_per_item": item_ms}
+    if res["timer"] != "queued_events":
+        # the host's wall over several cards: no same-run copy to set it by
+        log(f"  {tag}: {item_ms:.4f} ms an item by {res['timer']} on {smi}")
+        return out
+    items = res["items_per_call"]
+    c_ms = copy_ms(res["bytes_per_item"] * items, cycles_per_ms) / items
+    log(f"  {tag}: {item_ms:.4f} ms an item, a device-to-device copy of "
+        f"its bytes {c_ms:.4f} ms ({c_ms / item_ms:.3f} of copy) on {smi}")
+    return {**out, "copy_ms_per_item": c_ms, "frac_of_copy": c_ms / item_ms}
+
+
+def same_lines(card: list[str], host: list[str], what: str) -> None:
+    """Equal lines, but each PSNR within 0.1 dB and the mesh's platform."""
+    require(len(card) == len(host), f"{what}: as many lines on both")
+    for a, b in zip(card, host):
+        a = a.replace(" on cuda", " on cpu") if a.startswith("mesh:") else a
+        require(DB_VALUE.sub("dB", a) == DB_VALUE.sub("dB", b),
+                f"{what}: {a!r} == {b!r}")
+        for x, y in zip(DB_VALUE.findall(a), DB_VALUE.findall(b)):
+            require(abs(float(x) - float(y)) <= 0.1,
+                    f"{what}: {a!r} within 0.1 dB of {b!r}")
+
+
+def phase_ladder(kind: str, smi: str, errs: dict):
+    """Phase 25: ``python -m simd_dct_tpu_torch.bench.harness`` in a process
+    of its own, then each config in this process; each example as ``python
+    -m ... --device cuda`` and ``--device cpu`` (all eight processes
+    together), then each ``main`` in this process.  Returns the launches
+    of the harness's and of the examples' in-process runs."""
+    import contextlib
+    import importlib
+    import io
+
+    from simd_dct_tpu_torch.bench import harness
+    log("phase 25: the BASELINE ladder and the usage examples on the card")
+    t0 = time.perf_counter()
+    lines = [json.loads(ln) for ln in run_module(
+        ["simd_dct_tpu_torch.bench.harness"], timeout=600).splitlines()
+        if ln.startswith("{")]
+    for ln in lines:
+        log(f"  harness: {json.dumps(ln)}")
+    require(len(lines) == 5 and not any("error" in ln for ln in lines),
+            "the harness prints five lines with no error")
+    require(lines[0]["bit_exact"] is True, "config 1 is bit-exact")
+    require(lines[2]["pass"] is True and lines[2]["gate"]["tol_db"] == 0.1
+            and lines[2]["tier"] == "cuda_fused_color",
+            "config 3's gate passes at 0.1 dB on the fused colour kernel")
+    cycles_per_ms = sleep_cycles_per_ms()
+    counts_h = dict.fromkeys(cuda_dct.LAUNCHES, 0)
+    runs = [(fn, {}) for fn in harness.ALL_CONFIGS] + [
+        (harness.config5_sharded,
+         {"devices": [f"{DEV}:0"] * LADDER_SHARDS})]
+    ladder = [ladder_config(fn, kw, kind, smi, cycles_per_ms, counts_h, errs)
+              for fn, kw in runs]
+    t_harness = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    names = list(EXAMPLE_KERNELS)
+    outs = run_modules([[f"simd_dct_tpu_torch.examples.{n}", "--device", d]
+                        for n in names for d in ("cuda", "cpu")])
+    counts_e = dict.fromkeys(cuda_dct.LAUNCHES, 0)
+    for i, name in enumerate(names):
+        card, host = outs[2 * i].splitlines(), outs[2 * i + 1].splitlines()
+        for ln in card:
+            log(f"  {name} (cuda): {ln}")
+        same_lines(card, host, f"{name} on the card and on the host")
+        module = importlib.import_module(f"simd_dct_tpu_torch.examples.{name}")
+        torch.cuda.synchronize()
+        cuda_dct.reset_launch_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            here = module.main([])
+        torch.cuda.synchronize()
+        ran = dict(cuda_dct.LAUNCHES)
+        log(f"  {name} main() launches: { {k: n for k, n in ran.items() if n} }")
+        require(here == card, f"{name}: main() prints the process's lines")
+        for k in EXAMPLE_KERNELS[name]:
+            require(ran[k] > 0, f"{name} launched {k}")
+        for k, n in ran.items():
+            counts_e[k] += n
+    t_examples = time.perf_counter() - t0
+    log(f"  phase 25: harness {t_harness:.2f} s, examples {t_examples:.2f} s")
+    return counts_h, counts_e, {"harness": lines, "in_process": ladder,
+                                "harness_s": t_harness,
+                                "examples_s": t_examples}
+
+
 def copy_pair(p):
     """Device-to-device copy of p[0] into p[1]: the same-run speed limit."""
     return p[1].copy_(p[0])
-
-
-def _events():
-    return (torch.cuda.Event(enable_timing=True),
-            torch.cuda.Event(enable_timing=True))
-
-
-def sleep_cycles_per_ms() -> float:
-    """Clock cycles of ``torch.cuda._sleep`` per millisecond on this card."""
-    torch.cuda._sleep(1000)
-    start, end = _events()
-    torch.cuda.synchronize()
-    start.record()
-    torch.cuda._sleep(10_000_000)
-    end.record()
-    end.synchronize()
-    return 1e7 / start.elapsed_time(end)
-
-
-def wall_ms(fn, inputs, reps):
-    """Median ms per call of back-to-back calls between two CUDA events:
-    the pace a caller sees, host launch cost included."""
-    for x in inputs[:2]:
-        fn(x)
-    torch.cuda.synchronize()
-    start, end = _events()
-    per_call = []
-    for _ in range(reps):
-        start.record()
-        for x in inputs:
-            fn(x)
-        end.record()
-        end.synchronize()
-        per_call.append(start.elapsed_time(end) / len(inputs))
-    return statistics.median(per_call)
-
-
-def queued_ms(fn, inputs, reps, cycles_per_ms):
-    """Median device ms per call by CUDA events, with the host's launch cost
-    hidden: each repetition queues the whole rotation behind a device-side
-    sleep, so the kernels run back to back.  A repetition counts only if
-    the host finished queueing before the device reached the first launch;
-    otherwise the sleep doubles.  fn must not synchronise."""
-    for x in inputs[:2]:
-        fn(x)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for x in inputs:
-        fn(x)
-    sleep_ms = 2e3 * (time.perf_counter() - t0) + 0.5
-    torch.cuda.synchronize()
-    start, end = _events()
-    per_call = []
-    while len(per_call) < reps:
-        require(sleep_ms < 1000, "the host queues a rotation within 1 s")
-        torch.cuda._sleep(int(sleep_ms * cycles_per_ms))
-        start.record()
-        for x in inputs:
-            fn(x)
-        end.record()
-        hidden = not start.query()
-        end.synchronize()
-        if hidden:
-            per_call.append(start.elapsed_time(end) / len(inputs))
-        else:
-            sleep_ms *= 2
-    return statistics.median(per_call)
 
 
 def profiled_us(fn, inputs, tries=3, match=None):
@@ -3220,6 +3400,16 @@ def phase_timing(gen, lut, lut_q, chroma, reps):
         wall_ms(torch_path.probe_trial, xs, reps) * 1e3
     rows["probe"] = (k_us / 1e3, p_us / 1e3, None, 2 * 8 * 128, 8 * 128)
     log(f"  probe (8,128): kernel {k_us:.3f} us  plain {p_us:.3f} us")
+    # the card's launch floor: a one-element elementwise op, by the same
+    # two estimators as the probe
+    ones = [torch.zeros(1, dtype=torch.uint8, device=DEV) for _ in range(16)]
+    rows["launch_floor"] = {
+        "queued_us": queued_ms(lambda x: x.add(1), ones, reps,
+                               cycles_per_ms) * 1e3,
+        "profiler_us": profiled_us(lambda x: x.add(1), ones)[0],
+        "probe_queued_us": k_us,
+        "probe_profiler_us": profiled_us(cuda_dct.probe_trial, xs)[0]}
+    log(f"  launch floor (one u8 element + 1): {rows['launch_floor']}")
     library = timing_dist(gen, lut_q, reps, cycles_per_ms, rows, table)
     log("timing_table " + json.dumps(table))
     return rows, library
@@ -3461,9 +3651,10 @@ def log_ptxas(lines) -> None:
             PTXAS[name] = "; ".join(filter(None, (PTXAS.get(name), text)))
 
 
-def main_cards(gen, kind, t_start) -> int:
+def main_cards(gen, kind, smi, t_start) -> int:
     """The dist phases with one shard on each of four cards: the gather's
-    peer stores, its flags across cards and the sharded entry points."""
+    peer stores, its flags across cards and the sharded entry points; and
+    phase 25's config 5 over the four cards."""
     require(torch.cuda.device_count() >= 4, "--cards 4 needs four cards")
     DIST_DEVICES[:] = [f"{DEV}:{i}" for i in range(4)]
     mesh = dist.make_mesh(4)
@@ -3480,6 +3671,10 @@ def main_cards(gen, kind, t_start) -> int:
     library = timed(timing_dist, gen, lut_q, REPS, sleep_cycles_per_ms(),
                     rows, table)
     procs, procs_results = timed(phase_procs, lut_q, DIST_DEVICES)
+    from simd_dct_tpu_torch.bench import harness
+    counts_h = dict.fromkeys(cuda_dct.LAUNCHES, 0)
+    ladder = timed(ladder_config, harness.config5_sharded, {}, kind, smi,
+                   sleep_cycles_per_ms(), counts_h, errs)
     log(f"chip_smoke --cards 4: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"procs": procs}))
@@ -3488,7 +3683,7 @@ def main_cards(gen, kind, t_start) -> int:
         "launches_procs": {k: [r["launches"][k] for r in procs_results]
                            for k in ("ring_gather", "enc32", "dec32",
                                      "enc_stereo", "roundtrip32")},
-        "library_ms": library, "timing": table}))
+        "library_ms": library, "timing": table, "ladder": ladder}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
@@ -3508,7 +3703,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cards", type=int, choices=(1, 4), default=1,
                     help="4: one dist shard on each of four cards, and only "
-                    "the build and the dist phases")
+                    "the build, the dist phases and the harness's config 5")
     ap.add_argument("--procs-worker", type=int, default=None,
                     metavar="RANK", help=argparse.SUPPRESS)
     ap.add_argument("--world", type=int, default=2, help=argparse.SUPPRESS)
@@ -3545,7 +3740,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=DEV).manual_seed(args.seed)
     if args.cards == 4:
-        return main_cards(gen, kind, t_start)
+        return main_cards(gen, kind, smi.stdout.strip(), t_start)
     lut = default_quant_lut(50) * np.float32(255.0)
     errs: dict[str, int] = {}
     timed(phase_compare, gen, lut, errs)
@@ -3581,6 +3776,8 @@ def main(argv=None) -> int:
     # phase 10's profiler recorded no self-ring kernel in two runs of five
     times, library = timed(phase_timing, gen, lut100, lut_q, chroma100, REPS)
     counts_serve, serve = timed(phase_serve, gen, lut100)
+    counts_h, counts_e, ladder = timed(phase_ladder, kind, smi.stdout.strip(),
+                                       errs)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     launches = {"mode32": counts, "enc-quant": counts_q, "stereo": counts_s,
@@ -3590,6 +3787,7 @@ def main(argv=None) -> int:
     log(json.dumps({"stream": {"stages": stages, "ratios": ratios}}))
     log(json.dumps({"serve": serve}))
     log(json.dumps({"golden": golden}))
+    log(json.dumps({"ladder": ladder}))
     log(json.dumps({"procs": procs}))
     rows = kernel_rows(launches, errs, times, library)
     add_procs(rows, procs_results, procs["one_process"])
@@ -3598,6 +3796,12 @@ def main(argv=None) -> int:
         row["launches_stream"] = counts_z[row["name"]]
         # launches on phase 22's run of the serving surfaces
         row["launches_serve"] = counts_serve[row["name"]]
+        # launches on phase 25's in-process runs of the harness's configs
+        # and of the examples' main()
+        row["launches_harness"] = counts_h[row["name"]]
+        row["launches_examples"] = counts_e[row["name"]]
+        if row["name"] == "probe":
+            row["launch_floor"] = times["launch_floor"]
         if row["name"] in ("tiles", "detile"):
             row["identity_mismatches"] = sum(
                 n for k, n in identities.items()

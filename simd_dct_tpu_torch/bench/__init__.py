@@ -1,5 +1,7 @@
-"""Benchmark statistics (the reference's rdtsc / QPC statistics loop) and
-the rate-distortion sweep (``bench.rd``, imported on demand)."""
+"""Benchmark statistics (the reference's rdtsc / QPC statistics loop), the
+rate-distortion sweep (``bench.rd``) and the BASELINE config ladder
+(``bench.harness``, ``python -m simd_dct_tpu_torch.bench.harness``), the
+last two imported on demand."""
 
 from .stats import (
     MAX_RUN_COUNT, DEFAULT_RUN_COUNT, RunStats, HEADER, time_fn,

@@ -143,14 +143,17 @@ class Mesh:
                 f"{[str(d) for d in self.devices.flat]}{procs})")
 
 
-def _devices_for(need: int, devices) -> list[torch.device]:
-    """The first ``need`` of ``devices``, by default the cards; a
-    ValueError when there are fewer (never a fallback to the CPU)."""
+def _devices_for(need: int | None, devices) -> list[torch.device]:
+    """The first ``need`` of ``devices`` (all of them when ``need`` is
+    None), by default the cards; a ValueError when there are fewer (never
+    a fallback to the CPU)."""
     if devices is None:
         count = torch.cuda.device_count() if torch.cuda.is_available() else 0
         devs = [torch.device("cuda", i) for i in range(count)]
     else:
         devs = [_device(d) for d in devices]
+    if need is None:
+        return devs
     if len(devs) < need:
         raise ValueError(
             f"need {need} devices, have {len(devs)}"
@@ -236,7 +239,7 @@ def make_mesh(num_devices: int | None = None, axis_name: str = DATA_AXIS,
     if world is not None and world[1] > 1:
         return _world_mesh((num_devices or world[1],), (axis_name,), devices)
     if num_devices is None:
-        num_devices = len(_devices_for(0, devices)) or 1
+        num_devices = len(_devices_for(None, devices)) or 1
     return Mesh(_devices_for(num_devices, devices), (axis_name,),
                 rank=0 if world is None else world[0])
 

@@ -2,7 +2,9 @@
 ``simd_dct_tpu/utils/profiling.py``; the reference's rdtsc + mfence harness,
 src/main.cpp:508-592, re-expressed for a CUDA card: walls ended by a CUDA
 event synchronise, ``torch.profiler`` traces, and fraction-of-roofline
-reporting).
+reporting).  ``queued_ms`` is the device time a call: CUDA events around
+calls queued behind a device-side sleep, so the host's launch cost stays
+out of the reading; ``chip_smoke.py`` and ``bench.harness`` time with it.
 
 Device rule: work runs on the card unless the caller asks for the host
 (``device="cpu"``, or CPU tensors among ``measure``'s arguments); on a
@@ -15,6 +17,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
+import statistics
 import time
 
 import torch
@@ -157,3 +160,76 @@ def measure(fn, args=(), *, bytes_processed: int, runs: int = 16,
     del results
     return RooflineReport(bytes_processed=bytes_processed, seconds=dt,
                           device_kind=_device_kind(dev))
+
+
+# -- device time per call on the card -----------------------------------------
+
+def _events():
+    return (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+
+
+def sleep_cycles_per_ms() -> float:
+    """Clock cycles of ``torch.cuda._sleep`` per millisecond on the current
+    card."""
+    torch.cuda._sleep(1000)
+    start, end = _events()
+    torch.cuda.synchronize()
+    start.record()
+    torch.cuda._sleep(10_000_000)
+    end.record()
+    end.synchronize()
+    return 1e7 / start.elapsed_time(end)
+
+
+def wall_ms(fn, inputs, reps):
+    """Median ms per call of back-to-back calls between two CUDA events:
+    the pace a caller sees, host launch cost included."""
+    for x in inputs[:2]:
+        fn(x)
+    torch.cuda.synchronize()
+    start, end = _events()
+    per_call = []
+    for _ in range(reps):
+        start.record()
+        for x in inputs:
+            fn(x)
+        end.record()
+        end.synchronize()
+        per_call.append(start.elapsed_time(end) / len(inputs))
+    return statistics.median(per_call)
+
+
+def queued_ms(fn, inputs, reps, cycles_per_ms):
+    """Median device ms per call by CUDA events, with the host's launch cost
+    hidden: each repetition queues the whole rotation behind a device-side
+    sleep, so the kernels run back to back.  A repetition counts only if
+    the host finished queueing before the device reached the first launch;
+    otherwise the sleep doubles.  Rotate over inputs larger than the L2
+    cache (50 MB on an H100) to time reads from device memory.  fn must
+    not synchronise."""
+    for x in inputs[:2]:
+        fn(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for x in inputs:
+        fn(x)
+    sleep_ms = 2e3 * (time.perf_counter() - t0) + 0.5
+    torch.cuda.synchronize()
+    start, end = _events()
+    per_call = []
+    while len(per_call) < reps:
+        if sleep_ms >= 1000:
+            raise RuntimeError("the host did not queue a rotation within 1 s")
+        torch.cuda._sleep(int(sleep_ms * cycles_per_ms))
+        start.record()
+        for x in inputs:
+            fn(x)
+        end.record()
+        hidden = not start.query()
+        end.synchronize()
+        if hidden:
+            per_call.append(start.elapsed_time(end) / len(inputs))
+        else:
+            sleep_ms *= 2
+    return statistics.median(per_call)

@@ -396,6 +396,11 @@ def test_import_pulls_in_no_jax():
             "simd_dct_tpu_torch.cli, simd_dct_tpu_torch.utils.feed, "
             "simd_dct_tpu_torch.utils.profiling, "
             "simd_dct_tpu_torch.bench.stats, simd_dct_tpu_torch.bench.rd, "
+            "simd_dct_tpu_torch.bench.harness, "
+            "simd_dct_tpu_torch.examples.encode_decode, "
+            "simd_dct_tpu_torch.examples.video_pipeline, "
+            "simd_dct_tpu_torch.examples.serving, "
+            "simd_dct_tpu_torch.examples.sharded, "
             "simd_dct_tpu_torch.layout.zigzag, "
             "simd_dct_tpu_torch.core.golden, "
             "simd_dct_tpu_torch.core.butterfly, "

@@ -110,6 +110,23 @@ def test_make_mesh_with_too_few_cards_raises(build):
             TD.make_mesh_2d((1, need))
 
 
+@pytest.mark.parametrize("given", ["devices", "cards"])
+def test_make_mesh_without_a_count_takes_every_device(given, monkeypatch):
+    """As the JAX make_mesh (simd_dct_tpu/dist/mesh.py:23, "default: all"):
+    with no count the mesh spans every device given, or every card (the
+    harness's config 5 shards over every card this way)."""
+    if given == "devices":
+        mesh = TD.make_mesh(devices=["cpu"] * 3)
+        assert mesh.size == 3 and mesh.device_type == "cpu"
+        return
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    mesh = TD.make_mesh()
+    assert mesh.shape == {"data": 4}
+    assert [str(d) for d in mesh.devices.flat] == [
+        f"cuda:{i}" for i in range(4)]
+
+
 def test_mixed_cpu_cuda_mesh_raises():
     with pytest.raises(T.InvalidParameterError, match="all CPU or all CUDA"):
         TD.make_mesh(2, devices=["cpu", "cuda:0"])
