@@ -2,20 +2,21 @@
 gloo, and the pure pieces of the gather across processes.
 
 The two-process test runs this file as a script in two processes (the
-worker below, as ``tests/test_dist.py:262-300`` runs ``_dist_worker.py``,
-with the same 240 s limit a process).  Each worker bootstraps through
-``dist.initialize_distributed`` (a ``TCPStore`` on 127.0.0.1, the gloo
-group), builds a mesh of the two ranks on the CPU, runs the strip-sharded
-stereo encode at 512x128 (``_dist_worker.py``'s geometry and seed) with
-``gather=True`` -- the plain version across processes, an all-gather over
-gloo -- and a strip-sharded mode32 encode, and saves its gathered bytes
-and its local mode32 shard.  The test holds both processes' gathered bytes
-to the JAX package's XLA tier (``xla_path.encode_quantize_stereo`` for the
-interleaved stream, ``api.encode_quantize_stereo(view_layout="native",
-backend="xla")`` for the native planes), and each mode32 shard to the JAX
-single-device encode's rows, computed here on the same seeded input: equal
-byte for byte (the port's plain version and the JAX XLA tier agree exactly
-on this input).
+worker below, as ``test_dist.py::test_two_process_cpu_cluster`` runs
+``_dist_worker.py``), under one 120 s deadline for both processes.  Each
+worker bootstraps through ``dist.initialize_distributed`` (a ``TCPStore``
+on 127.0.0.1, the gloo group), builds a mesh of the two ranks on the CPU,
+runs the strip-sharded stereo encode at 512x128 (``_dist_worker.py``'s
+geometry and seed) with ``gather=True`` -- the plain version across
+processes, an all-gather over gloo -- and a strip-sharded mode32 encode,
+and saves its gathered bytes and its local mode32 shard.  The test holds
+both processes' gathered bytes to the JAX package's XLA tier
+(``xla_path.encode_quantize_stereo`` for the interleaved stream,
+``api.encode_quantize_stereo(view_layout="native", backend="xla")`` for
+the native planes), and each mode32 shard to the JAX single-device
+encode's rows, computed here on the same seeded input: equal byte for byte
+(the port's plain version and the JAX XLA tier agree exactly on this
+input).
 
 The kernel's side of the gather across processes needs a card
 (``tests/test_torch_cuda.py``); here its descriptors are built from fake
@@ -30,6 +31,7 @@ import socket
 import subprocess
 import sys
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -123,9 +125,11 @@ def two_processes(tmp_path_factory):
         cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for pid in (0, 1)]
     outs = []
+    deadline = time.monotonic() + 120     # one deadline for both processes
     try:
         for p in procs:
-            text, _ = p.communicate(timeout=240)
+            text, _ = p.communicate(
+                timeout=max(0.0, deadline - time.monotonic()))
             outs.append(text)
     finally:
         for p in procs:
